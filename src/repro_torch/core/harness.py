@@ -1,0 +1,489 @@
+"""The HPAC execution harness (paper section 2.3 "Design of HPAC"), ported
+from `repro.core.harness`.
+
+"The HPAC execution harness exhaustively explores the space of user-provided
+approximation techniques and parameters. [...] After executing the
+approximated program, the harness calculates and saves runtime information
+and error to a database."
+
+`sweep` does exactly that over a grid of ApproxSpecs for an application that
+follows the `ApproxApp` protocol; results land in a JSON "database" consumed
+by benchmarks/ (one module per paper figure).
+
+v2 engine (see docs/harness.md):
+
+* **Resumable.** The database is a keyed cache: every row carries
+  ``spec_hash``, the canonical hash of its spec dict, and ``sweep`` skips
+  any (app, spec_hash) pair already present in ``db_path``. Interrupted or
+  extended sweeps are therefore safe to re-invoke; re-running over a denser
+  grid evaluates only the new points.
+* **Parallel.** ``sweep(..., jobs=N)`` evaluates independent specs
+  concurrently: through the app's opt-in batched runner
+  (``ApproxApp.run_batch``, which runs a group of specs that share their
+  structure one lane after another) when one is provided, otherwise via a
+  thread pool.
+* **Interoperable.** `mape`/`mcr`, `Record`, `spec_to_dict`/
+  `spec_from_dict`, `spec_hash` and the DB row format are identical to the
+  JAX package's, so result DBs from the two packages share cache keys.
+* **Pareto-aware.** ``pareto`` consumes the same Record stream:
+  ``pareto_front`` extracts the error/speedup front.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import itertools
+import json
+import os
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
+
+import numpy as np
+
+from .. import obs
+from ..obs import trace
+
+from . import substrate as substrate_mod
+from .types import (ApproxSpec, IACTParams, Level, PerforationKind,
+                    PerforationParams, TAFParams, Technique)
+
+
+def mape(o_ac: np.ndarray, o_ap: np.ndarray, eps: float = 1e-30) -> float:
+    """Mean absolute percent error -- paper Eq. (1)."""
+    o_ac = np.asarray(o_ac, np.float64).ravel()
+    o_ap = np.asarray(o_ap, np.float64).ravel()
+    return float(np.mean(np.abs(o_ac - o_ap) /
+                         np.maximum(np.abs(o_ac), eps)))
+
+
+def mcr(o_ac: np.ndarray, o_ap: np.ndarray) -> float:
+    """Misclassification rate -- paper Eq. (2) (used for K-Means)."""
+    o_ac = np.asarray(o_ac).ravel()
+    o_ap = np.asarray(o_ap).ravel()
+    return float(np.mean(o_ac != o_ap))
+
+
+ERROR_METRICS = {"mape": mape, "mcr": mcr}
+
+
+@dataclasses.dataclass
+class AppResult:
+    """What one approximated execution returns to the harness."""
+
+    qoi: np.ndarray                   # quantity of interest (paper Table 1)
+    wall_time_s: float                # measured end-to-end (or kernel) time
+    approx_fraction: float = 0.0      # fraction of invocations approximated
+    flop_fraction: float = 1.0        # executed FLOPs / accurate FLOPs
+    extra: Dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class ApproxApp:
+    """An application under study (one row of paper Table 1).
+
+    run_batch is the opt-in batchable-runner protocol: given a list of
+    specs it returns one AppResult per spec, in order. Apps that can stack
+    spec parameters into a single jitted/vmapped evaluation (see
+    examples/apps/blackscholes.py) implement it to amortize compilation and
+    device dispatch; `sweep(jobs>1)` uses it when present and falls back to
+    a host thread pool otherwise.
+    """
+
+    name: str
+    run: Callable[[ApproxSpec], AppResult]   # execute with a given spec
+    error_metric: str = "mape"               # 'mape' or 'mcr'
+    run_batch: Optional[
+        Callable[[Sequence[ApproxSpec]], List[AppResult]]] = None
+    # Workload fingerprint (problem sizes, seeds, ...). Part of the DB cache
+    # key: the same app name at a different size must not share cached rows.
+    workload: Dict = dataclasses.field(default_factory=dict)
+
+    def exact(self) -> AppResult:
+        return self.run(ApproxSpec())
+
+    @property
+    def workload_hash(self) -> str:
+        return workload_hash(self.workload)
+
+
+def workload_hash(workload: Dict) -> str:
+    """Fingerprint of an app's workload parameters ("" = unspecified)."""
+    if not workload:
+        return ""
+    d = {k: _norm_value(v) for k, v in workload.items()}
+    return hashlib.sha1(json.dumps(
+        d, sort_keys=True, separators=(",", ":"), default=str
+    ).encode()).hexdigest()[:12]
+
+
+@dataclasses.dataclass
+class Record:
+    app: str
+    spec: Dict
+    error: float
+    speedup: float                 # measured wall-time speedup vs exact
+    modeled_speedup: float         # 1 / flop_fraction: the structural bound
+    approx_fraction: float
+    wall_time_s: float
+    exact_time_s: float
+    extra: Dict
+    spec_hash: str = ""            # canonical cache key (filled by the engine)
+    workload: Dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if not self.spec_hash:
+            self.spec_hash = spec_hash(self.spec)
+
+    def to_json(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def spec_to_dict(spec: ApproxSpec) -> Dict:
+    d: Dict = {"technique": spec.technique.value, "level": spec.level.value}
+    if spec.taf:
+        d.update(hSize=spec.taf.history_size, pSize=spec.taf.prediction_size,
+                 thresh=spec.taf.rsd_threshold)
+    if spec.iact:
+        d.update(tSize=spec.iact.table_size, thresh=spec.iact.threshold,
+                 tPerBlock=spec.iact.tables_per_block)
+    if spec.perforation:
+        d.update(kind=spec.perforation.kind.value, skip=spec.perforation.skip,
+                 fraction=spec.perforation.fraction,
+                 herded=spec.perforation.herded)
+    return d
+
+
+def spec_from_dict(d: Dict) -> ApproxSpec:
+    """Inverse of spec_to_dict -- reconstruct the ApproxSpec a DB row or a
+    Pareto-refinement candidate describes."""
+    tech = Technique(d.get("technique", "none"))
+    level = Level(d.get("level", "element"))
+    if tech == Technique.TAF:
+        return ApproxSpec(tech, level, taf=TAFParams(
+            history_size=int(d["hSize"]), prediction_size=int(d["pSize"]),
+            rsd_threshold=float(d["thresh"])))
+    if tech == Technique.IACT:
+        return ApproxSpec(tech, level, iact=IACTParams(
+            table_size=int(d["tSize"]), threshold=float(d["thresh"]),
+            tables_per_block=int(d["tPerBlock"])))
+    if tech == Technique.PERFORATION:
+        return ApproxSpec(tech, level, perforation=PerforationParams(
+            kind=PerforationKind(d["kind"]), skip=int(d.get("skip", 4)),
+            fraction=float(d.get("fraction", 0.25)),
+            herded=bool(d.get("herded", True))))
+    return ApproxSpec()
+
+
+def _norm_value(v):
+    """Value normalization for hashing: integral floats become ints so a
+    spec hashes identically before and after a JSON round-trip (5 vs 5.0)."""
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, float) and v.is_integer():
+        return int(v)
+    return v
+
+
+def spec_key(spec: Union[ApproxSpec, Dict]) -> str:
+    """Canonical JSON form of a spec (sorted keys, value-normalized) -- the
+    string that gets hashed into the DB cache key."""
+    d = spec_to_dict(spec) if isinstance(spec, ApproxSpec) else dict(spec)
+    d = {k: _norm_value(v) for k, v in d.items()}
+    return json.dumps(d, sort_keys=True, separators=(",", ":"))
+
+
+def spec_hash(spec: Union[ApproxSpec, Dict]) -> str:
+    return hashlib.sha1(spec_key(spec).encode()).hexdigest()[:12]
+
+
+def record_from_row(row: Dict) -> Record:
+    """Rehydrate a DB row (schema v1 rows lack spec_hash: it is recomputed)."""
+    fields = {f.name for f in dataclasses.fields(Record)}
+    return Record(**{k: v for k, v in row.items() if k in fields})
+
+
+def _timed(fn: Callable[[], AppResult], repeats: int) -> AppResult:
+    """Best-of-N timing: the paper runs 3 trials (8 for Blackscholes) and
+    reports means; on a shared CPU container min-of-N is the lower-noise
+    statistic, and the result payload is identical across repeats."""
+    best: Optional[AppResult] = None
+    for _ in range(max(1, repeats)):
+        r = fn()
+        if best is None or r.wall_time_s < best.wall_time_s:
+            best = r
+    return best
+
+
+def _make_record(app: ApproxApp, spec: ApproxSpec, res: AppResult,
+                 exact: AppResult) -> Record:
+    metric = ERROR_METRICS[app.error_metric]
+    return Record(
+        app=app.name,
+        spec=spec_to_dict(spec),
+        error=metric(exact.qoi, res.qoi),
+        speedup=exact.wall_time_s / max(res.wall_time_s, 1e-12),
+        modeled_speedup=1.0 / max(res.flop_fraction, 1e-12),
+        approx_fraction=float(res.approx_fraction),
+        wall_time_s=res.wall_time_s,
+        exact_time_s=exact.wall_time_s,
+        extra=res.extra,
+        workload=dict(app.workload),
+    )
+
+
+# apps whose run_batch already triggered the serial-fallback warning (one
+# warning per app per process, not one per chunk)
+_WARNED_BATCH_FALLBACK: set = set()
+
+
+def _run_batched(app: ApproxApp, specs: Sequence[ApproxSpec], repeats: int,
+                 batch_size: int) -> List[AppResult]:
+    """Batched-runner path: chunk specs and take the per-spec best of N
+    batch invocations (same best-of-N statistic as _timed).
+
+    A chunk whose run_batch raises falls back to the serial path, per spec,
+    with the FULL repeat count: batch-amortized and serial wall times are
+    not comparable best-of-N candidates, so partial batch repeats are
+    discarded rather than mixed in, and one bad batch cannot abort a sweep.
+    Protocol violations (wrong result count) still raise -- that is an app
+    bug, not a transient evaluation failure.
+    """
+    out: List[AppResult] = []
+    for lo in range(0, len(specs), max(1, batch_size)):
+        chunk = list(specs[lo:lo + max(1, batch_size)])
+        best: List[Optional[AppResult]] = [None] * len(chunk)
+        failed = False
+        for _ in range(max(1, repeats)):
+            try:
+                results = app.run_batch(chunk)
+            except Exception as e:
+                if app.name not in _WARNED_BATCH_FALLBACK:
+                    _WARNED_BATCH_FALLBACK.add(app.name)
+                    warnings.warn(
+                        f"{app.name}.run_batch failed ({type(e).__name__}: "
+                        f"{e}); falling back to the serial path for the "
+                        "affected chunks. A deterministic failure here "
+                        "silently costs the batched speedup -- fix the "
+                        "app's group runner.")
+                failed = True
+                break
+            if len(results) != len(chunk):
+                raise ValueError(
+                    f"{app.name}.run_batch returned {len(results)} results "
+                    f"for {len(chunk)} specs")
+            for i, r in enumerate(results):
+                if best[i] is None or r.wall_time_s < best[i].wall_time_s:
+                    best[i] = r
+        if failed:
+            best = [_timed(lambda s=s: app.run(s), repeats) for s in chunk]
+        out.extend(best)
+    return out
+
+
+def run_specs(app: ApproxApp, specs: Sequence[ApproxSpec], repeats: int = 1,
+              jobs: int = 1, *,
+              substrate: Optional[str] = None) -> List[AppResult]:
+    """Evaluate specs with best-of-`repeats` timing, dispatching to the
+    app's batched runner (chunks of `jobs`) or a thread pool when jobs > 1.
+    The single parallel-dispatch path shared by sweep and the autotuners.
+
+    `substrate` ("host" / "cuda") scopes the ambient execution substrate
+    for the whole evaluation (see `core/substrate.py`); apps that pinned one
+    at construction are unaffected.
+    """
+    specs = list(specs)
+
+    def _one(s: ApproxSpec) -> AppResult:
+        # per-spec span (thread-safe: the tracer locks appends and tags
+        # each record with its emitting thread)
+        with trace.span("harness.spec", app=app.name,
+                        technique=s.technique.name):
+            return _timed(lambda: app.run(s), repeats)
+
+    with substrate_mod.use(substrate):
+        if jobs > 1 and app.run_batch is not None:
+            return _run_batched(app, specs, repeats, batch_size=jobs)
+        if jobs > 1:
+            with ThreadPoolExecutor(max_workers=jobs) as pool:
+                return list(pool.map(_one, specs))
+        return [_one(s) for s in specs]
+
+
+def sweep(app: ApproxApp, specs: Iterable[ApproxSpec], repeats: int = 3,
+          db_path: Optional[str] = None, verbose: bool = False, *,
+          jobs: int = 1, resume: bool = True,
+          substrate: Optional[str] = None) -> List[Record]:
+    """Run `app` once per spec (plus the exact baseline), computing error
+    vs. the exact QoI and speedups; append new results to the JSON database.
+
+    Resume semantics: when `db_path` exists and `resume` is True (the
+    default), specs whose (app name, spec_hash) is already in the DB are NOT
+    re-executed -- their cached rows are returned as Records in grid order.
+    A sweep whose grid is fully cached performs zero executions (the exact
+    baseline is also skipped). Only newly-evaluated rows are appended, so
+    re-invocation is idempotent.
+
+    Parallelism: `jobs > 1` evaluates uncached specs concurrently -- via
+    `app.run_batch` (chunks of `jobs` specs per batch call) when the app
+    provides one, otherwise via a `jobs`-wide thread pool. Records come
+    back in grid order regardless of completion order, with the same
+    spec/error/modeled_speedup content as a serial sweep. Wall-clock
+    fields are per-run measurements: under the thread pool they include
+    contention noise, and a batched runner reports batch time amortized
+    per spec -- compare wall-time speedups only across rows produced the
+    same way.
+
+    `substrate`: ambient execution substrate for the evaluations (exact
+    baseline included) -- see `run_specs`. Apps whose substrate matters to
+    their results should bake it into `workload` so DB cache keys do not
+    collide across substrates.
+    """
+    specs = list(specs)
+    hashes = [spec_hash(s) for s in specs]
+
+    cached: Dict[str, Record] = {}
+    if db_path and resume and os.path.exists(db_path):
+        want = set(hashes)
+        wkey = app.workload_hash
+        for row in load_db(db_path):
+            h = row.get("spec_hash") or spec_hash(row.get("spec", {}))
+            if (row.get("app") == app.name and h in want and h not in cached
+                    and workload_hash(row.get("workload", {})) == wkey):
+                row = dict(row, spec_hash=h)
+                cached[h] = record_from_row(row)
+
+    # Dedupe uncached work (a grid may legitimately repeat a canonical spec).
+    todo: List[Tuple[str, ApproxSpec]] = []
+    seen = set()
+    for h, s in zip(hashes, specs):
+        if h not in cached and h not in seen:
+            seen.add(h)
+            todo.append((h, s))
+
+    obs.count(f"sweep.{app.name}.cache_hits", float(len(cached)))
+    obs.count(f"sweep.{app.name}.evaluated", float(len(todo)))
+    fresh: Dict[str, Record] = {}
+    if todo:
+        with substrate_mod.use(substrate):
+            with trace.span("harness.exact", app=app.name):
+                exact = _timed(lambda: app.exact(), repeats)
+        with trace.span("harness.sweep", app=app.name, specs=len(todo),
+                        cached=len(cached), jobs=jobs):
+            results = run_specs(app, [s for _, s in todo], repeats, jobs,
+                                substrate=substrate)
+        for (h, s), res in zip(todo, results):
+            rec = _make_record(app, s, res, exact)
+            fresh[h] = rec
+            if verbose:
+                print(f"[{app.name}] {rec.spec} err={rec.error:.4g} "
+                      f"speedup={rec.speedup:.2f}x "
+                      f"modeled={rec.modeled_speedup:.2f}x")
+
+    if db_path and fresh:
+        # resume=False means "re-measure": the fresh rows must replace any
+        # stale cached rows instead of being dropped by the append dedupe.
+        save_db(list(fresh.values()), db_path, append=True,
+                overwrite=not resume)
+    return [cached[h] if h in cached else fresh[h] for h in hashes]
+
+
+def save_db(records: Sequence[Record], path: str, append: bool = False,
+            overwrite: bool = False) -> None:
+    """Persist records. With append=True, existing rows are kept and, by
+    default, incoming rows that duplicate an existing cache key
+    (app, spec_hash, workload_hash) are dropped, so repeated saves of the
+    same sweep are idempotent. overwrite=True flips the precedence: the
+    incoming rows replace same-key existing rows (used by resume=False
+    re-measurement)."""
+    rows = [r.to_json() for r in records]
+    if append and os.path.exists(path):
+        existing = load_db(path)
+        if overwrite:
+            incoming = {_row_key(r) for r in rows}
+            rows = [r for r in existing
+                    if _row_key(r) not in incoming] + rows
+        else:
+            have = {_row_key(r) for r in existing}
+            rows = existing + [r for r in rows if _row_key(r) not in have]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(rows, f, indent=1)
+    os.replace(tmp, path)
+
+
+def load_db(path: str) -> List[Dict]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _row_key(row: Dict) -> Tuple[str, str, str]:
+    return (row.get("app"),
+            row.get("spec_hash") or spec_hash(row.get("spec", {})),
+            workload_hash(row.get("workload", {})))
+
+
+def db_index(rows: Sequence[Dict]) -> Dict[Tuple[str, str, str], Dict]:
+    """Index DB rows by their cache key (app, spec_hash, workload_hash)."""
+    out: Dict[Tuple[str, str, str], Dict] = {}
+    for row in rows:
+        out.setdefault(_row_key(row), row)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# Parameter grids (paper Table 2)
+# ----------------------------------------------------------------------------
+
+def taf_grid(h_sizes=(1, 2, 3, 4, 5), p_sizes=(2, 8, 32, 128, 512),
+             thresholds=(0.3, 0.6, 0.9, 1.2, 1.5, 3, 5, 20),
+             levels=(Level.ELEMENT, Level.TILE)) -> List[ApproxSpec]:
+    return [ApproxSpec(Technique.TAF, lv,
+                       taf=TAFParams(h, p, t))
+            for h, p, t, lv in itertools.product(h_sizes, p_sizes, thresholds,
+                                                 levels)]
+
+
+def iact_grid(t_sizes=(1, 2, 4, 8),
+              thresholds=(0.1, 0.3, 0.5, 0.7, 0.9, 3, 5, 20),
+              tables_per_block=(1, 2, 16, 32),
+              levels=(Level.ELEMENT, Level.TILE)) -> List[ApproxSpec]:
+    return [ApproxSpec(Technique.IACT, lv,
+                       iact=IACTParams(s, t, w))
+            for s, t, w, lv in itertools.product(t_sizes, thresholds,
+                                                 tables_per_block, levels)]
+
+
+def perfo_grid(skips=(2, 4, 8, 16, 32, 64),
+               fractions=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9),
+               kinds=(PerforationKind.SMALL, PerforationKind.LARGE,
+                      PerforationKind.INI, PerforationKind.FINI),
+               herded=(True,)) -> List[ApproxSpec]:
+    out = []
+    for k in kinds:
+        if k in (PerforationKind.SMALL, PerforationKind.LARGE):
+            for m in skips:
+                for h in herded:
+                    out.append(ApproxSpec(
+                        Technique.PERFORATION,
+                        perforation=PerforationParams(kind=k, skip=m, herded=h)))
+        else:
+            for fr in fractions:
+                for h in herded:
+                    out.append(ApproxSpec(
+                        Technique.PERFORATION,
+                        perforation=PerforationParams(kind=k, fraction=fr,
+                                                      herded=h)))
+    return out
+
+
+def best_speedup_under_error(records: Sequence[Record], max_error: float = 0.10,
+                             use_modeled: bool = False) -> Optional[Record]:
+    """Paper Figure 6 statistic: fastest configuration whose error < bound."""
+    ok = [r for r in records if r.error < max_error]
+    if not ok:
+        return None
+    key = (lambda r: r.modeled_speedup) if use_modeled else (lambda r: r.speedup)
+    return max(ok, key=key)
