@@ -28,7 +28,23 @@ failure could still exit 0):
   6. per-kernel CUDA-event times at the main path's shapes: the kernel, its
      plain version, one PyTorch library call computing the same function
      (a yardstick the port never calls) and the least time the card could
-     take (bound).
+     take (bound); K4 at the FFN down-projection (x (4096, 6144) @ w
+     (6144, 2048), block_k 128, SMALL skip 2);
+  7. the kernel-engineering path: `measure_machine` on the card, then
+     `repro_torch.benchmarks.kernel_micro` at its `ref` and `full`
+     geometries, with the launch counts set to 0 just before and read just
+     after: oracle parity, pipeline parity, zero kernel-library builds in
+     the threshold sweep, and the autotuner on all four kernels (every
+     tuned config valid and launched; K4 launched). The full geometry's
+     tuning cache lands in chiprun_out/kernel_micro_full/.
+
+K4 (perforated matmul) is held against its plain version in phase 3 at
+256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
+0.25, masked ini/fini/random at fractions up to one that drops every
+block, rescale on and off, and no perforation; atol 1e-3 at 256^3 (the
+JAX test's) and 1e-2 at full width (values of order 80: float32 sums of
+6144 products taken in two orders), and the device tally of K blocks
+accumulated must equal the kept (live) count.
 
 Prints the `kernels` JSON line, then as its last line
 `{"ok": true, "device": {...}}`. Writes the full report to
@@ -57,7 +73,12 @@ TAF_SPEC = ("taf", 2, 4, 0.2)
 IACT_SPEC = ("iact", 2, 0.05)
 PERFO_SPEC = ("perfo", "fini", 0.5)
 ATOL = {"taf_matmul": 1e-3, "iact_rowfn": 1e-3, "perforated_attention": 1e-4,
-        "perforated_attention_bf16": 0.05}
+        "perforated_attention_bf16": 0.05, "perforated_matmul": 1e-3,
+        "perforated_matmul_full": 1e-2}
+APP_KERNELS = ("taf_matmul", "iact_rowfn", "perforated_attention")
+# K4 at 256^3 (the JAX test's size) and at the FFN down-projection
+PMM_GEOMS = (("256^3", (256, 256, 256), (64, 64, 64)),
+             ("full", (4096, 6144, 2048), (128, 128, 128)))
 
 
 class SmokeFailure(Exception):
@@ -103,14 +124,17 @@ def main():
     sys.path.insert(0, SRC)
     import numpy as np
     import torch.nn.functional as F
+    from repro_torch.analysis import machine
     from repro_torch.apps import approx_ffn
-    from repro_torch.benchmarks import approx_ffn_sweep
+    from repro_torch.benchmarks import approx_ffn_sweep, kernel_micro
     from repro_torch.core import perforation
     from repro_torch.core.types import (ApproxSpec, IACTParams, Level,
                                         PerforationKind, PerforationParams,
                                         TAFParams, Technique)
     from repro_torch.kernels import (_build, iact_memo, ops,
-                                     perforated_attention, ref, taf_matmul)
+                                     perforated_attention,
+                                     perforated_matmul, ref, taf_matmul,
+                                     tuning)
     from repro_torch.obs import timing
 
     # plain versions and library calls in full float32, as the kernels
@@ -228,6 +252,44 @@ def main():
         note("perforated_attention", max_err(o, orf), tol, True,
              f"B{b} Hq{hq} Hkv{hkv} Sq{sq} Skv{skv} D{d} {str(dt)[6:]} "
              f"causal={causal} {mode}")
+    # K4 in every mode, at 256^3 and at full width
+    P, K = PerforationParams, PerforationKind
+    pmm_cases = [(None, None, False), (None, None, True)]
+    for kind, arg in ((K.SMALL, 2), (K.LARGE, 2)):
+        pmm_cases += [(P(kind=kind, skip=arg), None, r) for r in (False,
+                                                                  True)]
+    for kind in (K.INI, K.FINI, K.RANDOM):
+        pmm_cases += [(P(kind=kind, fraction=0.25), None, r)
+                      for r in (False, True)]
+        pmm_cases += [(P(kind=kind), fr, r) for fr in (0.25, 0.5, 1.0)
+                      for r in (False, True)]
+    for label, (m_, k_, n_), (bm_, bn_, bk_) in PMM_GEOMS:
+        xm = torch.from_numpy(rng.randn(m_, k_).astype(np.float32)).to(dev)
+        wm = torch.from_numpy(rng.randn(k_, n_).astype(np.float32)).to(dev)
+        tol = ATOL["perforated_matmul" if label == "256^3"
+                   else "perforated_matmul_full"]
+        nk = k_ // bk_
+        for perfo, frac, rescale in pmm_cases:
+            before = perforated_matmul.COUNTER.work()
+            y = ops.perforated_matmul(xm, wm, block_m=bm_, block_n=bn_,
+                                      block_k=bk_, perfo=perfo,
+                                      fraction=frac, rescale=rescale)
+            accumulated = perforated_matmul.COUNTER.work() - before
+            yr = ref.perforated_matmul_ref(xm, wm, block_k=bk_, perfo=perfo,
+                                           fraction=frac, rescale=rescale)
+            if perfo is None:
+                live = nk
+            elif frac is None:
+                live = len(perforation.kept_indices(nk, perfo))
+            else:
+                live = int(perforation.traced_execute_mask(
+                    nk, perfo, frac).sum())
+            mode = "none" if perfo is None else perfo.kind.value + (
+                f" masked {frac}" if frac is not None else " structural")
+            note("perforated_matmul", max_err(y, yr), tol,
+                 accumulated == live and (live > 0 or not bool(y.any())),
+                 f"{label} {mode} rescale={rescale}: {accumulated} of {nk} "
+                 "K blocks accumulated")
     torch.cuda.synchronize()
     report["phases"]["kernels_s"] = time.perf_counter() - t0
 
@@ -310,8 +372,8 @@ def main():
             f"{row.get('computed_per_call', '-')}/"
             f"{row.get('tiles_per_call', '-')} device_tally={dw}")
     main_launches = ops.launch_counts()
-    for k, n in main_launches.items():
-        check(n > 0, f"{k} was not launched on the main path")
+    for k in APP_KERNELS:
+        check(main_launches[k] > 0, f"{k} was not launched on the main path")
     report["main_path"] = dict(rows=main_rows, launches=main_launches)
     report["phases"]["main_path_s"] = time.perf_counter() - t0
 
@@ -371,7 +433,73 @@ def main():
         ops=ops_, bytes=bytes_,
         work=f"{pairs} (query, key) pairs in the causal mask and kept "
              "blocks"))
+
+    # K4: SMALL skip 2 at the FFN down-projection; the library call is
+    # torch.matmul on the kept slices, gathered outside the timed window
+    _, (m_, k_, n_), (bm_, bn_, bk_) = PMM_GEOMS[1]
+    xm = torch.from_numpy(rng.randn(m_, k_).astype(np.float32)).to(dev)
+    wm = torch.from_numpy(rng.randn(k_, n_).astype(np.float32)).to(dev)
+    small2 = PerforationParams(kind=PerforationKind.SMALL, skip=2)
+    kept = perforation.kept_indices(k_ // bk_, small2)
+    cols = torch.as_tensor((kept[:, None] * bk_ + np.arange(bk_)).ravel(),
+                           device=dev)
+    xk = xm[:, cols].contiguous()
+    wk = wm[cols].contiguous()
+    k_kept = int(cols.numel())
+    pmm_kw = dict(block_m=bm_, block_n=bn_, block_k=bk_, perfo=small2)
+    rows.append(dict(
+        kernel="perforated_matmul", module=perforated_matmul,
+        ms=ms(ops.perforated_matmul, xm, wm, **pmm_kw),
+        plain_ms=ms(ref.perforated_matmul_ref, xm, wm, block_k=bk_,
+                    perfo=small2, repeats=3),
+        library_ms=ms(torch.matmul, xk, wk),
+        library_full_ms=ms(torch.matmul, xm, wm),
+        ops=2.0 * m_ * n_ * k_kept,
+        bytes=f4 * (m_ * k_kept + k_kept * n_ + m_ * n_),
+        work=f"{len(kept)} of {k_ // bk_} K blocks of {bk_} kept, "
+             f"x ({m_}, {k_}) @ w ({k_}, {n_})"))
     report["phases"]["timing_s"] = time.perf_counter() - t0
+
+    # -- 7. the kernel-engineering path: machine profile, kernel_micro ------
+    log("phase 7: measure_machine, kernel_micro at ref and full geometry")
+    t0 = time.perf_counter()
+    prof = machine.measure_machine(device=dev)
+    log(f"  measured machine: peak_flops={prof.peak_flops!r} "
+        f"hbm_bw={prof.hbm_bw!r} dispatch_s={prof.dispatch_s!r}")
+    report["measured_machine"] = dict(peak_flops=prof.peak_flops,
+                                      hbm_bw=prof.hbm_bw,
+                                      dispatch_s=prof.dispatch_s)
+    micro = {}
+    ops.reset_counts()
+    for geometry in ("ref", "full"):
+        out_dir = os.path.join(os.path.dirname(REPORT),
+                               f"kernel_micro_{geometry}")
+        b = kernel_micro.main(lambda n_, v_, d_: log(f"  {n_},{v_},{d_}"),
+                              out_dir, geometry=geometry, device=dev)
+        micro[geometry] = b
+        check(all(b["oracle_match"].values()),
+              f"kernel_micro {geometry}: oracle mismatch {b['oracle_match']}")
+        check(all(b["pipeline_parity"].values()),
+              f"kernel_micro {geometry}: pipeline parity "
+              f"{b['pipeline_parity']}")
+        check(b["sweep"]["recompiles"] == 0,
+              f"kernel_micro {geometry}: {b['sweep']['recompiles']} "
+              "kernel-library builds during the threshold sweep")
+        for kern in tuning.KERNELS:
+            t = b["tuning"][kern]
+            why = (tuning.validate_config(kern, t["shapes"], t["tuned"])
+                   or tuning.launchable(kern, t["shapes"], t["tuned"]))
+            check(why is None and t["tuned_launches"] > 0
+                  and t["measured"] > 0,
+                  f"kernel_micro {geometry}: tuned {kern} {t['tuned']} "
+                  f"invalid ({why}) or not launched")
+    micro_launches = ops.launch_counts()
+    log(f"  kernel_micro launches: {micro_launches}")
+    for k in tuning.KERNELS:
+        check(micro_launches[k] > 0,
+              f"{k} was not launched on the kernel_micro path")
+    report["kernel_micro"] = dict(results=micro, launches=micro_launches)
+    report["phases"]["kernel_micro_s"] = time.perf_counter() - t0
 
     kernels = []
     for r in rows:
@@ -380,7 +508,8 @@ def main():
         kernels.append({
             "name": r["kernel"], "route": "cuda",
             "source": r["module"].SOURCE, "replaces": r["module"].REPLACES,
-            "launches": main_launches[r["kernel"]],
+            "launches": (main_launches if r["kernel"] in APP_KERNELS
+                         else micro_launches)[r["kernel"]],
             "max_abs_err": errs[r["kernel"]],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(t_ops, t_bytes),
@@ -389,6 +518,8 @@ def main():
             "mask_equal": masks_equal[r["kernel"]],
             "ops": r["ops"], "bytes": r["bytes"], "work": r["work"],
         })
+        if "library_full_ms" in r:
+            kernels[-1]["library_full_ms"] = r["library_full_ms"]
     report["kernels"] = kernels
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:

@@ -8,10 +8,13 @@ counterpart:
   core/       types, perforation, substrate ("host" oracles | "cuda"
               kernels), harness, batching, pareto
   kernels/    hand-written Hopper kernels (csrc/*.cu) behind `ops`, each
-              with its plain PyTorch version in `ref`
+              with its plain PyTorch version in `ref`; the block-shape
+              autotuner (`tuning`)
+  analysis/   roofline machine profiles and the kernels' cost counts
   obs/        tracing, metrics and the CUDA-event timer
   apps/       approx_ffn, the kernel-backed app
-  benchmarks/ the approx_ffn sweep and the per-kernel device profile
+  benchmarks/ the approx_ffn sweep, the per-kernel device profile and the
+              kernel microbenchmarks (kernel_micro)
   convert     carries the JAX app's arrays into the port's tensors
   device      the device rule: cuda unless the caller asks for "cpu"
 """

@@ -40,7 +40,7 @@ from ..core import perforation as perfo_mod
 from ..core import substrate as substrate_mod
 from ..core.harness import AppResult, ApproxApp
 from ..core.types import ApproxSpec, Technique
-from ..kernels import ref
+from ..kernels import ref, tuning
 from ..obs import timing
 
 # Block geometry: fixed by the app (structural; not part of the spec grid).
@@ -55,6 +55,24 @@ def _blocks3(blocks):
     """(block_m, block_rows, block_attn) -- module defaults when None."""
     return (_BLOCK_M, _BLOCK_ROWS, _BLOCK_ATTN) if blocks is None \
         else tuple(blocks)
+
+
+def tuned_blocks(seq: int = 128, d: int = 32, d_h: int = 64,
+                 heads: int = 2, device=None) -> Tuple[int, int, int]:
+    """The tuning-cache blocks for this app's kernel shapes on `device`
+    (per-kernel exact-shape lookup through `kernels.tuning`), falling back
+    to the module defaults on any miss. `make_app(blocks="tuned")` resolves
+    through here."""
+    taf = tuning.tuned_config("taf_matmul", ((seq, d), (d, d)),
+                              device=device) or {}
+    iact = tuning.tuned_config("iact_rowfn", ((seq, d), (d, d_h), (d_h, d)),
+                               device=device) or {}
+    attn_shape = (1, heads, seq, d // heads)
+    attn = tuning.tuned_config("perforated_attention",
+                               (attn_shape, attn_shape), device=device) or {}
+    return (int(taf.get("block_m", _BLOCK_M)),
+            int(iact.get("block_rows", _BLOCK_ROWS)),
+            int(attn.get("block_kv", attn.get("block_q", _BLOCK_ATTN))))
 
 
 def gen_inputs(seq: int, d: int, seed: int = 0) -> np.ndarray:
@@ -146,10 +164,15 @@ def make_app(substrate: Optional[str] = None, seq: int = 128, d: int = 32,
              device=None) -> ApproxApp:
     """`substrate=None` resolves the ambient default ONCE, at construction
     (it is part of the workload fingerprint). `blocks`: None (module
-    default geometry) or an explicit (block_m, block_rows, block_attn)
-    tuple. `device`: ``cuda`` unless the caller passes ``"cpu"``."""
+    default geometry), an explicit (block_m, block_rows, block_attn) tuple,
+    or "tuned" (the tuning-cache winners for this geometry on `device`, via
+    `tuned_blocks`). Non-default blocks change the approx masks'
+    granularity, so they join the workload fingerprint. `device`: ``cuda``
+    unless the caller passes ``"cpu"``."""
     dev = device_mod.resolve(device)
     sub = substrate_mod.resolve(substrate)
+    if blocks == "tuned":
+        blocks = tuned_blocks(seq, d, d_h, heads, device=dev)
     if blocks is not None:
         blocks = tuple(int(b) for b in blocks)
         if blocks == _blocks3(None):

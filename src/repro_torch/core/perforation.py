@@ -96,3 +96,8 @@ def kept_indices(n_iters: int, params: PerforationParams) -> np.ndarray:
     """Indices of executed iterations -- the structural form used to build a
     genuinely smaller loop."""
     return np.nonzero(execute_mask(n_iters, params))[0]
+
+
+def drop_fraction(n_iters: int, params: PerforationParams) -> float:
+    """Fraction of iterations dropped = upper bound on FLOP savings."""
+    return 1.0 - float(execute_mask(n_iters, params).mean())

@@ -109,12 +109,13 @@ def attention_region(q, k, v, spec: Optional[ApproxSpec], *,
     """(Perforated) flash attention under `spec.perforation` (None = exact).
 
     `fraction` (ini/fini/random kinds) flips the kernel into masked mode.
-    Block args left None resolve through `ops.resolve_blocks` here, so the
-    kept-mask granularity follows the block_kv the kernel runs. Returns
+    Block args left None resolve through `ops.resolve_blocks` (the tuning
+    cache, then the fallbacks) here, so the kept-mask granularity follows
+    the block_kv the kernel runs. Returns
     (o, kept_block_mask (nkv,) bool on q's device), True = executed.
     """
-    blocks = ops.resolve_blocks("perforated_attention", block_q=block_q,
-                                block_kv=block_kv)
+    blocks = ops.resolve_blocks("perforated_attention", (q, k), q.dtype,
+                                block_q=block_q, block_kv=block_kv)
     block_q, block_kv = blocks["block_q"], blocks["block_kv"]
     nkv = k.shape[2] // block_kv
     if spec is None or spec.technique == Technique.NONE:

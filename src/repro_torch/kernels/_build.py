@@ -41,6 +41,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _functions: Dict[str, object] = {}
 build_log: str = ""  # compiler output of the last build in this process
+builds: int = 0      # libraries compiled in this process
 
 
 def nvcc() -> str:
@@ -87,7 +88,7 @@ def build(ptxas_info: bool = False) -> Path:
     """Compile the library unless this source hash is built already; return
     its path. `ptxas_info` adds `-Xptxas -v` (registers, shared memory and
     spills per kernel, kept in `build_log`) and always rebuilds."""
-    global build_log
+    global build_log, builds
     out_dir = BUILD_DIR / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists() and not ptxas_info:
@@ -107,6 +108,7 @@ def build(ptxas_info: bool = False) -> Path:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     build_log = log
+    builds += 1
     return lib
 
 

@@ -15,7 +15,7 @@ reaches the kernel as a float32 device tensor.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +29,19 @@ COUNTER = _build.Counter("iact_rowfn")
 
 _ARGTYPES = [_build.P] * 14 + [_build.I] * 8 + [_build.P]
 _MAX_PROBE = 2048  # rows * table_size the probe holds (iact_memo.cu)
+
+
+def launchable(shapes: Sequence[Sequence[int]], config: Dict[str, int],
+               table_size: int = 4) -> Optional[str]:
+    """None if the kernel launches at `config` (block_rows) with a table
+    of `table_size` slots (the tuner's precise calls take the default 4),
+    else the reason: the probe holds block_rows * table_size distances in
+    shared memory."""
+    rows = config["block_rows"]
+    if rows * table_size > _MAX_PROBE:
+        return (f"iact_rowfn kernel takes block_rows * table_size <= "
+                f"{_MAX_PROBE}, got {rows} * {table_size}")
+    return None
 
 
 def _check(x, w1, w2, block_rows, table_size):
@@ -60,10 +73,10 @@ def iact_rowfn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     dev = x.device
     if w1.device != dev or w2.device != dev:
         raise ValueError("iact_rowfn: x, w1 and w2 must share one device")
-    if block_rows * table_size > _MAX_PROBE:
-        raise ValueError(
-            f"iact_rowfn kernel takes block_rows * table_size <= "
-            f"{_MAX_PROBE}, got {block_rows} * {table_size}")
+    why = launchable((x.shape, w1.shape, w2.shape),
+                     dict(block_rows=block_rows), table_size)
+    if why:
+        raise ValueError(why)
     n, d_in = x.shape
     d_h, d_out = w1.shape[1], w2.shape[1]
     cols1 = column_slice(d_h)

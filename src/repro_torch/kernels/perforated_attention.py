@@ -19,7 +19,7 @@ Plain version: `ref.attention_ref`, taken for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,25 +71,38 @@ def _check(q, k, v, block_q, block_kv, perfo, fraction):
             f"got perfo={perfo}")
 
 
+def launchable(shapes: Sequence[Sequence[int]],
+               config: Dict[str, int]) -> Optional[str]:
+    """None if the kernel launches at `config` (block_q, block_kv) on
+    operands of `shapes` ((B, Hq, Sq, D), (B, Hkv, Skv, D), ...), else the
+    reason: the thread layout's rules on D and block_q, whole 32-column KV
+    groups, and the shared memory one block may use."""
+    d = int(shapes[0][3])
+    block_q, block_kv = config["block_q"], config["block_kv"]
+    if d % 4 or _TILE % d or (block_q * d) % _TILE or \
+            block_q * d > _MAX_ROWS * _TILE or block_q % 2 or block_kv % 32:
+        return (f"perforated_attention kernel needs D a multiple of 4 "
+                f"dividing {_TILE}, block_q * D a multiple of {_TILE} and "
+                f"at most {_MAX_ROWS * _TILE}, block_q even and block_kv a "
+                f"multiple of 32; got D={d}, block_q={block_q}, "
+                f"block_kv={block_kv}")
+    if smem_bytes(block_q, block_kv, d) > _SMEM_LIMIT:
+        return (f"perforated_attention blocks (block_q={block_q}, "
+                f"block_kv={block_kv}) at D={d} need "
+                f"{smem_bytes(block_q, block_kv, d)} bytes of shared "
+                f"memory, more than the {_SMEM_LIMIT} a block may use")
+    return None
+
+
 def _check_kernel_geometry(q, k, v, block_q, block_kv):
-    d = q.shape[3]
     if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"perforated_attention kernel takes float32 or bfloat16 q/k/v "
             f"of one type; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d % 4 or _TILE % d or (block_q * d) % _TILE or \
-            block_q * d > _MAX_ROWS * _TILE or block_q % 2 or block_kv % 32:
-        raise ValueError(
-            f"perforated_attention kernel needs D a multiple of 4 dividing "
-            f"{_TILE}, block_q * D a multiple of {_TILE} and at most "
-            f"{_MAX_ROWS * _TILE}, block_q even and block_kv a multiple of "
-            f"32; got D={d}, block_q={block_q}, block_kv={block_kv}")
-    if smem_bytes(block_q, block_kv, d) > _SMEM_LIMIT:
-        raise ValueError(
-            f"perforated_attention blocks (block_q={block_q}, "
-            f"block_kv={block_kv}) at D={d} need "
-            f"{smem_bytes(block_q, block_kv, d)} bytes of shared memory, "
-            f"more than the {_SMEM_LIMIT} a block may use")
+    why = launchable((q.shape, k.shape),
+                     dict(block_q=block_q, block_kv=block_kv))
+    if why:
+        raise ValueError(why)
     if k.device != q.device or v.device != q.device:
         raise ValueError("perforated_attention: q, k and v must share one "
                          "device")

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.perforation import kept_indices, traced_execute_mask
+from ..core.perforation import (FRACTION_KINDS, kept_indices,
+                                traced_execute_mask)
 from ..core.types import PerforationParams
 
 _BIG = 3.4e38  # the iACT kernels' "no cached value" distance
@@ -160,25 +161,88 @@ def iact_rowfn_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
 # herded-perforated matmul (K-block dropping)
 # ----------------------------------------------------------------------------
 
+def perforated_matmul_operands(nk: int,
+                               perfo: Optional[PerforationParams],
+                               fraction=None, rescale: bool = False,
+                               device=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(kept int32, live int32, factor float32 (1,)) on `device`: what the
+    K4 kernel and its plain version take, built as the Pallas kernel builds
+    its scalar-prefetch operands.
+
+    Structural mode (`fraction=None`): `kept` lists the kept K blocks,
+    `live` is all ones and the factor nk / len(kept) (rescale) or 1;
+    dropping every block raises. Masked mode (`fraction` a float or a
+    tensor; ini/fini/random kinds): `kept` enumerates every block, `live`
+    comes from `traced_execute_mask` on the device and the factor
+    nk / max(n_live, 1) is computed there, so nothing is read back to the
+    host; dropping every block gives zeros.
+    """
+    if fraction is not None:
+        if perfo is None or perfo.kind not in FRACTION_KINDS:
+            raise ValueError(
+                "fraction is a traced hook for ini/fini/random perforation; "
+                f"got perfo={perfo}")
+        if isinstance(fraction, torch.Tensor):
+            fraction = fraction.to(device)
+        live = traced_execute_mask(nk, perfo, fraction,
+                                   device=device).to(torch.int32)
+        kept = torch.arange(nk, dtype=torch.int32, device=live.device)
+        if rescale:
+            n_live = live.sum().clamp(min=1).to(torch.float32)
+            factor = torch.div(torch.full((1,), float(nk),
+                                          dtype=torch.float32,
+                                          device=live.device), n_live)
+        else:
+            factor = torch.ones((1,), dtype=torch.float32,
+                                device=live.device)
+        return kept, live, factor
+    kept_np = np.arange(nk) if perfo is None else kept_indices(nk, perfo)
+    if len(kept_np) == 0:
+        raise ValueError("perforation dropped every K block")
+    kept = torch.as_tensor(kept_np, dtype=torch.int32, device=device)
+    live = torch.ones((len(kept_np),), dtype=torch.int32, device=device)
+    factor = torch.full((1,), nk / len(kept_np) if rescale else 1.0,
+                        dtype=torch.float32, device=device)
+    return kept, live, factor
+
+
+def perforated_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                            kept: torch.Tensor, live: torch.Tensor,
+                            factor: torch.Tensor, *, block_k: int,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version of the K4 kernel, on the kernel's own operands:
+    acc = sum over enumerated K blocks e with live[e] of
+    x[:, kept[e]] @ w[kept[e], :], in enumeration order, then acc * factor.
+    A dead block adds nothing (not even 0 * inf). No value is read back to
+    the host."""
+    m, k = x.shape
+    nk = k // block_k
+    kept = kept.long()
+    xk = x.float().reshape(m, nk, block_k).index_select(1, kept)
+    wk = w.float().reshape(nk, block_k, w.shape[1]).index_select(0, kept)
+    acc = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=x.device)
+    for e in range(kept.shape[0]):
+        blk = xk[:, e] @ wk[e]
+        acc = acc + torch.where(live[e] > 0, blk, torch.zeros_like(blk))
+    return (acc * factor).to(out_dtype)
+
+
 def perforated_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, block_k: int,
                           perfo: Optional[PerforationParams],
-                          rescale: bool = False,
+                          fraction=None, rescale: bool = False,
                           out_dtype=torch.float32) -> torch.Tensor:
-    """Oracle for the JAX package's kernels/perforated_matmul.py: drop the
-    same K-blocks from the contraction for every output tile."""
-    m, k = x.shape
+    """Oracle for kernels/perforated_matmul.py: drop the same K-blocks from
+    the contraction for every output tile (structural mode, or masked mode
+    when `fraction` is given)."""
+    k = x.shape[1]
     if k % block_k:
         raise ValueError(f"block_k={block_k} does not divide K={k}")
-    nk = k // block_k
-    kept = list(range(nk)) if perfo is None else list(kept_indices(nk, perfo))
-    xf, wf = x.float(), w.float()
-    acc = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=x.device)
-    for kb in kept:
-        sl = slice(kb * block_k, (kb + 1) * block_k)
-        acc = acc + xf[:, sl] @ wf[sl, :]
-    if rescale and kept:
-        acc = acc * (nk / len(kept))
-    return acc.to(out_dtype)
+    kept, live, factor = perforated_matmul_operands(
+        k // block_k, perfo, fraction, rescale, device=x.device)
+    return perforated_matmul_plain(x, w, kept, live, factor,
+                                   block_k=block_k, out_dtype=out_dtype)
 
 
 # ----------------------------------------------------------------------------

@@ -18,7 +18,7 @@ constant.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +30,7 @@ REPLACES = "src/repro/kernels/taf_matmul.py:86"
 COUNTER = _build.Counter("taf_matmul")
 
 _ARGTYPES = [_build.P] * 11 + [_build.I] * 8 + [_build.P]
+_MAX_GRID_Y = 65535
 
 
 def column_slice(block_n: int) -> int:
@@ -40,6 +41,20 @@ def column_slice(block_n: int) -> int:
     while block_n % cols:
         cols //= 2
     return cols
+
+
+def launchable(shapes: Sequence[Sequence[int]],
+               config: Dict[str, int]) -> Optional[str]:
+    """None if the kernel launches at `config` (block_m, block_n) on
+    operands of `shapes` ((M, K), (K, N)), else the reason. A step's grid
+    is (block_n / column_slice, N / block_n) CTAs of static shared memory
+    only, so any divisor-valid block launches while the column blocks fit
+    the grid's second axis."""
+    n = int(shapes[1][1])
+    if n // config["block_n"] > _MAX_GRID_Y:
+        return (f"taf_matmul: N / block_n = {n // config['block_n']} column "
+                f"blocks, more than the {_MAX_GRID_Y} a grid axis holds")
+    return None
 
 
 def _check(x, w, block_m, block_n, history_size, prediction_size):
@@ -73,6 +88,10 @@ def taf_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
                      rsd_threshold=rsd_threshold, out_dtype=out_dtype)
     if w.device != x.device:
         raise ValueError(f"taf_matmul: w is on {w.device}, x on {x.device}")
+    why = launchable((x.shape, w.shape),
+                     dict(block_m=block_m, block_n=block_n))
+    if why:
+        raise ValueError(why)
     dev = x.device
     m, k = x.shape
     n = w.shape[1]

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K3) against their plain versions on the card.
+"""The port's CUDA kernels (K1-K4) and the autotuner on the card.
 
 These tests build the kernels with nvcc and launch them; they need an NVIDIA
 GPU and skip elsewhere (the CUDA kernels have no interpret mode). The file
@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from repro_torch.core import types as ttypes
-from repro_torch.kernels import iact_memo, ops, ref, taf_matmul
+from repro_torch.kernels import (iact_memo, ops, perforated_matmul, ref,
+                                 taf_matmul, tuning)
 
-TAF_ATOL = IACT_ATOL = 1e-3
+TAF_ATOL = IACT_ATOL = PMM_ATOL = 1e-3
 ATTN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
 
 
@@ -81,3 +82,48 @@ class TestOnCard:
                                 fraction=0.25)
         assert float((o.float() - orf.float()).abs().max()) <= \
             ATTN_ATOL[dtype]
+
+    @pytest.mark.parametrize("kind,arg,fraction,rescale", [
+        (None, None, None, False),
+        ("small", 2, None, True),
+        ("large", 4, None, False),
+        ("random", 0.25, None, True),
+        ("ini", None, 0.5, True),
+        ("fini", None, 0.25, False),
+        ("random", None, 0.5, True),
+        ("ini", None, 1.0, True),    # masked: every block dropped -> zeros
+    ])
+    def test_perforated_matmul(self, kind, arg, fraction, rescale):
+        rng = np.random.RandomState(4)
+        x = torch.from_numpy(rng.randn(128, 512).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.randn(512, 96).astype(np.float32)).cuda()
+        perfo = None
+        if kind is not None:
+            k = ttypes.PerforationKind(kind)
+            perfo = (ttypes.PerforationParams(kind=k, skip=arg)
+                     if kind in ("small", "large") else
+                     ttypes.PerforationParams(kind=k, fraction=arg or 0.0))
+        before = perforated_matmul.COUNTER.launches
+        y = ops.perforated_matmul(x, w, block_m=64, block_n=32, block_k=32,
+                                  perfo=perfo, fraction=fraction,
+                                  rescale=rescale)
+        yr = ref.perforated_matmul_ref(x, w, block_k=32, perfo=perfo,
+                                       fraction=fraction, rescale=rescale)
+        assert perforated_matmul.COUNTER.launches == before + 1
+        assert float((y - yr).abs().max()) <= PMM_ATOL
+        if fraction == 1.0:
+            assert not bool(y.any())
+
+    def test_autotune_launches_every_candidate(self):
+        rng = np.random.RandomState(5)
+        x = torch.from_numpy(rng.randn(256, 256).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.randn(256, 256).astype(np.float32)).cuda()
+        before = perforated_matmul.COUNTER.launches
+        cfg = tuning.autotune("perforated_matmul", x, w,
+                              cache=tuning.TuningCache(), max_measure=3,
+                              warmup=1, repeats=2)
+        assert perforated_matmul.COUNTER.launches - before == 3 * 3
+        shapes = tuning.operand_shapes((x, w))
+        assert tuning.validate_config("perforated_matmul", shapes,
+                                      cfg) is None
+        assert tuning.current_substrate(x.device) == "cuda"

@@ -21,7 +21,8 @@ from repro.kernels.perforated_attention import \
     perforated_attention as pallas_attention
 from repro.kernels.taf_matmul import taf_matmul as pallas_taf
 from repro_torch.core import types as ttypes
-from repro_torch.kernels import ops, perforated_attention, ref, taf_matmul
+from repro_torch.kernels import (ops, perforated_attention, ref, taf_matmul,
+                                 tuning)
 
 TAF_ATOL = IACT_ATOL = 1e-3
 ATTN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
@@ -275,7 +276,7 @@ def test_attention_kernel_geometry_limits():
 
 
 # ----------------------------------------------------------------------------
-# oracles of kernels not on the app's path (K4 waits for its CUDA port)
+# the K4 oracle (the kernel itself: tests/test_torch_perforated_matmul.py)
 # ----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kind,arg,rescale", [
@@ -299,9 +300,14 @@ def test_perforated_matmul_ref_matches_jax(kind, arg, rescale):
 
 
 def test_blocks_resolve_from_fallbacks():
-    assert ops.resolve_blocks("taf_matmul", block_m=None, block_n=16) == \
-        {"block_m": 128, "block_n": 16}
     x = torch.from_numpy(_stableish(np.random.RandomState(2), 256, 16))
     w = torch.zeros(16, 128)
+    tuning.set_default_cache(tuning.TuningCache())  # no tuned entry
+    try:
+        assert ops.resolve_blocks("taf_matmul", (x, w), x.dtype,
+                                  block_m=None, block_n=16) == \
+            {"block_m": 128, "block_n": 16}
+    finally:
+        tuning.set_default_cache(None)
     y, mask = ops.taf_matmul(x, w)
     assert tuple(mask.shape) == (2, 1)
