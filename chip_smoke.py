@@ -30,13 +30,17 @@ failure could still exit 0):
      (a yardstick the port never calls) and the least time the card could
      take (bound); K4 at the FFN down-projection (x (4096, 6144) @ w
      (6144, 2048), block_k 128, SMALL skip 2);
-  7. the kernel-engineering path: `measure_machine` on the card, then
+  7. the kernel-engineering path: `measure_machine` three times on the
+     card (dispatch_s of each, median of 100 calls, and their median), then
      `repro_torch.benchmarks.kernel_micro` at its `ref` and `full`
      geometries, with the launch counts set to 0 just before and read just
      after: oracle parity, pipeline parity, zero kernel-library builds in
      the threshold sweep, and the autotuner on all four kernels (every
-     tuned config valid and launched; K4 launched). The full geometry's
-     tuning cache lands in chiprun_out/kernel_micro_full/.
+     tuned config valid and launched, never slower than the default in the
+     tuner's own pass; K4 launched). Then each kernel's tuned and default
+     configs are held against its plain version on the tuning operands,
+     with phase 3's tolerances. The full geometry's tuning cache lands in
+     chiprun_out/kernel_micro_full/.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -111,6 +115,22 @@ def loose_iact_threshold(a, rows=16):
     blocks = a.reshape(-1, rows, a.shape[1])
     d = (blocks[1:] - blocks[:-1, :1]).norm(dim=-1).median(dim=1).values
     return float(torch.quantile(d, 0.75))
+
+
+def plain_call(kernel, config, arrays):
+    """The plain version of `tuning.build_call(kernel, config)` (the precise
+    path: thresholds 0, no perforation) on `arrays`."""
+    from repro_torch.kernels import ref
+    if kernel == "taf_matmul":
+        return ref.taf_matmul_ref(*arrays, history_size=3, prediction_size=8,
+                                  rsd_threshold=0.0, **config)[0]
+    if kernel == "iact_rowfn":
+        return ref.iact_rowfn_ref(*arrays, table_size=4, threshold=0.0,
+                                  **config)[0]
+    if kernel == "perforated_matmul":
+        return ref.perforated_matmul_ref(*arrays, block_k=config["block_k"],
+                                         perfo=None)
+    return ref.attention_ref(*arrays)
 
 
 def main():
@@ -461,22 +481,33 @@ def main():
     report["phases"]["timing_s"] = time.perf_counter() - t0
 
     # -- 7. the kernel-engineering path: machine profile, kernel_micro ------
-    log("phase 7: measure_machine, kernel_micro at ref and full geometry")
+    log("phase 7: measure_machine x3, kernel_micro at ref and full geometry")
     t0 = time.perf_counter()
-    prof = machine.measure_machine(device=dev)
-    log(f"  measured machine: peak_flops={prof.peak_flops!r} "
-        f"hbm_bw={prof.hbm_bw!r} dispatch_s={prof.dispatch_s!r}")
-    report["measured_machine"] = dict(peak_flops=prof.peak_flops,
-                                      hbm_bw=prof.hbm_bw,
-                                      dispatch_s=prof.dispatch_s)
+    readings = []
+    for _ in range(3):
+        prof = machine.measure_machine(device=dev, register=False)
+        readings.append(dict(peak_flops=prof.peak_flops, hbm_bw=prof.hbm_bw,
+                             dispatch_s=prof.dispatch_s))
+        log(f"  measured machine: peak_flops={prof.peak_flops!r} "
+            f"hbm_bw={prof.hbm_bw!r} dispatch_s={prof.dispatch_s!r}")
+    dispatch = sorted(r["dispatch_s"] for r in readings)[1]
+    log(f"  dispatch_s median of 3 runs: {dispatch!r} (the h100 profile "
+        f"has {machine.get_machine('cuda').dispatch_s!r})")
+    report["measured_machine"] = dict(runs=readings, dispatch_s=dispatch)
     micro = {}
     ops.reset_counts()
     for geometry in ("ref", "full"):
         out_dir = os.path.join(os.path.dirname(REPORT),
                                f"kernel_micro_{geometry}")
-        b = kernel_micro.main(lambda n_, v_, d_: log(f"  {n_},{v_},{d_}"),
-                              out_dir, geometry=geometry, device=dev)
-        micro[geometry] = b
+        micro[geometry] = kernel_micro.main(
+            lambda n_, v_, d_: log(f"  {n_},{v_},{d_}"), out_dir,
+            geometry=geometry, device=dev)
+    micro_launches = ops.launch_counts()
+    log(f"  kernel_micro launches: {micro_launches}")
+    for k in tuning.KERNELS:
+        check(micro_launches[k] > 0,
+              f"{k} was not launched on the kernel_micro path")
+    for geometry, b in micro.items():
         check(all(b["oracle_match"].values()),
               f"kernel_micro {geometry}: oracle mismatch {b['oracle_match']}")
         check(all(b["pipeline_parity"].values()),
@@ -485,6 +516,9 @@ def main():
         check(b["sweep"]["recompiles"] == 0,
               f"kernel_micro {geometry}: {b['sweep']['recompiles']} "
               "kernel-library builds during the threshold sweep")
+        # the tuned and default configs, each held against its plain
+        # version on the tuning operands (phase 3's tolerances)
+        arrays = kernel_micro.tuning_arrays(geometry, dev)
         for kern in tuning.KERNELS:
             t = b["tuning"][kern]
             why = (tuning.validate_config(kern, t["shapes"], t["tuned"])
@@ -493,11 +527,17 @@ def main():
                   and t["measured"] > 0,
                   f"kernel_micro {geometry}: tuned {kern} {t['tuned']} "
                   f"invalid ({why}) or not launched")
-    micro_launches = ops.launch_counts()
-    log(f"  kernel_micro launches: {micro_launches}")
-    for k in tuning.KERNELS:
-        check(micro_launches[k] > 0,
-              f"{k} was not launched on the kernel_micro path")
+            check(t["speedup"] >= 1.0,
+                  f"kernel_micro {geometry}: tuned {kern} {t['tuned']} is "
+                  f"slower than the default {t['default']} in the tuner's "
+                  "own pass")
+            tol = ATOL[kern if kern != "perforated_matmul" or
+                       geometry == "ref" else "perforated_matmul_full"]
+            for label in ("tuned", "default"):
+                y = tuning.build_call(kern, t[label])(*arrays[kern])
+                yr = plain_call(kern, t[label], arrays[kern])
+                note(kern, max_err(y, yr), tol, True,
+                     f"kernel_micro {geometry} {label} {t[label]}")
     report["kernel_micro"] = dict(results=micro, launches=micro_launches)
     report["phases"]["kernel_micro_s"] = time.perf_counter() - t0
 

@@ -15,9 +15,10 @@ Profiles:
   h100      -- one NVIDIA H100 SXM (NVIDIA's data sheet): 67 TFLOP/s
                float32 outside the tensor cores (the port's kernels compute
                in float32 FMA), 3.35 TB/s HBM3, NVLink 450 GB/s each way.
-               `dispatch_s` is a `measure_machine` reading on an H100 80GB
-               HBM3 at a 700 W power limit (`chip_smoke.py` phase 7): one
-               eager PyTorch op between CUDA events, host dispatch
+               `dispatch_s` is the median of three `measure_machine`
+               readings on an H100 80GB HBM3 at a 700 W power limit
+               (`chip_smoke.py` phase 7), each the median of 100 calls of
+               one eager PyTorch op between CUDA events, host dispatch
                included.
   host-sim  -- the JAX package's host profile, copied: the CPU the plain
                versions run on.
@@ -56,7 +57,7 @@ HOST_SIM = "host-sim"
 
 MACHINES: Dict[str, MachineProfile] = {
     H100: MachineProfile(name=H100, peak_flops=67e12, hbm_bw=3.35e12,
-                         ici_bw=450e9, dispatch_s=5.6096e-05),
+                         ici_bw=450e9, dispatch_s=1.3408e-05),
     HOST_SIM: MachineProfile(name=HOST_SIM, peak_flops=100e9, hbm_bw=40e9,
                              ici_bw=10e9, dispatch_s=20e-6),
 }
@@ -68,6 +69,9 @@ SUBSTRATE_MACHINES: Dict[str, str] = {
     "cuda": H100,
     "host": HOST_SIM,
 }
+
+# timed calls behind one dispatch_s reading
+DISPATCH_REPEATS = 100
 
 # the calibrated profile's reserved name: get_machine("measured") measures
 # the running device on first use (see measure_machine)
@@ -85,7 +89,9 @@ def measure_machine(name: str = MEASURED_MACHINE, *, device=None,
 
       peak_flops -- a (size, size) float32 matmul: 2 * size^3 FLOPs;
       hbm_bw     -- one elementwise scale over copy_mb MiB (read + write);
-      dispatch_s -- one scalar add: the launch floor.
+      dispatch_s -- one scalar add, median of `DISPATCH_REPEATS` calls:
+                    the launch floor (a single call varies by a few
+                    times).
 
     `ici_bw` is the static profile's (one device cannot observe it). The
     result is registered in `MACHINES` under `name`; it is never a tuning
@@ -99,9 +105,9 @@ def measure_machine(name: str = MEASURED_MACHINE, *, device=None,
 
     dev = device_mod.resolve(device)
 
-    def _med(fn, *args):
+    def _med(fn, *args, k=repeats):
         return measure(fn, *args, device=dev, warmup=1,
-                       repeats=max(1, repeats), stat="median",
+                       repeats=max(1, k), stat="median",
                        span="machine.calibrate").seconds
 
     rng = np.random.RandomState(0)
@@ -115,7 +121,7 @@ def measure_machine(name: str = MEASURED_MACHINE, *, device=None,
     hbm_bw = max(2.0 * buf.numel() * 4 / max(t_cp, 1e-9), 1e8)
 
     one = torch.zeros((), dtype=torch.float32, device=dev)
-    dispatch_s = max(_med(torch.add, one, 1.0), 1e-7)
+    dispatch_s = max(_med(torch.add, one, 1.0, k=DISPATCH_REPEATS), 1e-7)
 
     base = SUBSTRATE_MACHINES["cuda" if dev.type == "cuda" else "host"]
     profile = MachineProfile(name=name, peak_flops=peak_flops,

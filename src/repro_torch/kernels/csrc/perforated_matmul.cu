@@ -13,11 +13,11 @@
 //
 // Design. On the TPU the grid's third axis walks the kept blocks in order
 // and carries the sum in VMEM scratch. Here one CTA owns a BM x BN output
-// tile (a sub-tile of the wrapper's (block_m, block_n): BM, BN in {16, 32,
-// 64, 128}) and walks the enumerated blocks itself; `live[e]` is one value
-// for the whole CTA, so the skip never diverges. Each visited block is
-// staged through shared memory 16 k at a time (A stored k-major, padded so
-// the transposing stores spread over the banks), and each of the 256
+// tile (the wrapper's (block_m, block_n): BM, BN in {16, 32, 64, 128}) and
+// walks the enumerated blocks itself; `live[e]` is one value for the whole
+// CTA, so the skip never diverges. Each visited block is staged through
+// shared memory 16 k at a time (A stored k-major, padded so the
+// transposing stores spread over the banks), and each of the 256
 // threads accumulates a (BM/16) x (BN/16) register tile in float32 FMA, in
 // ascending k within a block and block after block in enumeration order.
 // block_k is the only semantic block size; a stage past the end of a block

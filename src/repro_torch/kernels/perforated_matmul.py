@@ -15,9 +15,9 @@ Two perforation modes share one kernel:
     the same launch and nothing is read back to the host.
 
 `rescale` multiplies by nk / n_enum (structural) or nk / max(n_live, 1)
-(masked). Only `block_k` is semantic: one CTA computes a sub-tile of the
-(block_m, block_n) tile whose sides are the largest powers of two <= 128
-dividing them (`cta_tile`).
+(masked). Only `block_k` is semantic: one CTA computes one (block_m,
+block_n) output tile, each side 16, 32, 64 or 128 (`TILE_SIDES`); a larger
+block would only repeat the 128 launch, so `launchable` rejects it.
 
 Plain version: `ref.perforated_matmul_plain` on the same operands (kept
 list, liveness vector, factor tensor), taken for CPU tensors.
@@ -40,25 +40,16 @@ COUNTER = _build.Counter("perforated_matmul")
 _ARGTYPES = [_build.P] * 7 + [_build.I] * 7 + [_build.P]
 _KC = 16          # k of one shared-memory stage (perforated_matmul.cu)
 _PAD = 4          # floats of padding per row of the A stage
-_MAX_TILE = 128   # largest CTA tile side
-_MIN_TILE = 16    # smallest: 16 x 16 threads, one register tile each
+# CTA tile sides the kernel is instantiated for (16 x 16 threads, one
+# register tile each)
+TILE_SIDES = (16, 32, 64, 128)
 _MAX_GRID_Y = 65535
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 
-def cta_tile(block: int) -> int:
-    """The CTA tile side for a block side: the largest power of two <= 128
-    that divides it (0 when none >= 16 does)."""
-    t = _MAX_TILE
-    while t >= _MIN_TILE and block % t:
-        t //= 2
-    return t if t >= _MIN_TILE else 0
-
-
 def smem_bytes(config: Dict[str, int]) -> int:
     """Static shared memory of one CTA: the A and B stages, float32."""
-    tm, tn = cta_tile(config["block_m"]), cta_tile(config["block_n"])
-    return 4 * _KC * (tm + _PAD + tn)
+    return 4 * _KC * (config["block_m"] + _PAD + config["block_n"])
 
 
 def launchable(shapes: Sequence[Sequence[int]],
@@ -67,10 +58,10 @@ def launchable(shapes: Sequence[Sequence[int]],
     ((M, K), (K, N)), else the reason."""
     m = int(shapes[0][0])
     for key in ("block_m", "block_n"):
-        if not cta_tile(config[key]):
-            return (f"{key}={config[key]} has no power-of-two factor in "
-                    f"[{_MIN_TILE}, {_MAX_TILE}] for the CTA tile")
-    if m // cta_tile(config["block_m"]) > _MAX_GRID_Y:
+        if config[key] not in TILE_SIDES:
+            return (f"{key}={config[key]} is not a CTA tile side "
+                    f"{TILE_SIDES}")
+    if m // config["block_m"] > _MAX_GRID_Y:
         return f"M={m} needs more than {_MAX_GRID_Y} CTA rows"
     if smem_bytes(config) > _SMEM_LIMIT:
         return (f"{smem_bytes(config)} bytes of shared memory, more than "
@@ -126,7 +117,7 @@ def perforated_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
     fn = _build.function("perforated_matmul_f32", _ARGTYPES)
     p = _build.ptr
     err = fn(p(xf), p(wf), p(y), p(kept), p(live), p(factor), p(work), m, k,
-             n, cta_tile(block_m), cta_tile(block_n), block_k,
+             n, block_m, block_n, block_k,
              int(kept.shape[0]), _build.stream(dev))
     COUNTER.launches += 1
     _build.check("perforated_matmul", err)

@@ -17,8 +17,11 @@
   3. **measured time** -- warm-up calls, then the median of `repeats`
      timed calls (`obs.timing.measure`: CUDA events on the card). The
      precise path runs (knobs that never approximate), so candidates are
-     compared on block geometry alone. `measure=False` crowns the
-     cost-model winner;
+     compared on block geometry alone. The baseline config (the caller's
+     default, else `FALLBACK_BLOCKS`) is timed beside the cost model's top
+     `max_measure`, so a stored winner never loses to it in the same
+     measurement; the JAX tuner times only the top candidates.
+     `measure=False` crowns the cost-model winner;
   4. **persistent cache** -- winners land in a JSON `TuningCache` (the JAX
      package's schema) keyed by (kernel, operand shapes, dtype, machine,
      substrate). A hit skips all measurement. The ambient cache comes from
@@ -414,15 +417,20 @@ def autotune(kernel: str, *arrays, cache: Optional[TuningCache] = None,
              max_measure: int = 6, warmup: int = 2, repeats: int = 5,
              pipeline: bool = True, measure: bool = True,
              measure_fn: Optional[Callable] = None,
+             baseline: Optional[Dict[str, int]] = None,
              log: Optional[Callable[[str], None]] = None) -> Dict[str, int]:
     """Tune `kernel`'s block shapes for these operands; returns the config.
 
     Cache hit -> return at once (no measurement). Miss -> enumerate the
     launchable divisor-valid search space, rank every candidate on the
-    roofline cost model, time the top `max_measure` on the operands' device
-    (or, with `measure=False`, crown the cost-model winner) and store the
-    result. `measure_fn(fn, args) -> seconds` overrides the timer (tests
-    inject deterministic ones). A candidate that fails to launch raises.
+    roofline cost model, time the top `max_measure` and the baseline on
+    the operands' device and keep the fastest (or, with `measure=False`,
+    crown the cost-model winner), and store the result. The baseline is
+    `baseline` (it must be divisor-valid and launchable, and may lie
+    outside the power-of-two space), else `FALLBACK_BLOCKS[kernel]` where
+    it launches. `measure_fn(fn, args) -> seconds` overrides the timer
+    (tests inject deterministic ones). A candidate that fails to launch
+    raises.
     """
     dev = _device(arrays)
     mp = get_machine(machine if machine is not None
@@ -449,11 +457,25 @@ def autotune(kernel: str, *arrays, cache: Optional[TuningCache] = None,
     candidates = [cfg for _, _, cfg in ranked[:max(1, max_measure)]]
     predicted_us = {json.dumps(cfg, sort_keys=True): t * 1e6
                     for t, _, cfg in ranked}
+    base = dict(baseline if baseline is not None
+                else FALLBACK_BLOCKS[kernel])
+    why = (validate_config(kernel, shapes, base)
+           or launchable(kernel, shapes, base))
+    if why and baseline is not None:
+        raise ValueError(f"baseline {base} of {kernel} does not launch on "
+                         f"{list(map(tuple, shapes))}: {why}")
+    if why:
+        base = None
+    elif base not in space:  # a default outside the power-of-two space
+        predicted_us[json.dumps(base, sort_keys=True)] = predict_time_s(
+            kernel, arrays, base, machine=mp) * 1e6
 
     if measure:
         timer = measure_fn or (
             lambda fn, args: measure_s(fn, *args, warmup=warmup,
                                        repeats=repeats))
+        if base is not None and base not in candidates:
+            candidates.append(base)
         timed = []
         for cfg in candidates:
             with trace.span("tuning.measure_config", kernel=kernel,
@@ -465,9 +487,12 @@ def autotune(kernel: str, *arrays, cache: Optional[TuningCache] = None,
                 log(f"{kernel} {cfg}: {s * 1e6:.1f}us")
         best_s, best = min(timed, key=lambda t: t[0])
         measured = len(timed)
+        base_us = (None if base is None else
+                   round(next(t for t, c in timed if c == base) * 1e6, 3))
     else:  # cost-model ranking: no timing at all
         best_s, best = ranked[0][0], candidates[0]
         measured = 0
+        base_us = None
 
     entry = {
         "kernel": kernel,
@@ -482,6 +507,8 @@ def autotune(kernel: str, *arrays, cache: Optional[TuningCache] = None,
         "pipeline": bool(pipeline),
         "candidates": len(space),
         "measured": measured,
+        "baseline": base,
+        "baseline_us": base_us,
     }
     cache.put(key, entry)
     if cache.path:

@@ -114,15 +114,48 @@ class TestOnCard:
         if fraction == 1.0:
             assert not bool(y.any())
 
+    @pytest.mark.parametrize("kernel", ["taf_matmul", "iact_rowfn"])
+    def test_largest_tuned_blocks(self, kernel):
+        """The blocks the tuner picks at full width: K2 at block_m 512 and
+        K3 at block_rows 512 with table_size 4 (block_rows x table_size at
+        the probe limit of 2048)."""
+        rng = np.random.RandomState(6)
+        if kernel == "taf_matmul":
+            x = torch.from_numpy(_stableish(rng, 2048, 128)).cuda()
+            w = torch.from_numpy(rng.randn(128, 1024).astype(
+                np.float32)).cuda()
+            kw = dict(block_m=512, block_n=512, history_size=2,
+                      prediction_size=1, rsd_threshold=0.5)
+            y, m = ops.taf_matmul(x, w, **kw)
+            yr, mr = ref.taf_matmul_ref(x, w, **kw)
+        else:
+            distinct = rng.randn(2, 64).astype(np.float32)
+            x = torch.from_numpy(np.repeat(distinct, 1024, axis=0)).cuda()
+            w1 = torch.from_numpy(rng.randn(64, 128).astype(
+                np.float32)).cuda()
+            w2 = torch.from_numpy(rng.randn(128, 32).astype(
+                np.float32)).cuda()
+            kw = dict(block_rows=512, table_size=4, threshold=0.5)
+            assert iact_memo.launchable((x.shape, w1.shape, w2.shape),
+                                        {"block_rows": 512}) is None
+            y, m = ops.iact_rowfn(x, w1, w2, **kw)
+            yr, mr = ref.iact_rowfn_ref(x, w1, w2, **kw)
+        assert torch.equal(m, mr) and bool(m.any())
+        assert float((y - yr).abs().max()) <= TAF_ATOL
+
     def test_autotune_launches_every_candidate(self):
         rng = np.random.RandomState(5)
         x = torch.from_numpy(rng.randn(256, 256).astype(np.float32)).cuda()
         w = torch.from_numpy(rng.randn(256, 256).astype(np.float32)).cuda()
         before = perforated_matmul.COUNTER.launches
-        cfg = tuning.autotune("perforated_matmul", x, w,
-                              cache=tuning.TuningCache(), max_measure=3,
-                              warmup=1, repeats=2)
-        assert perforated_matmul.COUNTER.launches - before == 3 * 3
+        cache = tuning.TuningCache()
+        cfg = tuning.autotune("perforated_matmul", x, w, cache=cache,
+                              max_measure=3, warmup=1, repeats=2)
+        (entry,) = cache.entries.values()
+        # the top 3 and the fallback 128/128/128 where it is not among them
+        assert entry["measured"] in (3, 4)
+        assert perforated_matmul.COUNTER.launches - before == \
+            3 * entry["measured"]
         shapes = tuning.operand_shapes((x, w))
         assert tuning.validate_config("perforated_matmul", shapes,
                                       cfg) is None

@@ -116,9 +116,14 @@ def test_parity_sweep_and_tuning(run):
                                    tuning.operand_shapes(arrays[kernel]))
         assert t["shapes"] == [list(s) for s in shapes]
         assert t["candidates"] == len(tuning.search_space(kernel, shapes))
-        assert t["measured"] == min(4, t["candidates"])
+        # the cost model's top 4, and the default where it is not among them
+        assert min(4, t["candidates"]) <= t["measured"] <= \
+            min(4, t["candidates"]) + 1
         assert tuning.validate_config(kernel, shapes, t["tuned"]) is None
-        assert t["speedup"] > 0 and t["tuned_launches"] == 0  # plain
+        assert t["tuned_launches"] == 0  # plain
+        # one pass times both, so the tuned config never loses
+        assert t["speedup"] >= 1.0 and t["default_us"] >= t["tuned_us"]
+        assert t["tuned"] != t["default"] or t["speedup"] == 1.0
     assert isinstance(bench["tuning"]["all_beat_default"], bool)
 
 

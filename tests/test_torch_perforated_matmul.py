@@ -195,10 +195,19 @@ def test_drop_all_structural_and_bad_hook_raise_as_jax():
                     **blocks)
 
 
-@pytest.mark.parametrize("block,tile", [(8, 0), (16, 16), (48, 16),
-                                        (96, 32), (128, 128), (512, 128)])
-def test_cta_tile(block, tile):
-    assert perforated_matmul.cta_tile(block) == tile
+@pytest.mark.parametrize("block,ok", [(8, False), (16, True), (48, False),
+                                      (96, False), (128, True),
+                                      (512, False)])
+def test_block_sides_are_cta_tiles(block, ok):
+    """block_m and block_n are the CTA tile itself: 16, 32, 64 or 128. A
+    larger block would repeat the 128 launch, so it is rejected."""
+    shapes = ((1024, 256), (256, 1024))
+    for key in ("block_m", "block_n"):
+        cfg = {"block_m": 128, "block_n": 128, "block_k": 64, key: block}
+        why = perforated_matmul.launchable(shapes, cfg)
+        assert (why is None) == ok
+        if not ok:
+            assert key in why
 
 
 def test_launchable_rule():

@@ -125,7 +125,7 @@ def test_launchable_rules_bound_the_space_at_full_width():
                          for c in space)
     pmm = tuning.search_space("perforated_matmul",
                               ((4096, 6144), (6144, 2048)))
-    assert len(pmm) == 6 * 6 * 7  # block_m, block_n >= 16
+    assert len(pmm) == 4 * 4 * 7  # block_m, block_n in 16..128
     # the JAX VMEM budget would empty K3's space here (w1 + w2 = 100.7 MB);
     # the port's bound is the kernel's own
     ffn = ((4096, 2048), (2048, 6144), (6144, 2048))
@@ -235,12 +235,43 @@ def test_deterministic_winner_and_hit_skips_measurement():
 def test_measured_winner_is_one_of_the_measured():
     x, w = _arrays("perforated_matmul")
     cache = tuning.TuningCache()
+    base = {"block_m": 16, "block_n": 16, "block_k": 8}
     cfg = tuning.autotune("perforated_matmul", x, w, cache=cache,
-                          max_measure=2, warmup=1, repeats=1)
+                          max_measure=2, warmup=1, repeats=1, baseline=base)
     (entry,) = cache.entries.values()
-    assert entry["measured"] == 2 and entry["config"] == cfg
+    # the top 2 by the cost model, and the baseline (not among them)
+    assert entry["measured"] == 3 and entry["config"] == cfg
+    assert entry["baseline"] == base and entry["baseline_us"] >= entry["us"]
     assert entry["candidates"] == len(tuning.search_space(
         "perforated_matmul", tuning.operand_shapes((x, w))))
+
+
+@pytest.mark.parametrize("baseline_wins", [True, False])
+def test_baseline_is_timed_beside_the_top_candidates(baseline_wins):
+    """The default is measured in the same pass as the cost model's top
+    `max_measure`, and a winner never loses to it."""
+    rng = np.random.RandomState(3)
+    x, w = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+            for s in ((96, 32), (32, 32)))
+    base = {"block_m": 48, "block_n": 32}  # outside the power-of-two space
+    seen = []
+
+    def timer(fn, args):
+        seen.append(len(seen))
+        return 1.0 if len(seen) <= 2 else (0.5 if baseline_wins else 2.0)
+
+    cache = tuning.TuningCache()
+    cfg = tuning.autotune("taf_matmul", x, w, cache=cache, max_measure=2,
+                          baseline=base, measure_fn=timer)
+    (entry,) = cache.entries.values()
+    assert len(seen) == 3 and entry["measured"] == 3
+    assert (cfg == base) == baseline_wins
+    assert entry["baseline_us"] == (0.5 if baseline_wins else 2.0) * 1e6
+    assert entry["predicted_us"] > 0
+    with pytest.raises(ValueError, match="does not launch"):
+        tuning.autotune("taf_matmul", x, w, cache=tuning.TuningCache(),
+                        baseline={"block_m": 40, "block_n": 32},
+                        measure_fn=timer)
 
 
 def test_attention_key_uses_canonical_operands():
