@@ -13,7 +13,10 @@ failure could still exit 0):
      (seq 128, d 32, d_h 64, heads 2) and its full width, plus K1's
      structural/masked modes, GQA, Sq < Skv, non-causal and bf16: masks
      equal, values within atol 1e-3 (K2/K3), 1e-4 (K1 float32), 0.05 (K1
-     bf16) -- the JAX package's test tolerances;
+     bf16) -- the JAX package's test tolerances; K3's schedule kernel
+     alone equals its plain version exactly (mask, list of computed blocks,
+     src) at both IACT specs, and three K2 and K3 calls on the same inputs
+     give identical outputs;
   4. the 30-spec sweep on the "cuda" substrate at the reference geometry:
      the front must equal the committed benchmarks/baselines/BENCH_ffn.json
      (n_front 4, hypervolume within 1e-4, best-under-10% approx fractions,
@@ -28,8 +31,10 @@ failure could still exit 0):
   6. per-kernel CUDA-event times at the main path's shapes: the kernel, its
      plain version, one PyTorch library call computing the same function
      (a yardstick the port never calls) and the least time the card could
-     take (bound); K4 at the FFN down-projection (x (4096, 6144) @ w
-     (6144, 2048), block_k 128, SMALL skip 2);
+     take (bound); K3 also at the loose IACT spec; K4 at the FFN
+     down-projection (x (4096, 6144) @ w (6144, 2048), block_k 128, SMALL
+     skip 2); the CUDA kernels one K2 and one K3 call run (torch.profiler,
+     at two block shapes each: 1 and 4);
   7. the kernel-engineering path: `measure_machine` three times on the
      card (dispatch_s of each, median of 100 calls, and their median), then
      `repro_torch.benchmarks.kernel_micro` at its `ref` and `full`
@@ -146,7 +151,8 @@ def main():
     import torch.nn.functional as F
     from repro_torch.analysis import machine
     from repro_torch.apps import approx_ffn
-    from repro_torch.benchmarks import approx_ffn_sweep, kernel_micro
+    from repro_torch.benchmarks import (approx_ffn_sweep, kernel_micro,
+                                        kernel_profile)
     from repro_torch.core import perforation
     from repro_torch.core.types import (ApproxSpec, IACTParams, Level,
                                         PerforationKind, PerforationParams,
@@ -243,6 +249,30 @@ def main():
     check(bool(m.any()) and computed == int((~m).sum()),
           "iact_rowfn: the loose threshold approximated no block, or the "
           "kernel computed another count of blocks than its mask says")
+    # K3's schedule kernel alone against its plain version, at both IACT
+    # specs: mask, list of computed blocks and src exactly equal
+    for thr in (IACT_SPEC[2], loose):
+        got = iact_memo.schedule(s["a"], 16, IACT_SPEC[1], thr)
+        want = iact_memo.schedule_plain(s["a"], 16, IACT_SPEC[1], thr)
+        same = all(torch.equal(g.cpu(), w_.cpu())
+                   for g, w_ in zip(got, want))
+        log(f"  iact_schedule [full geometry, threshold {thr:.4g}] "
+            f"{len(got[1])} of {got[0].numel()} blocks computed, "
+            f"equal to schedule_plain={same}")
+        check(same, f"iact_schedule at threshold {thr} differs from "
+                    "schedule_plain")
+    # three calls on the same inputs give identical masks and values
+    repeat_calls = {
+        "taf_matmul": lambda: ops.taf_matmul(
+            s["x"], s["wp"], block_n=FULL_GEOM["d"], **taf_kw),
+        "iact_rowfn": lambda: ops.iact_rowfn(s["a"], s["w1"], s["w2"], **kw),
+    }
+    for name, fn in repeat_calls.items():
+        first = fn()
+        same = all(all(torch.equal(a_, b_) for a_, b_ in zip(fn(), first))
+                   for _ in range(2))
+        log(f"  {name} [full geometry] three calls identical={same}")
+        check(same, f"{name}: repeated calls on the same inputs differ")
     rng = np.random.RandomState(7)
     attn_cases = [  # (B, Hq, Hkv, Sq, Skv, D, dtype, causal, perfo, frac)
         (1, 4, 4, 256, 256, 64, torch.float32, True,
@@ -418,11 +448,15 @@ def main():
         library_ms=ms(torch.matmul, s["x"], s["wp"]), ops=ops_,
         bytes=bytes_, work=f"{computed} of {m.numel()} tiles computed"))
 
-    # K3: a (seq, d) -> gelu(a @ w1) @ w2, only computed blocks
+    # K3: a (seq, d) -> gelu(a @ w1) @ w2, only computed blocks; beside it
+    # the loose spec, whose skipped blocks should make it beat the exact FFN
     _, m = ops.iact_rowfn(s["a"], s["w1"], s["w2"], **iact_kw)
     computed = int((~m).sum())
     ops_ = computed * (2.0 * 16 * d * d_h * 2)
     bytes_ = f4 * (seq * d + d * d_h + d_h * d + seq * d)
+    loose_kw = dict(iact_kw, threshold=loose)
+    _, m_loose = ops.iact_rowfn(s["a"], s["w1"], s["w2"], **loose_kw)
+    loose_computed = int((~m_loose).sum())
     rows.append(dict(
         kernel="iact_rowfn", module=iact_memo,
         ms=ms(ops.iact_rowfn, s["a"], s["w1"], s["w2"], **iact_kw),
@@ -431,7 +465,13 @@ def main():
         library_ms=ms(lambda a, w1, w2: F.gelu(a @ w1, approximate="tanh")
                       @ w2, s["a"], s["w1"], s["w2"]),
         ops=ops_, bytes=bytes_,
-        work=f"{computed} of {m.numel()} blocks computed"))
+        work=f"{computed} of {m.numel()} blocks computed",
+        loose=dict(threshold=loose, ms=ms(ops.iact_rowfn, s["a"], s["w1"],
+                                          s["w2"], **loose_kw),
+                   computed=loose_computed,
+                   bound_ms=max(loose_computed * 2.0 * 16 * d * d_h * 2
+                                / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES)
+                   * 1e3)))
 
     # K1: masked fini 0.5 over q = k = v (1, 16, seq, 128)
     q = s["q"]
@@ -478,6 +518,29 @@ def main():
         bytes=f4 * (m_ * k_kept + k_kept * n_ + m_ * n_),
         work=f"{len(kept)} of {k_ // bk_} K blocks of {bk_} kept, "
              f"x ({m_}, {k_}) @ w ({k_}, {n_})"))
+    # CUDA kernels one wrapper call runs (torch.profiler), K2 and K3 at two
+    # block shapes each: the count must not depend on the blocks
+    per_call = {
+        "taf_matmul": [kernel_profile.launches_per_call(
+            lambda bm=bm: ops.taf_matmul(s["x"], s["wp"], block_n=d,
+                                         **dict(taf_kw, block_m=bm)),
+            taf_matmul.CUDA_KERNELS, dev) for bm in (16, 512)],
+        "iact_rowfn": [kernel_profile.launches_per_call(
+            lambda br=br: ops.iact_rowfn(s["a"], s["w1"], s["w2"],
+                                         **dict(iact_kw, block_rows=br)),
+            iact_memo.CUDA_KERNELS, dev) for br in (16, 512)],
+    }
+    for r in rows:
+        if r["kernel"] in per_call:
+            r["launches_per_call"] = per_call[r["kernel"]]
+        log(f"  {r['kernel']}: ms={r['ms']!r} plain_ms={r['plain_ms']!r} "
+            f"library_ms={r['library_ms']!r} ({r['work']})"
+            + (f" CUDA launches a call at two block shapes="
+               f"{r['launches_per_call']}" if "launches_per_call" in r
+               else "")
+            + (f" loose: {r['loose']}" if "loose" in r else ""))
+    check(per_call == {"taf_matmul": [1, 1], "iact_rowfn": [4, 4]},
+          f"CUDA launches a call: {per_call}, want 1 for K2 and 4 for K3")
     report["phases"]["timing_s"] = time.perf_counter() - t0
 
     # -- 7. the kernel-engineering path: machine profile, kernel_micro ------
@@ -558,8 +621,9 @@ def main():
             "mask_equal": masks_equal[r["kernel"]],
             "ops": r["ops"], "bytes": r["bytes"], "work": r["work"],
         })
-        if "library_full_ms" in r:
-            kernels[-1]["library_full_ms"] = r["library_full_ms"]
+        for extra in ("library_full_ms", "launches_per_call", "loose"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     report["kernels"] = kernels
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:

@@ -10,6 +10,7 @@ calls it at Qwen3-1.7B widths (seq 4096, d 2048, 16 heads, d_h 6144):
                    kernels, from one `torch.profiler` (CUPTI) session
                    around one call of each, one row per kernel name with
                    its count and mean;
+  * `launches`  -- the call's own CUDA kernels, counted in that session;
   * `idle`      -- 1 - device_ms / wall_ms: the share of the call in which
                    the card ran none of its kernels (the call's small
                    copies and memsets count as idle).
@@ -32,7 +33,7 @@ import torch
 from .. import device as device_mod
 from ..apps import approx_ffn
 from ..core.types import PerforationKind, PerforationParams
-from ..kernels import ops
+from ..kernels import iact_memo, ops, taf_matmul
 from ..obs import timing
 
 FULL_GEOM = dict(seq=4096, d=2048, d_h=6144, heads=16)  # Qwen3-1.7B widths
@@ -57,9 +58,8 @@ def kernel_calls(s: Dict[str, torch.Tensor], d: int
 
 
 # names of the CUDA kernels each wrapper launches (csrc/*.cu)
-KERNEL_NAMES = {"taf_matmul": ("taf_step",),
-                "iact_rowfn": ("iact_probe", "iact_ffn1", "iact_ffn2",
-                               "iact_insert"),
+KERNEL_NAMES = {"taf_matmul": taf_matmul.CUDA_KERNELS,
+                "iact_rowfn": iact_memo.CUDA_KERNELS,
                 "perforated_attention": ("attn_kernel",)}
 
 
@@ -89,6 +89,15 @@ def device_kernels(calls: Dict[str, Callable[[], object]],
     return sorted(rows, key=lambda k: -k["total_ms"])
 
 
+def launches_per_call(fn: Callable[[], object], names, dev: torch.device
+                      ) -> int:
+    """CUDA kernels named in `names` that one call of `fn` runs on the
+    card, counted by `torch.profiler`."""
+    rows = device_kernels({"call": fn}, dev)
+    return sum(r["count"] for r in rows
+               if any(n in r["name"] for n in names))
+
+
 def time_call(fn: Callable[[], object], dev: torch.device) -> Dict:
     wall = timing.measure(fn, device=dev, warmup=1, repeats=5).seconds
     torch.cuda.synchronize(dev)
@@ -112,21 +121,32 @@ def main(out: str = None, geom: Dict[str, int] = None) -> Dict:
         r["kernels"] = [k for k in rows
                         if any(n in k["name"] for n in KERNEL_NAMES[name])]
         r["device_ms"] = sum(k["total_ms"] for k in r["kernels"])
+        r["launches"] = sum(k["count"] for k in r["kernels"])
         r["idle"] = 1.0 - r["device_ms"] / r["wall_ms"]
         report["calls"][name] = r
         print(f"{name}: wall_ms={r['wall_ms']:.4f} host_ms={r['host_ms']:.4f}"
-              f" device_ms={r['device_ms']:.4f} idle={r['idle']:.4f}")
+              f" device_ms={r['device_ms']:.4f} idle={r['idle']:.4f}"
+              f" launches={r['launches']}")
         for k in r["kernels"]:
             print(f"    {k['count']:6d} x {k['mean_us']:10.3f} us = "
                   f"{k['total_ms']:.4f} ms  {k['name'][:90]}")
-    # the same TAF call with threshold 0: no tile approximates, so every
-    # step computes its product (the cost of a computed step)
-    r = time_call(lambda: ops.taf_matmul(
-        s["x"], s["wp"], block_m=16, block_n=geom["d"], history_size=2,
-        prediction_size=4, rsd_threshold=0.0), dev)
-    report["calls"]["taf_matmul_all_computed"] = r
-    print(f"taf_matmul, threshold 0 (all computed): "
-          f"wall_ms={r['wall_ms']:.4f} host_ms={r['host_ms']:.4f}")
+    # TAF with threshold 0: no tile approximates, so every step computes
+    # its product. At the app's shapes, then with a shorter K (the part of
+    # a step that grows with K) and fewer columns (fewer CTAs reading x_i)
+    sweep = {}
+    for k_, n_ in ((geom["d"], geom["d"]), (geom["d"] // 8, geom["d"]),
+                   (geom["d"], geom["d"] // 8)):
+        xs = s["x"][:, :k_].contiguous()
+        ws = s["wp"][:k_, :n_].contiguous()
+        r = time_call(lambda: ops.taf_matmul(
+            xs, ws, block_m=16, block_n=n_, history_size=2,
+            prediction_size=4, rsd_threshold=0.0), dev)
+        r["us_per_step"] = r["wall_ms"] * 1e3 / (geom["seq"] // 16)
+        sweep[f"K{k_}_N{n_}"] = r
+        print(f"taf_matmul, threshold 0 (all computed), K={k_} N={n_}: "
+              f"wall_ms={r['wall_ms']:.4f} host_ms={r['host_ms']:.4f} "
+              f"us_per_step={r['us_per_step']:.3f}")
+    report["calls"]["taf_matmul_all_computed"] = sweep
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:

@@ -134,6 +134,13 @@ def check(kernel: str, err: int) -> None:
                            f"cudaError {err}")
 
 
+def operand(t: torch.Tensor) -> torch.Tensor:
+    """`t` as float32, contiguous and 16-byte aligned, as kernels that copy
+    with 16-byte `cp.async` need (a view at an odd offset is copied)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -6,155 +6,356 @@
 // last history_size tile means, `filled`, `remaining` and a memo tile. A
 // tile with remaining > 0 copies the memo and skips its product.
 //
-// Design. On the TPU the grid runs in order on one core, so the state rides
-// in scratch. Here blocks run in parallel with no order, and the app's
-// geometry has a single column block (block_n = N), so one CTA per column
-// block would run the whole product on one SM. Instead each row block i is
-// one launch of `taf_step` on the caller's stream, a grid of
-// (block_n / cols, num_j) CTAs:
+// Design: one persistent cooperative launch a call. Only the computed steps
+// of a column block form a true chain: after a stable tile, the next
+// prediction_size tiles are a fixed countdown that copies it. So:
 //
-//   * each CTA reads its column block's `remaining`; if > 0 it copies its
-//     slice of the memo into y, else it computes its block_m x cols slice
-//     of the tile (float32 FMA, float32 accumulation; see tile_product in
-//     common.cuh), writes y and the memo, and writes the slice's sum
-//     (float64) to `partials`;
-//   * the last CTA of a column block to finish (a ticket counter behind a
-//     memory fence) sums the partials in a fixed order, rounds the tile mean
-//     to float32, slides the window, decides `remaining` from the window's
-//     RSD (float64, in numpy's order of summation) and writes mask[i, j].
+//   * a column block is split into slices of `cols` (<= 16) columns, and a
+//     team of g CTAs owns it for the whole call, each CTA `spc` contiguous
+//     slices (spc = 1 unless the slices outnumber the co-resident CTAs);
+//     teams take column blocks j, j + n_teams, ... in rounds;
+//   * a CTA keeps its slices of W in shared memory where they fit (at the
+//     app's K = 2048, 16 columns: 128 KB, read once), else stages them with
+//     x; its slices of the memo tile always live in shared memory;
+//   * it walks the row blocks itself. On a computed step it computes its
+//     block_m x cols slices (x staged 16 rows x 256 k at a time by cp.async
+//     in a ring of five, four in flight; 64 k-groups of 4 threads split k,
+//     a thread owns 8 x 8 outputs, and the groups' sums meet in shared
+//     memory in a fixed order; float32 FMA, float32 accumulation), writes
+//     y and its memo, writes its float64 slice sum to a partials array
+//     double-buffered by the parity of the computed step, and passes a
+//     barrier of its team only (an arrival counter per column block, not a
+//     grid-wide sync), so column blocks advance independently. Then every CTA of the team reads the team's partials
+//     (one load a thread, summed in one fixed order) and makes the same
+//     state update: the float32 tile mean from the float64 sum, the window
+//     slide, and the RSD in float64 in numpy's order;
+//   * after a stable tile the CTA writes the next prediction_size tiles'
+//     slices straight from its memo: no barrier, no product, since a CTA
+//     copies only what it computed itself.
 //
-// That is M / block_m launches with no host sync; stream order carries the
-// state from one step to the next. `work` counts the tiles whose product
-// was computed, so a run shows the skip.
+// The cooperative launch guarantees every CTA of the grid is resident, so
+// no CTA waits on a team mate that is not running; a launch that cannot be
+// co-resident fails and the wrapper raises. `work` counts the tiles whose
+// product was computed.
 //
-// Bound on this card: the product's float32 operations (2*M*N*K for the
-// computed tiles) over the 67 TFLOP/s float32 rate; W stays in the 50 MB L2
-// across steps at the app's full width (16 MB). In practice the chain is
-// bound by its length: one launch per row block.
+// Bound on this card: the product's float32 operations (2 * block_m *
+// block_n * K per computed tile) over the 67 TFLOP/s float32 rate. At the
+// app's shapes a computed step gives each of 128 CTAs a 16 x 16 x 2048
+// product, about 2 us at the FMA rate; in practice a step costs about 10
+// us, of which about 5 do not grow with K (the team's exchange and a row
+// group's fixed work) and the rest is mostly delivering operands from
+// shared memory, which the 8 x 8 register tile a thread keeps is there to
+// cut. The host enqueues one launch instead of one per row block.
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-using repro::kThreads;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
-// Writes one output of the tile product into y and the memo, and adds it to
-// the thread's share of the slice sum.
-struct TileOut {
-  float* y;
-  float* memo;
-  int ldy, ldm;
-  double sum = 0.0;
-  __device__ void operator()(int r, int c, float v) {
-    y[(size_t)r * ldy + c] = v;
-    memo[(size_t)r * ldm + c] = v;
-    sum += (double)v;
-  }
-};
+// A CTA's 256 threads are 64 k-groups of 4. Within each 256-k chunk,
+// k-group g sums k = 4g..4g+3, and thread p of the group owns rows
+// p % 2, p % 2 + 2, ..., p % 2 + 14 and columns 8 (p / 2)..8 (p / 2) + 7
+// of the 16 x 16 pass: 64 accumulators, so each float read from shared
+// memory feeds 4 FMAs (a thread of 2 x 4 outputs fed 1.3, and shared
+// memory, not the FMA rate, set the time).
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroups = kThreads / 4;
+constexpr int kRows = 16;      // rows of one pass of the slice product
+constexpr int kCols = 16;      // widest column slice
+constexpr int kKc = 256;       // k of one staged chunk
+constexpr int kStages = 5;     // chunks in the ring, 4 of them in flight
+// floats a staged x row takes: rows 8 banks apart, so the two rows and two
+// k-groups a quarter-warp reads fall on distinct banks
+constexpr int kXStride = kKc + 8;
 
-// The state update of column block j after its tile of step i.
-__device__ void update_state(const double* partials, int* st, double* win,
-                             int* mask_ij, float thresh, int n_sub, int h,
-                             int p, double tile_elems) {
-  const int remaining = st[1];  // [filled, remaining]
-  if (remaining > 0) {
-    *mask_ij = 1;
-    st[1] = remaining - 1;
-    return;
-  }
-  *mask_ij = 0;
-  double sum = 0.0;
-  for (int s = 0; s < n_sub; ++s) sum += __ldcg(partials + s);
-  const float mean = (float)(sum / tile_elems);
-  for (int t = 0; t + 1 < h; ++t) win[t] = win[t + 1];
-  win[h - 1] = (double)mean;
-  const int filled = min(st[0] + 1, h);
-  st[0] = filled;
-  int next = 0;
-  if (filled >= h) {
-    double mu = 0.0;
-    for (int t = 0; t < h; ++t) mu += win[t];
-    mu /= h;
-    double var = 0.0;
-    for (int t = 0; t < h; ++t) {
-      const double d = win[t] - mu;
-      var += d * d;
-    }
-    const double sigma = sqrt(var / h);
-    if (sigma / fmax(fabs(mu), 1e-12) < (double)thresh) next = p;
-  }
-  st[1] = next;
+static_assert(4 * kGroups == kKc, "a k-group takes 4 k of a chunk");
+// The k-split sums (kGroups x kRows x kCols) reuse the x ring once a row
+// group's chunks are consumed.
+static_assert(kGroups * kRows * kCols <= kStages * kRows * kXStride,
+              "the k-split sums fit the x ring");
+
+// Row of k in the shared W slices: within a chunk, k = 4g + u sits at row
+// 64u + g, so the k-groups of a quarter-warp read neighbouring rows.
+__device__ __forceinline__ int w_row(int k) {
+  return k / kKc * kKc + (k & 3) * kGroups + (k % kKc) / 4;
 }
 
-__global__ void __launch_bounds__(kThreads)
-taf_step(const float* __restrict__ x, const float* __restrict__ w,
-         float* __restrict__ y, float* __restrict__ memo,
-         double* __restrict__ partials, int* __restrict__ state,
-         double* __restrict__ window, int* __restrict__ mask,
-         unsigned int* __restrict__ tickets, const float* __restrict__ thresh,
-         unsigned long long* __restrict__ work, int i, int K, int N, int bm,
-         int bn, int cols, int h, int p) {
-  const int s = blockIdx.x, j = blockIdx.y, tid = threadIdx.x;
-  const int n_sub = bn / cols, num_j = gridDim.y;
-  const int col0 = j * bn + s * cols;
-  float* memo_s = memo + (size_t)j * bm * bn + s * cols;
-  float* y_s = y + (size_t)i * bm * N + col0;
-  if (state[2 * j + 1] > 0) {  // approximate: reuse the memo, no product
-    for (int e = tid; e < bm * cols; e += kThreads) {
-      const int r = e / cols, c = e % cols;
-      y_s[(size_t)r * N + c] = memo_s[(size_t)r * bn + c];
+struct Layout {  // dynamic shared memory of one CTA, in floats, after the
+                 // window of h doubles
+  int xs, ws, memo, total;
+  bool resident;
+};
+
+__host__ __device__ inline Layout layout(int K, int bm, int h, int spc,
+                                         bool resident) {
+  const int k_pad = (K + kKc - 1) / kKc * kKc;
+  Layout l;
+  l.resident = resident;
+  l.xs = (2 * h + 3) / 4 * 4;                  // kStages x kRows x kKc
+  l.ws = l.xs + kStages * kRows * kXStride;    // W: resident or staged
+  l.memo = l.ws + (resident ? spc * k_pad * kCols : kStages * kKc * kCols);
+  l.total = l.memo + spc * bm * kCols;
+  return l;
+}
+
+struct Args {
+  const float* x;
+  const float* w;
+  float* y;
+  int* mask;
+  double* partials;   // 2 x num_j x g
+  unsigned* arrive;   // num_j, zeroed by the host
+  const float* thresh;
+  unsigned long long* work;
+  int M, K, N, bm, bn, cols, h, p, spc, g, n_teams;
+  bool resident;
+};
+
+__global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int remaining_s;
+  const Layout L = layout(a.K, a.bm, a.h, a.spc, a.resident);
+  double* window = reinterpret_cast<double*>(sm);
+  float* xs = sm + L.xs;
+  float* ws = sm + L.ws;
+  float* memo = sm + L.memo;
+  float* red = xs;  // see Layout
+  const int tid = threadIdx.x;
+  const int kg = tid >> 2, rh = tid & 1, ch = (tid >> 1) & 1;
+  const int team = blockIdx.x / a.g, rank = blockIdx.x % a.g;
+  const int num_i = a.M / a.bm, num_j = a.N / a.bn, nkc = (a.K + kKc - 1) / kKc;
+  const int k_pad = nkc * kKc;
+  const float thresh = a.thresh[0];
+
+  for (int j = team; j < num_j; j += a.n_teams) {
+    const int c_base = j * a.bn + rank * a.spc * a.cols;
+    // the W slices [s][w_row(k)][16], zero past K and past cols
+    auto load_w = [&](float* dst, int s, int k0, int nk) {
+      for (int f = tid; f < nk * 4; f += kThreads) {
+        const int k = k0 + (f >> 2), c = (f & 3) * 4;
+        const bool ok = k < a.K && c < a.cols;
+        cp_async16(dst + (size_t)(w_row(k) - k0) * kCols + c,
+                   ok ? a.w + (size_t)k * a.N + c_base + s * a.cols + c
+                      : a.w, ok);
+      }
+    };
+    if (a.resident) {
+      for (int s = 0; s < a.spc; ++s)
+        load_w(ws + (size_t)s * k_pad * kCols, s, 0, k_pad);
+      cp_async_commit();
+      cp_async_wait<0>();
     }
-  } else {
-    TileOut out{y_s, memo_s, N, bn};
-    repro::tile_product(x + (size_t)i * bm * K, K, w + col0, N, bm, cols, K,
-                        out);
-    const double part = repro::block_sum(out.sum);
-    if (tid == 0) {
-      partials[j * n_sub + s] = part;
-      if (s == 0) atomicAdd(work, 1ull);
+    // The CTA's slices of the product of row block i2 into y and the memo;
+    // returns this thread's share of their float64 sum.
+    auto product = [&](int i2) {
+      float* y_i = a.y + (size_t)i2 * a.bm * a.N + c_base;
+      double my = 0.0;
+      for (int s = 0; s < a.spc; ++s) {
+        for (int r0 = 0; r0 < a.bm; r0 += kRows) {
+          const float* x0 = a.x + ((size_t)i2 * a.bm + r0) * a.K;
+          const int rn = min(kRows, a.bm - r0);
+          auto stage = [&](int kc, int buf) {
+            const int k0 = kc * kKc;
+            float* xb = xs + buf * kRows * kXStride;
+            for (int f = tid; f < kRows * kKc / 4; f += kThreads) {
+              const int r = f / (kKc / 4), k = (f % (kKc / 4)) * 4;
+              const bool ok = r < rn && k0 + k < a.K;
+              cp_async16(xb + r * kXStride + k,
+                         ok ? x0 + (size_t)r * a.K + k0 + k : a.x, ok);
+            }
+            if (!a.resident) load_w(ws + buf * kKc * kCols, s, k0, kKc);
+          };
+          float acc[8][8] = {};
+          for (int st = 0; st < kStages - 1; ++st) {
+            if (st < nkc) stage(st, st);
+            cp_async_commit();
+          }
+          for (int kc = 0; kc < nkc; ++kc) {
+            cp_async_wait<kStages - 2>();
+            __syncthreads();  // chunk kc has landed; kc - 1 is consumed
+            if (kc + kStages - 1 < nkc)
+              stage(kc + kStages - 1, (kc + kStages - 1) % kStages);
+            cp_async_commit();
+            const float* xb =
+                xs + (kc % kStages) * kRows * kXStride + 4 * kg;
+            const float* wb =
+                (a.resident ? ws + ((size_t)s * k_pad + kc * kKc) * kCols
+                            : ws + (kc % kStages) * kKc * kCols) +
+                kg * kCols + 8 * ch;
+            float4 xv[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              xv[r] = *reinterpret_cast<const float4*>(
+                  xb + (rh + 2 * r) * kXStride);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float4 b0 = *reinterpret_cast<const float4*>(
+                  wb + u * kGroups * kCols);
+              const float4 b1 = *reinterpret_cast<const float4*>(
+                  wb + u * kGroups * kCols + 4);
+              const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                                  b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+              for (int r = 0; r < 8; ++r) {
+                const float xr = u == 0   ? xv[r].x
+                                 : u == 1 ? xv[r].y
+                                 : u == 2 ? xv[r].z
+                                          : xv[r].w;
+#pragma unroll
+                for (int c = 0; c < 8; ++c)
+                  acc[r][c] = fmaf(xr, b[c], acc[r][c]);
+              }
+            }
+          }
+          cp_async_wait<0>();
+          __syncthreads();  // every thread is done with the ring
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            float* dst = red + (kg * kRows + rh + 2 * r) * kCols + 8 * ch;
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+            *reinterpret_cast<float4*>(dst + 4) =
+                make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+          }
+          __syncthreads();
+          if (tid < kRows * kCols) {
+            const int r = tid / kCols, c = tid % kCols;
+            if (r < rn && c < a.cols) {
+              float v = 0.f;
+              for (int g = 0; g < kGroups; ++g)
+                v += red[(g * kRows + r) * kCols + c];
+              y_i[(size_t)(r0 + r) * a.N + s * a.cols + c] = v;
+              memo[((size_t)s * a.bm + r0 + r) * kCols + c] = v;
+              my += (double)v;
+            }
+          }
+          __syncthreads();  // red is free
+        }
+      }
+      return my;
+    };
+    for (int t = tid; t < a.h; t += kThreads) window[t] = 0.0;
+    int filled = 0;                // kept by thread 0
+    int remaining = 0, steps = 0;  // the same in every thread
+    __syncthreads();
+    for (int i = 0; i < num_i; ++i) {
+      if (remaining > 0) {  // approximate: copy the memo, no product
+        float* y_i = a.y + (size_t)i * a.bm * a.N + c_base;
+        for (int e = tid; e < a.spc * a.bm * a.cols; e += kThreads) {
+          const int c = e % a.cols, r = (e / a.cols) % a.bm,
+                    s = e / (a.cols * a.bm);
+          y_i[(size_t)r * a.N + s * a.cols + c] =
+              memo[((size_t)s * a.bm + r) * kCols + c];
+        }
+        if (tid == 0 && rank == 0) a.mask[i * num_j + j] = 1;
+        --remaining;
+        continue;
+      }
+      // computed: the product of tile (i, j), then the team barrier
+      const double part = repro::block_sum<kWarps>(product(i));
+      const double* parts =
+          a.partials + ((size_t)(steps & 1) * num_j + j) * a.g;
+      ++steps;  // the same in every thread
+      if (tid == 0) {
+        const_cast<double*>(parts)[rank] = part;
+        __threadfence();
+        atomicAdd(a.arrive + j, 1u);
+        const unsigned target = (unsigned)steps * a.g;
+        while (*reinterpret_cast<volatile unsigned*>(a.arrive + j) < target)
+          __nanosleep(32);
+        __threadfence();
+      }
+      __syncthreads();
+      // the team's partials in a fixed order, the same in every CTA
+      double v = 0.0;
+      for (int t = tid; t < a.g; t += kThreads) v += __ldcg(parts + t);
+      const double sum = repro::block_sum<kWarps>(v);
+      if (tid == 0) {  // the same state update in every CTA of the team
+        const float mean = (float)(sum / ((double)a.bm * a.bn));
+        for (int t = 0; t + 1 < a.h; ++t) window[t] = window[t + 1];
+        window[a.h - 1] = (double)mean;
+        filled = min(filled + 1, a.h);
+        int next = 0;
+        if (filled >= a.h) {
+          double mu = 0.0;
+          for (int t = 0; t < a.h; ++t) mu += window[t];
+          mu /= a.h;
+          double var = 0.0;
+          for (int t = 0; t < a.h; ++t) {
+            const double d = window[t] - mu;
+            var += d * d;
+          }
+          const double sigma = sqrt(var / a.h);
+          if (sigma / fmax(fabs(mu), 1e-12) < (double)thresh) next = a.p;
+        }
+        remaining_s = next;
+        if (rank == 0) a.mask[i * num_j + j] = 0;
+      }
+      __syncthreads();
+      // thread 0 writes remaining_s again only past later barriers
+      remaining = remaining_s;
     }
+    if (tid == 0 && rank == 0) atomicAdd(a.work, (unsigned long long)steps);
+    __syncthreads();  // the memo and W slices are free for the next round
   }
-  // the last CTA of column block j to finish updates its state; the barrier
-  // keeps every thread's read of the state above ahead of that update
-  __shared__ bool last;
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(tickets + j, 1u) == (unsigned)(n_sub - 1);
-  }
-  __syncthreads();
-  if (!last || tid != 0) return;
-  tickets[j] = 0;
-  __threadfence();
-  update_state(partials + j * n_sub, state + 2 * j, window + (size_t)j * h,
-               mask + i * num_j + j, thresh[0], n_sub, h, p,
-               (double)bm * bn);
 }
 
 }  // namespace
 
-// x (M, K), w (K, N) float32 row-major; y (M, N); mask (M/bm, N/bn) int32.
-// Scratch from the caller: memo (N/bn, bm, bn) float32, partials
-// (N/bn * bn/cols) float64, state (2 * N/bn) int32, window (N/bn * h)
-// float64, tickets (N/bn) uint32. thresh is one float32 on the device; work
-// one uint64 that the kernel adds to. Returns cudaGetLastError().
+// x (M, K), w (K, N) float32 row-major, 16-byte aligned, K and N multiples
+// of 4; y (M, N); mask (M/bm, N/bn) int32. cols (<= 16, a multiple of 4)
+// divides bn. Scratch from the caller: partials (2 * N / cols) float64,
+// arrive (N / bn) uint32. thresh is one float32 on the device; work one
+// uint64 that the kernel adds to. One memset and one cooperative launch;
+// returns the first cudaError_t (cudaErrorCooperativeLaunchTooLarge where
+// the teams cannot be co-resident).
 extern "C" int taf_matmul_f32(const float* x, const float* w, float* y,
-                              int* mask, float* memo, double* partials,
-                              int* state, double* window,
-                              unsigned int* tickets, const float* thresh,
-                              unsigned long long* work, int M, int K, int N,
-                              int bm, int bn, int cols, int h, int p,
-                              void* stream) {
+                              int* mask, double* partials, unsigned* arrive,
+                              const float* thresh, unsigned long long* work,
+                              int M, int K, int N, int bm, int bn, int cols,
+                              int h, int p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int num_i = M / bm, num_j = N / bn, n_sub = bn / cols;
-  cudaMemsetAsync(state, 0, sizeof(int) * 2 * num_j, st);
-  cudaMemsetAsync(window, 0, sizeof(double) * num_j * h, st);
-  cudaMemsetAsync(tickets, 0, sizeof(unsigned int) * num_j, st);
-  const dim3 grid(n_sub, num_j);
-  for (int i = 0; i < num_i; ++i)
-    taf_step<<<grid, kThreads, 0, st>>>(x, w, y, memo, partials, state,
-                                        window, mask, tickets, thresh, work,
-                                        i, K, N, bm, bn, cols, h, p);
-  return (int)cudaGetLastError();
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const int n_sub = bn / cols, num_j = N / bn;
+  // the fewest slices per CTA that let a team be co-resident; W resident
+  // in shared memory where it fits
+  Args a{x, w, y, mask, partials, arrive, thresh, work, M, K, N, bm, bn,
+         cols, h, p, 0, 0, 0, false};
+  size_t smem = 0;
+  int resident_ctas = 0;
+  for (int spc = 1; spc <= n_sub && !a.spc; ++spc) {
+    if (n_sub % spc) continue;
+    Layout l = layout(K, bm, h, spc, true);
+    if ((size_t)l.total * 4 > (size_t)repro::kMaxSmem)
+      l = layout(K, bm, h, spc, false);
+    if ((size_t)l.total * 4 > (size_t)repro::kMaxSmem) break;
+    smem = (size_t)l.total * 4;
+    cudaFuncSetAttribute(taf_persistent,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    int occ = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, taf_persistent,
+                                                  kThreads, smem);
+    resident_ctas = occ * n_sm;
+    if (n_sub / spc <= resident_ctas) {
+      a.spc = spc;
+      a.resident = l.resident;
+    }
+  }
+  if (!a.spc) return (int)cudaErrorCooperativeLaunchTooLarge;
+  a.g = n_sub / a.spc;
+  a.n_teams = std::min(num_j, resident_ctas / a.g);
+  cudaMemsetAsync(arrive, 0, sizeof(unsigned) * num_j, st);
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)taf_persistent, dim3(a.n_teams * a.g), dim3(kThreads),
+      args, smem, st);
 }

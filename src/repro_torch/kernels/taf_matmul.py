@@ -6,10 +6,12 @@ run in temporal order, and once the RSD of the last `history_size` tile
 means falls below the threshold, the next `prediction_size` tiles reuse the
 memoized tile and skip their product.
 
-On this card the sequence is a chain of one launch per row block: a grid
-over the tile's column slices, whose last CTA to finish updates the state,
-so the product of one tile spreads over many SMs while the decision chain
-stays in order without a host sync. See the source note in
+On this card one call is one persistent cooperative launch: a team of CTAs
+owns each column block for the whole call, each CTA a fixed slice of at
+most 16 columns with its slice of W and of the memo in shared memory; the
+team walks the row blocks on the device, meets at a barrier of its own
+after each computed tile to make the same state update, and copies its memo
+for the predicted tiles without a barrier. See the source note in
 `csrc/taf_matmul.cu` for the design and what bounds it.
 
 Plain version: `ref.taf_matmul_ref`, taken for CPU tensors. The threshold
@@ -29,31 +31,53 @@ SOURCE = "src/repro_torch/kernels/csrc/taf_matmul.cu"
 REPLACES = "src/repro/kernels/taf_matmul.py:86"
 COUNTER = _build.Counter("taf_matmul")
 
-_ARGTYPES = [_build.P] * 11 + [_build.I] * 8 + [_build.P]
-_MAX_GRID_Y = 65535
+CUDA_KERNELS = ("taf_persistent",)
+
+_ARGTYPES = [_build.P] * 8 + [_build.I] * 8 + [_build.P]
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+_N_SM = 132          # SMs of an H100 SXM: co-resident CTAs at one an SM
+# the kernel's dynamic shared memory outside the W slices and memo (bytes):
+# five x stages of 16 x 264 floats (the k-split sums reuse them)
+_FIXED_SMEM = 4 * 5 * 16 * 264
+_W_STAGES = 4 * 5 * 256 * 16  # five staged chunks of W when not resident
 
 
 def column_slice(block_n: int) -> int:
     """Columns of a tile that one CTA computes: the widest power of two
-    <= 32 (one per lane of a warp, `tile_product` in common.cuh) that
-    divides block_n."""
-    cols = 32
+    <= 16 (four float4 columns of the slice product in csrc/taf_matmul.cu)
+    that divides block_n."""
+    cols = 16
     while block_n % cols:
         cols //= 2
     return cols
 
 
+def slices_per_cta(block_n: int, n_ctas: int = _N_SM) -> int:
+    """The fewest contiguous slices of a column block one CTA takes so that
+    the team fits `n_ctas` co-resident CTAs (the kernel's host side takes
+    the count from the card's occupancy instead)."""
+    n_sub = block_n // column_slice(block_n)
+    return next(s for s in range(1, n_sub + 1)
+                if n_sub % s == 0 and n_sub // s <= n_ctas)
+
+
 def launchable(shapes: Sequence[Sequence[int]],
                config: Dict[str, int]) -> Optional[str]:
     """None if the kernel launches at `config` (block_m, block_n) on
-    operands of `shapes` ((M, K), (K, N)), else the reason. A step's grid
-    is (block_n / column_slice, N / block_n) CTAs of static shared memory
-    only, so any divisor-valid block launches while the column blocks fit
-    the grid's second axis."""
-    n = int(shapes[1][1])
-    if n // config["block_n"] > _MAX_GRID_Y:
-        return (f"taf_matmul: N / block_n = {n // config['block_n']} column "
-                f"blocks, more than the {_MAX_GRID_Y} a grid axis holds")
+    operands of `shapes` ((M, K), (K, N)), else the reason: K, N and
+    block_n are multiples of 4 (16-byte copies), and the memo slices of one
+    CTA (block_m x 16 floats each, `slices_per_cta` of them at one CTA an
+    SM) fit its shared memory beside the staging buffers."""
+    (_, k), (_, n) = shapes[0], shapes[1]
+    bm, bn = config["block_m"], config["block_n"]
+    if k % 4 or n % 4 or bn % 4:
+        return (f"taf_matmul kernel takes K, N and block_n that are "
+                f"multiples of 4, got K={k}, N={n}, block_n={bn}")
+    memo = 4 * slices_per_cta(bn) * bm * 16
+    if _FIXED_SMEM + _W_STAGES + memo + 64 > _SMEM_LIMIT:
+        return (f"taf_matmul: the memo of block_m={bm} takes {memo} bytes "
+                f"of a CTA's shared memory, more than the kernel has beside "
+                f"its staging buffers")
     return None
 
 
@@ -97,27 +121,21 @@ def taf_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
     n = w.shape[1]
     cols = column_slice(block_n)
     num_i, num_j = m // block_m, n // block_n
-    xf = x.float().contiguous()
-    wf = w.float().contiguous()
+    xf = _build.operand(x)
+    wf = _build.operand(w)
     thr = torch.as_tensor(rsd_threshold, dtype=torch.float32,
                           device=dev).reshape(1)
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     mask = torch.empty((num_i, num_j), dtype=torch.int32, device=dev)
-    memo = torch.empty((num_j, block_m, block_n), dtype=torch.float32,
-                       device=dev)
-    partials = torch.empty((num_j * (block_n // cols),), dtype=torch.float64,
+    partials = torch.empty((2 * (n // cols),), dtype=torch.float64,
                            device=dev)
-    state = torch.empty((2 * num_j,), dtype=torch.int32, device=dev)
-    window = torch.empty((num_j * history_size,), dtype=torch.float64,
-                         device=dev)
-    tickets = torch.empty((num_j,), dtype=torch.int32, device=dev)
+    arrive = torch.empty((num_j,), dtype=torch.int32, device=dev)
     work = COUNTER.work_buffer(dev)
     fn = _build.function("taf_matmul_f32", _ARGTYPES)
     p = _build.ptr
-    err = fn(p(xf), p(wf), p(y), p(mask), p(memo), p(partials), p(state),
-             p(window), p(tickets), p(thr), p(work), m, k, n, block_m,
-             block_n, cols, history_size, prediction_size,
-             _build.stream(dev))
+    err = fn(p(xf), p(wf), p(y), p(mask), p(partials), p(arrive), p(thr),
+             p(work), m, k, n, block_m, block_n, cols, history_size,
+             prediction_size, _build.stream(dev))
     COUNTER.launches += 1
     _build.check("taf_matmul", err)
     return y.to(out_dtype), mask.bool()

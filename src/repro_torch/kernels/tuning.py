@@ -12,8 +12,8 @@
      of `analysis.machine` from `analysis.cost.kernel_cost` (the FLOPs and
      bytes the JAX package's `trace_cost` counts for the Pallas grid), with
      the kernel launches of one call as the invocation term: on the GPU a
-     launch is the dispatch, a CTA is not. K1 and K4 launch once a call,
-     K2 once a row block, K3 four times a row block (`launches`);
+     launch is the dispatch, a CTA is not. K1, K2 and K4 launch once a
+     call, K3 four times whatever block_rows is (`launches`);
   3. **measured time** -- warm-up calls, then the median of `repeats`
      timed calls (`obs.timing.measure`: CUDA events on the card). The
      precise path runs (knobs that never approximate), so candidates are
@@ -192,13 +192,12 @@ def grid_steps(kernel: str, shapes: Sequence[Sequence[int]],
 def launches(kernel: str, shapes: Sequence[Sequence[int]],
              config: Dict[str, int]) -> int:
     """CUDA kernel launches of one call at `config`: the invocation term of
-    `predict_time_s`. K2 launches one step per row block, K3 four (probe,
-    first product, second product or gather, insert); K1 and K4 one."""
-    if kernel == "taf_matmul":
-        return shapes[0][0] // config["block_m"]
+    `predict_time_s`. K3 launches four kernels a call (schedule, first
+    product, second product, fill); K1, K2 (one persistent launch) and K4
+    one. Neither count depends on the block shape."""
     if kernel == "iact_rowfn":
-        return 4 * (shapes[0][0] // config["block_rows"])
-    if kernel in ("perforated_matmul", "perforated_attention"):
+        return 4
+    if kernel in ("taf_matmul", "perforated_matmul", "perforated_attention"):
         return 1
     raise ValueError(f"unknown kernel {kernel!r}")
 

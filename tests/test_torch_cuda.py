@@ -30,6 +30,18 @@ def _qkv(seed, b, hq, hkv, sq, skv, d):
             rng.randn(b, hkv, skv, d).astype(np.float32))
 
 
+def _iact_rows(n, din, br, kind, seed):
+    """Rows for K3: "pairs" repeats a new point for two blocks (the second
+    can hit); "alike" keeps every row near one point."""
+    rng = np.random.RandomState(seed)
+    if kind == "alike":
+        return (np.tile(rng.randn(1, din), (n, 1))
+                + 1e-4 * rng.randn(n, din)).astype(np.float32)
+    distinct = rng.randn(max(n // (2 * br), 1), din)
+    return (np.repeat(distinct, 2 * br, axis=0)[:n]
+            + 0.001 * rng.randn(n, din)).astype(np.float32)
+
+
 @pytest.mark.cuda
 class TestOnCard:
     @pytest.fixture(autouse=True)
@@ -117,8 +129,7 @@ class TestOnCard:
     @pytest.mark.parametrize("kernel", ["taf_matmul", "iact_rowfn"])
     def test_largest_tuned_blocks(self, kernel):
         """The blocks the tuner picks at full width: K2 at block_m 512 and
-        K3 at block_rows 512 with table_size 4 (block_rows x table_size at
-        the probe limit of 2048)."""
+        K3 at block_rows 512 with table_size 4."""
         rng = np.random.RandomState(6)
         if kernel == "taf_matmul":
             x = torch.from_numpy(_stableish(rng, 2048, 128)).cuda()
@@ -142,6 +153,94 @@ class TestOnCard:
             yr, mr = ref.iact_rowfn_ref(x, w1, w2, **kw)
         assert torch.equal(m, mr) and bool(m.any())
         assert float((y - yr).abs().max()) <= TAF_ATOL
+
+    @pytest.mark.parametrize("n,din,br,ts,thr,kind", [
+        (128, 16, 32, 4, 0.5, "pairs"),
+        (256, 32, 64, 2, 0.5, "pairs"),
+        (64, 8, 16, 8, 0.5, "pairs"),
+        (256, 8, 16, 2, 0.5, "pairs"),       # the table wraps
+        (64, 16, 32, 4, 1e-9, "pairs"),      # every block computed
+        (256, 32, 16, 2, 0.5, "alike"),      # only block 0 computed
+        (4096, 2048, 16, 2, 0.05, "pairs"),  # the app's full width
+    ])
+    def test_iact_schedule_equals_plain(self, n, din, br, ts, thr, kind):
+        x = torch.from_numpy(_iact_rows(n, din, br, kind, seed=n + din))
+        mask, computed, src = iact_memo.schedule(x.cuda(), br, ts, thr)
+        pm, pc, ps = iact_memo.schedule_plain(x, br, ts, thr)
+        assert torch.equal(mask.cpu(), pm)
+        assert torch.equal(computed.cpu(), pc)
+        assert torch.equal(src.cpu(), ps)
+
+    @pytest.mark.parametrize("kind,thr", [("alike", 0.5), ("pairs", 1e-9)])
+    def test_iact_list_empty_after_block_0_and_full(self, kind, thr):
+        rng = np.random.RandomState(8)
+        x = torch.from_numpy(_iact_rows(256, 32, 16, kind, seed=8)).cuda()
+        w1 = torch.from_numpy(rng.randn(32, 64).astype(np.float32)).cuda()
+        w2 = torch.from_numpy(rng.randn(64, 16).astype(np.float32)).cuda()
+        work = iact_memo.COUNTER.work()
+        y, m = ops.iact_rowfn(x, w1, w2, block_rows=16, table_size=2,
+                              threshold=thr)
+        computed = iact_memo.COUNTER.work() - work
+        yr, mr = ref.iact_rowfn_ref(x, w1, w2, block_rows=16, table_size=2,
+                                    threshold=thr)
+        assert torch.equal(m, mr)
+        assert computed == (1 if kind == "alike" else 16)
+        assert float((y - yr).abs().max()) <= IACT_ATOL
+
+    @pytest.mark.parametrize("m,k,n,bm,bn", [
+        (256, 64, 128, 32, 32),     # four column blocks
+        (256, 64, 128, 16, 128),    # block_n = N, the app's shape
+        (2048, 256, 1024, 512, 64),  # the tuned 512 / 64: 16 column blocks
+        (512, 100, 96, 8, 48),      # K off the chunk, 16-column slices of 48
+    ])
+    def test_taf_block_shapes(self, m, k, n, bm, bn):
+        rng = np.random.RandomState(9)
+        x = torch.from_numpy(_stableish(rng, m, k)).cuda()
+        w = torch.from_numpy(rng.randn(k, n).astype(np.float32)).cuda()
+        kw = dict(block_m=bm, block_n=bn, history_size=2, prediction_size=3,
+                  rsd_threshold=0.5)
+        work = taf_matmul.COUNTER.work()
+        y, mk = ops.taf_matmul(x, w, **kw)
+        computed = taf_matmul.COUNTER.work() - work
+        yr, mr = ref.taf_matmul_ref(x, w, **kw)
+        assert torch.equal(mk, mr) and bool(mk.any())
+        assert computed == int((~mk).sum())
+        assert float((y - yr).abs().max()) <= TAF_ATOL
+
+    def test_repeated_calls_are_identical(self):
+        rng = np.random.RandomState(10)
+        x = torch.from_numpy(_stableish(rng, 1024, 256)).cuda()
+        w = torch.from_numpy(rng.randn(256, 512).astype(np.float32)).cuda()
+        a = torch.from_numpy(_iact_rows(1024, 64, 16, "pairs", 10)).cuda()
+        w1 = torch.from_numpy(rng.randn(64, 128).astype(np.float32)).cuda()
+        w2 = torch.from_numpy(rng.randn(128, 64).astype(np.float32)).cuda()
+        runs = [(ops.taf_matmul(x, w, block_m=16, block_n=512,
+                                history_size=2, prediction_size=4,
+                                rsd_threshold=0.2),
+                 ops.iact_rowfn(a, w1, w2, block_rows=16, table_size=2,
+                                threshold=0.5))
+                for _ in range(3)]
+        for (taf, iact) in runs[1:]:
+            for got, want in zip(taf + iact, runs[0][0] + runs[0][1]):
+                assert torch.equal(got, want)
+
+    def test_one_call_is_one_k2_launch_and_four_k3_launches(self):
+        from repro_torch.benchmarks import kernel_profile
+        rng = np.random.RandomState(11)
+        x = torch.from_numpy(_stableish(rng, 512, 64)).cuda()
+        w = torch.from_numpy(rng.randn(64, 128).astype(np.float32)).cuda()
+        a = torch.from_numpy(_iact_rows(512, 32, 16, "pairs", 11)).cuda()
+        w1 = torch.from_numpy(rng.randn(32, 64).astype(np.float32)).cuda()
+        w2 = torch.from_numpy(rng.randn(64, 32).astype(np.float32)).cuda()
+        dev = x.device
+        for bm in (16, 64):
+            assert kernel_profile.launches_per_call(
+                lambda: ops.taf_matmul(x, w, block_m=bm, block_n=128),
+                taf_matmul.CUDA_KERNELS, dev) == 1
+        for br in (16, 128):
+            assert kernel_profile.launches_per_call(
+                lambda: ops.iact_rowfn(a, w1, w2, block_rows=br),
+                iact_memo.CUDA_KERNELS, dev) == 4
 
     def test_autotune_launches_every_candidate(self):
         rng = np.random.RandomState(5)

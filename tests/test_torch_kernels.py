@@ -89,7 +89,7 @@ def test_taf_threshold_tensor_equals_float():
     assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
 
 
-@pytest.mark.parametrize("bn,cols", [(2048, 32), (32, 32), (16, 16),
+@pytest.mark.parametrize("bn,cols", [(2048, 16), (32, 16), (16, 16),
                                      (48, 16), (8, 8), (6, 2), (7, 1)])
 def test_taf_column_slice_is_widest_dividing_power_of_two(bn, cols):
     assert taf_matmul.column_slice(bn) == cols

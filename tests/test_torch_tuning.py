@@ -127,10 +127,14 @@ def test_launchable_rules_bound_the_space_at_full_width():
                               ((4096, 6144), (6144, 2048)))
     assert len(pmm) == 4 * 4 * 7  # block_m, block_n in 16..128
     # the JAX VMEM budget would empty K3's space here (w1 + w2 = 100.7 MB);
-    # the port's bound is the kernel's own
+    # the port's bound is the kernel's own: the schedule's keys and
+    # distances fit one CTA at every block_rows from 8 to 512
     ffn = ((4096, 2048), (2048, 6144), (6144, 2048))
     assert jtuning.search_space("iact_rowfn", ffn) == []
     assert len(tuning.search_space("iact_rowfn", ffn)) == 7
+    # K2: every divisor-valid (block_m, block_n) down to 8 launches
+    taf = tuning.search_space("taf_matmul", ((4096, 2048), (2048, 2048)))
+    assert len(taf) == 7 * 7
 
 
 @pytest.mark.parametrize("kernel", tuning.KERNELS)
@@ -148,11 +152,14 @@ def test_kernel_cost_within_10pct_of_trace_cost(kernel):
 
 def test_launches_are_the_invocation_term():
     shapes = ((4096, 2048), (2048, 2048))
-    cfg = {"block_m": 16, "block_n": 2048}
-    assert tuning.launches("taf_matmul", shapes, cfg) == 256
-    assert tuning.launches("iact_rowfn", ((4096, 2048), (2048, 6144),
-                                          (6144, 2048)),
-                           {"block_rows": 16}) == 1024
+    # one persistent launch for K2 and four for K3, at any block shape
+    for bm in (16, 512):
+        assert tuning.launches("taf_matmul", shapes,
+                               {"block_m": bm, "block_n": 2048}) == 1
+    for rows in (16, 512):
+        assert tuning.launches("iact_rowfn", ((4096, 2048), (2048, 6144),
+                                              (6144, 2048)),
+                               {"block_rows": rows}) == 4
     assert tuning.launches("perforated_matmul", shapes,
                            {"block_m": 16, "block_n": 16,
                             "block_k": 16}) == 1
@@ -162,7 +169,7 @@ def test_launches_are_the_invocation_term():
                          {"block_m": 16, "block_n": 32})
     assert tuning.predict_time_s("taf_matmul", (x, w),
                                  {"block_m": 16, "block_n": 32}) == \
-        mp.time_s(c.flops, c.bytes, invocations=8.0)
+        mp.time_s(c.flops, c.bytes, invocations=1.0)
 
 
 def test_machine_profiles():
