@@ -30,11 +30,14 @@ failure could still exit 0):
      IACT spec takes a looser threshold taken from the data);
   6. per-kernel CUDA-event times at the main path's shapes: the kernel, its
      plain version, one PyTorch library call computing the same function
-     (a yardstick the port never calls) and the least time the card could
-     take (bound); K3 also at the loose IACT spec; K4 at the FFN
-     down-projection (x (4096, 6144) @ w (6144, 2048), block_k 128, SMALL
-     skip 2); the CUDA kernels one K2 and one K3 call run (torch.profiler,
-     at two block shapes each: 1 and 4);
+     (a yardstick the port never calls, in full float32: TF32 off for
+     matmuls and cuDNN) and two bounds, the least time the card could take
+     at the float32 rate and on the route the kernel takes (3xTF32 for K1
+     and K4: three TF32 products per float32 operation at 495 TFLOP/s); K3
+     also at the loose IACT spec; K4 at the FFN down-projection (x (4096,
+     6144) @ w (6144, 2048), block_k 128, SMALL skip 2); the CUDA kernels
+     one call of each kernel runs (torch.profiler, at two block shapes
+     each: 1 for K1, K2 and K4, 4 for K3);
   7. the kernel-engineering path: `measure_machine` three times on the
      card (dispatch_s of each, median of 100 calls, and their median), then
      `repro_torch.benchmarks.kernel_micro` at its `ref` and `full`
@@ -72,9 +75,17 @@ BASELINE = os.path.join(HERE, "benchmarks", "baselines", "BENCH_ffn.json")
 REPORT = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth. Used for the bound of each kernel.
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth. Each kernel
+# gets two bounds: its float32 operations at the float32 rate (comparable
+# with earlier rows), and the bound of the route it takes (ROUTES).
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# kernel -> (route, TF32 or float32 products per float32 operation, peak)
+ROUTES = {"taf_matmul": ("float32 FMA", 1, PEAK_F32_FLOPS),
+          "iact_rowfn": ("float32 FMA", 1, PEAK_F32_FLOPS),
+          "perforated_attention": ("3xTF32", 3, PEAK_TF32_FLOPS),
+          "perforated_matmul": ("3xTF32", 3, PEAK_TF32_FLOPS)}
 
 REF_GEOM = dict(seq=128, d=32, d_h=64, heads=2)
 FULL_GEOM = dict(seq=4096, d=2048, d_h=6144, heads=16)  # Qwen3-1.7B widths
@@ -430,6 +441,12 @@ def main():
     # -- 6. per-kernel times at the main path's shapes -----------------------
     log("phase 6: per-kernel CUDA-event times at full width")
     t0 = time.perf_counter()
+    # the library yardsticks in full float32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"  torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     s = full_inputs
     seq, d, d_h = FULL_GEOM["seq"], FULL_GEOM["d"], FULL_GEOM["d_h"]
     f4 = 4  # bytes of a float32
@@ -518,9 +535,17 @@ def main():
         bytes=f4 * (m_ * k_kept + k_kept * n_ + m_ * n_),
         work=f"{len(kept)} of {k_ // bk_} K blocks of {bk_} kept, "
              f"x ({m_}, {k_}) @ w ({k_}, {n_})"))
-    # CUDA kernels one wrapper call runs (torch.profiler), K2 and K3 at two
-    # block shapes each: the count must not depend on the blocks
+    # CUDA kernels one wrapper call runs (torch.profiler), each kernel at
+    # two block shapes: the count must not depend on the blocks
     per_call = {
+        "perforated_attention": [kernel_profile.launches_per_call(
+            lambda bq=bq: ops.perforated_attention(
+                q, q, q, **dict(attn_kw, block_q=bq)),
+            perforated_attention.CUDA_KERNELS, dev) for bq in (32, 64)],
+        "perforated_matmul": [kernel_profile.launches_per_call(
+            lambda bm=bm: ops.perforated_matmul(
+                xm, wm, **dict(pmm_kw, block_m=bm)),
+            perforated_matmul.CUDA_KERNELS, dev) for bm in (64, 128)],
         "taf_matmul": [kernel_profile.launches_per_call(
             lambda bm=bm: ops.taf_matmul(s["x"], s["wp"], block_n=d,
                                          **dict(taf_kw, block_m=bm)),
@@ -539,8 +564,11 @@ def main():
                f"{r['launches_per_call']}" if "launches_per_call" in r
                else "")
             + (f" loose: {r['loose']}" if "loose" in r else ""))
-    check(per_call == {"taf_matmul": [1, 1], "iact_rowfn": [4, 4]},
-          f"CUDA launches a call: {per_call}, want 1 for K2 and 4 for K3")
+    want_calls = {"perforated_attention": [1, 1],
+                  "perforated_matmul": [1, 1], "taf_matmul": [1, 1],
+                  "iact_rowfn": [4, 4]}
+    check(per_call == want_calls,
+          f"CUDA launches a call: {per_call}, want {want_calls}")
     report["phases"]["timing_s"] = time.perf_counter() - t0
 
     # -- 7. the kernel-engineering path: machine profile, kernel_micro ------
@@ -608,6 +636,8 @@ def main():
     for r in rows:
         t_ops = r["ops"] / PEAK_F32_FLOPS * 1e3
         t_bytes = r["bytes"] / PEAK_BYTES * 1e3
+        route, products, peak = ROUTES[r["kernel"]]
+        t_route = products * r["ops"] / peak * 1e3
         kernels.append({
             "name": r["kernel"], "route": "cuda",
             "source": r["module"].SOURCE, "replaces": r["module"].REPLACES,
@@ -617,7 +647,10 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "precision": route,
+            "route_bound_ms": max(t_route, t_bytes),
+            "route_bound_by": "operations" if t_route >= t_bytes
+            else "bytes",
             "mask_equal": masks_equal[r["kernel"]],
             "ops": r["ops"], "bytes": r["bytes"], "work": r["work"],
         })

@@ -13,8 +13,10 @@ of a call made of many small launches.
 Profiles:
 
   h100      -- one NVIDIA H100 SXM (NVIDIA's data sheet): 67 TFLOP/s
-               float32 outside the tensor cores (the port's kernels compute
-               in float32 FMA), 3.35 TB/s HBM3, NVLink 450 GB/s each way.
+               float32 outside the tensor cores (the rate K2 and K3 compute
+               at; K1 and K4 take three TF32 products per float32
+               operation on the tensor cores, which the profile does not
+               model), 3.35 TB/s HBM3, NVLink 450 GB/s each way.
                `dispatch_s` is the median of three `measure_machine`
                readings on an H100 80GB HBM3 at a 700 W power limit
                (`chip_smoke.py` phase 7), each the median of 100 calls of

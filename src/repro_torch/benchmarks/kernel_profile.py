@@ -1,7 +1,10 @@
 """Where each kernel's time goes on the card, at the app's full width.
 
 For each of the port's kernels on the approx_ffn path, called as the app
-calls it at Qwen3-1.7B widths (seq 4096, d 2048, 16 heads, d_h 6144):
+calls it at Qwen3-1.7B widths (seq 4096, d 2048, 16 heads, d_h 6144), and
+for K4 as `chip_smoke.py` phase 6 calls it (the FFN down-projection x
+(4096, 6144) @ w (6144, 2048), blocks 128, SMALL skip 2, random from seed
+0):
 
   * `wall_ms`   -- one wrapper call between CUDA events (median of 5);
   * `host_ms`   -- the same call on the host clock up to its return,
@@ -28,22 +31,27 @@ import os
 import time
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
 from .. import device as device_mod
 from ..apps import approx_ffn
 from ..core.types import PerforationKind, PerforationParams
-from ..kernels import iact_memo, ops, taf_matmul
+from ..kernels import (iact_memo, ops, perforated_attention,
+                       perforated_matmul, taf_matmul)
 from ..obs import timing
 
 FULL_GEOM = dict(seq=4096, d=2048, d_h=6144, heads=16)  # Qwen3-1.7B widths
+PMM_SHAPE = (4096, 6144, 2048)  # K4: M, K, N of the FFN down-projection
 
 
 def kernel_calls(s: Dict[str, torch.Tensor], d: int
                  ) -> Dict[str, Callable[[], object]]:
     """One call per kernel with the main path's specs: TAF (2, 4, 0.2),
-    IACT (2, 0.05) and masked fini 0.5 perforation."""
+    IACT (2, 0.05) and masked fini 0.5 perforation; K4 at SMALL skip 2 on
+    `s["xm"]` @ `s["wm"]`."""
     fini = PerforationParams(kind=PerforationKind.FINI, fraction=0.0)
+    small2 = PerforationParams(kind=PerforationKind.SMALL, skip=2)
     return {
         "taf_matmul": lambda: ops.taf_matmul(
             s["x"], s["wp"], block_m=16, block_n=d, history_size=2,
@@ -54,13 +62,17 @@ def kernel_calls(s: Dict[str, torch.Tensor], d: int
         "perforated_attention": lambda: ops.perforated_attention(
             s["q"], s["q"], s["q"], block_q=32, block_kv=32, perfo=fini,
             fraction=0.5),
+        "perforated_matmul": lambda: ops.perforated_matmul(
+            s["xm"], s["wm"], block_m=128, block_n=128, block_k=128,
+            perfo=small2),
     }
 
 
 # names of the CUDA kernels each wrapper launches (csrc/*.cu)
 KERNEL_NAMES = {"taf_matmul": taf_matmul.CUDA_KERNELS,
                 "iact_rowfn": iact_memo.CUDA_KERNELS,
-                "perforated_attention": ("attn_kernel",)}
+                "perforated_attention": perforated_attention.CUDA_KERNELS,
+                "perforated_matmul": perforated_matmul.CUDA_KERNELS}
 
 
 def _device_us(evt) -> float:
@@ -113,6 +125,10 @@ def main(out: str = None, geom: Dict[str, int] = None) -> Dict:
     dev = device_mod.resolve("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     s = approx_ffn.kernel_operands(**geom, device=dev)
+    rng = np.random.RandomState(0)
+    m, k, n = PMM_SHAPE
+    s["xm"] = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(dev)
+    s["wm"] = torch.from_numpy(rng.randn(k, n).astype(np.float32)).to(dev)
     report = {"geometry": geom, "card": device_mod.name(dev), "calls": {}}
     calls = kernel_calls(s, geom["d"])
     rows = device_kernels(calls, dev)

@@ -134,11 +134,16 @@ def check(kernel: str, err: int) -> None:
                            f"cudaError {err}")
 
 
-def operand(t: torch.Tensor) -> torch.Tensor:
-    """`t` as float32, contiguous and 16-byte aligned, as kernels that copy
-    with 16-byte `cp.async` need (a view at an odd offset is copied)."""
-    t = t.float().contiguous()
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous and 16-byte aligned, as kernels that copy with
+    16-byte `cp.async` need (a view at an odd offset is copied)."""
+    t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def operand(t: torch.Tensor) -> torch.Tensor:
+    """`t` as float32, contiguous and 16-byte aligned."""
+    return aligned(t.float())
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -1,8 +1,9 @@
-// Shared device code of the port's K2 and K3 kernels: asynchronous copies
-// into shared memory, the tanh GELU, and a fixed-order block sum.
+// Shared device code of the port's kernels: asynchronous copies into shared
+// memory (all four), the tanh GELU and a fixed-order block sum (K2, K3).
 //
-// All arithmetic is float32 FMA with float32 accumulation (no TF32), as the
-// JAX kernels compute with preferred_element_type=float32.
+// K2 and K3 compute in float32 FMA with float32 accumulation (no TF32), as
+// the JAX kernels compute with preferred_element_type=float32; K1 and K4
+// reach the same accuracy on the tensor cores in 3xTF32 (mma_tf32.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

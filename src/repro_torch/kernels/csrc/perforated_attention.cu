@@ -1,4 +1,5 @@
-// Flash attention with herded KV-block perforation (K1) for Hopper.
+// Flash attention with herded KV-block perforation (K1) for Hopper, on the
+// tensor cores.
 //
 // Replaces src/repro/kernels/perforated_attention.py::perforated_attention
 // (the Pallas kernel _attn_kernel); the JAX package's ops.flash_attention is
@@ -7,245 +8,418 @@
 // kv head = h / (Hq / Hkv), m starting at -1e30, rows with l <= 0.5 giving
 // 0, float32 accumulation whatever the input type (float32 or bfloat16).
 //
-// Design. One CTA of 128 threads per (batch, head, q tile). The CTA loops
-// over an int32 list of enumerated KV blocks: in structural mode the list
-// holds only the kept blocks (dropped blocks are never visited); in masked
-// mode it holds every block and `live[kk]` gates each one, so any fraction
-// runs the same launch. Blocks entirely above the causal diagonal are
-// skipped as a whole. The q tile and the current K/V tiles sit in shared
-// memory as float32. Each KV block takes three passes, every thread on a
-// register tile so that one float4 from shared memory feeds several FMAs:
+// Design: FlashAttention-2's layout on mma.sync. One CTA per (batch, head,
+// q tile of bq rows) with bq / 16 warps; each warp owns 16 query rows, whose
+// Q fragments it keeps in registers for the whole call. Warp 0 first
+// compacts the enumerated KV blocks into the list of blocks this CTA visits
+// (live, and not wholly above the causal diagonal), in enumeration order:
+// in structural mode the enumerated list holds only the kept blocks, in
+// masked mode every block with `live[kk]` gating it, so any fraction runs
+// the same launch. The visited blocks are cut into chunks of 32 keys; the
+// K and V rows of the next chunk arrive by 16-byte cp.async in a second
+// buffer while the current one computes.
 //
-//   scores   thread tile = 2 rows x 4 columns (columns 8 apart), dot
-//            products over D in float4 steps: 6 shared loads per 32 FMAs.
-//            K rows are padded to D + 4 floats so the 8 rows a quarter warp
-//            reads fall in distinct banks;
-//   softmax  4 threads per row, row max and sum by shuffles; P is stored
-//            transposed (column-major) for the next pass;
-//   P . V    thread tile = bq * D / 512 rows x 4 columns of the output,
-//            kept in registers across blocks.
+// Per chunk and warp, all in registers:
+//   S = Q K^T   mma.sync m16n8k8 in 3xTF32 for float32 inputs (mma_tf32.cuh:
+//               TF32 hi and lo parts, hi*hi + hi*lo + lo*hi in float32), or
+//               m16n8k16 bf16 in one pass for bfloat16 inputs;
+//   softmax     scaled into log2 units, the causal mask applied only on a
+//               chunk that crosses the warp's diagonal (a chunk wholly above
+//               it is skipped by the warp), row max and sum by shuffles in
+//               the quad of lanes that holds a row;
+//   O += P V    P taken from S's accumulator fragments as they are: for
+//               TF32 a thread's k = t and t + 4 stand for keys 2t and 2t + 1,
+//               V's fragment following the same order; for bf16 two
+//               accumulator tiles are one A fragment. Each output tile sums
+//               the chunk from zero on the tensor cores, and O = alpha O +
+//               that sum in float32 registers across chunks (the tensor
+//               cores' own sum is not rounded to nearest).
+// Shared rows are padded so that the fragment reads of a warp fall in
+// distinct banks (K by 8 elements, V by 4 in float32 and 8 in bf16).
 //
-// Bound on this card: the float32 operations, 4 * D per (query, key) pair
-// inside the causal mask and the kept blocks, over the 67 TFLOP/s float32
-// rate; q, k, v and o each cross device memory once.
+// Bound on this card: 4 * D operations per (query, key) pair inside the
+// causal mask and the kept blocks; in 3xTF32 three TF32 products each at
+// 495 TFLOP/s (bf16: one product at 989); q, k, v and o each cross device
+// memory once, far less time, so it is bound by operations.
 #include <cuda_bf16.h>
+#include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
+
+#include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxRows = 16;  // output rows a thread accumulates
+constexpr int kChunk = 32;   // keys of one chunk
+constexpr int kStages = 2;   // chunk buffers
+constexpr int kMaxThreads = 256;  // bq <= 128
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+template <typename T, int D>
+struct Layout {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kLdk = D + 8;
+  static constexpr int kLdv = kF32 ? D + 4 : D + 8;
+  static constexpr int kStageElems = kChunk * (kLdk + kLdv);
+  static constexpr int kVec = 16 / sizeof(T);  // elements of one cp.async
+  static constexpr size_t kRingBytes = sizeof(T) * kStages * kStageElems;
+};
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// Q fragments of one warp's 16 rows: float32 values for TF32 (split again
+// per chunk), bf16 pairs for bf16.
+template <typename T, int D>
+struct QFrag;
+
+template <int D>
+struct QFrag<float, D> {
+  float v[D / 8][4];
+  __device__ __forceinline__ void load(const float* qp, int g, int t4) {
+#pragma unroll
+    for (int s = 0; s < D / 8; ++s) {
+      const float2 top =
+          *reinterpret_cast<const float2*>(qp + g * D + 8 * s + 2 * t4);
+      const float2 bot = *reinterpret_cast<const float2*>(
+          qp + (g + 8) * D + 8 * s + 2 * t4);
+      v[s][0] = top.x;
+      v[s][1] = bot.x;
+      v[s][2] = top.y;
+      v[s][3] = bot.y;
+    }
+  }
+};
+
+template <int D>
+struct QFrag<__nv_bfloat16, D> {
+  uint32_t v[D / 16][4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* qp, int g,
+                                       int t4) {
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s) {
+      const __nv_bfloat16* r0 = qp + g * D + 16 * s + 2 * t4;
+      const __nv_bfloat16* r1 = r0 + 8 * D;
+      v[s][0] = *reinterpret_cast<const uint32_t*>(r0);
+      v[s][1] = *reinterpret_cast<const uint32_t*>(r1);
+      v[s][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+      v[s][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+    }
+  }
+};
+
+// S (16 x 32) = Q K^T of one chunk; ks holds its 32 K rows.
+template <int D>
+__device__ __forceinline__ void scores(const QFrag<float, D>& q,
+                                       const float* ks, int g, int t4,
+                                       float (&s)[4][4]) {
+  constexpr int ldk = Layout<float, D>::kLdk;
+#pragma unroll
+  for (int st = 0; st < D / 8; ++st) {
+    uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      repro::split_tf32(repro::opaque(q.v[st][u]), a_hi[u], a_lo[u]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 kv = *reinterpret_cast<const float2*>(
+          ks + (8 * j + g) * ldk + 8 * st + 2 * t4);
+      uint32_t b_hi[2], b_lo[2];
+      repro::split_tf32(kv.x, b_hi[0], b_lo[0]);
+      repro::split_tf32(kv.y, b_hi[1], b_lo[1]);
+      repro::mma_3xtf32(s[j], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <int D>
+__device__ __forceinline__ void scores(const QFrag<__nv_bfloat16, D>& q,
+                                       const __nv_bfloat16* ks, int g, int t4,
+                                       float (&s)[4][4]) {
+  constexpr int ldk = Layout<__nv_bfloat16, D>::kLdk;
+#pragma unroll
+  for (int st = 0; st < D / 16; ++st) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat16* kp = ks + (8 * j + g) * ldk + 16 * st + 2 * t4;
+      repro::mma_bf16(s[j], q.v[st], *reinterpret_cast<const uint32_t*>(kp),
+                      *reinterpret_cast<const uint32_t*>(kp + 8));
+    }
+  }
+}
+
+// O (16 x D) = alpha O + P V of one chunk; p holds S's accumulator
+// fragments after the softmax, vs the chunk's 32 V rows. Each output tile
+// sums the chunk on the tensor cores from zero and is folded into O in
+// float32 (the tensor cores' own sum is not rounded to nearest).
+template <int D>
+__device__ __forceinline__ void accumulate(const float (&p)[4][4],
+                                           const float* vs, int g, int t4,
+                                           const float (&alpha)[2],
+                                           float (&o)[D / 8][4]) {
+  constexpr int ldv = Layout<float, D>::kLdv;
+  // rows g, g + 8 at keys 8j + 2t (k = t) and 8j + 2t + 1 (k = t + 4)
+  uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    repro::split_tf32(p[j][0], a_hi[j][0], a_lo[j][0]);
+    repro::split_tf32(p[j][2], a_hi[j][1], a_lo[j][1]);
+    repro::split_tf32(p[j][1], a_hi[j][2], a_lo[j][2]);
+    repro::split_tf32(p[j][3], a_hi[j][3], a_lo[j][3]);
+  }
+  const float* vr = vs + 2 * t4 * ldv + g;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t b_hi[2], b_lo[2];
+      repro::split_tf32(vr[8 * j * ldv + 8 * n], b_hi[0], b_lo[0]);
+      repro::split_tf32(vr[(8 * j + 1) * ldv + 8 * n], b_hi[1], b_lo[1]);
+      repro::mma_3xtf32(c, a_hi[j], a_lo[j], b_hi, b_lo);
+    }
+    o[n][0] = fmaf(o[n][0], alpha[0], c[0]);
+    o[n][1] = fmaf(o[n][1], alpha[0], c[1]);
+    o[n][2] = fmaf(o[n][2], alpha[1], c[2]);
+    o[n][3] = fmaf(o[n][3], alpha[1], c[3]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void accumulate(const float (&p)[4][4],
+                                           const __nv_bfloat16* vs, int g,
+                                           int t4, const float (&alpha)[2],
+                                           float (&o)[D / 8][4]) {
+  constexpr int ldv = Layout<__nv_bfloat16, D>::kLdv;
+  uint32_t a[2][4];
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    a[jj][0] = repro::pack_bf16(p[2 * jj][0], p[2 * jj][1]);
+    a[jj][1] = repro::pack_bf16(p[2 * jj][2], p[2 * jj][3]);
+    a[jj][2] = repro::pack_bf16(p[2 * jj + 1][0], p[2 * jj + 1][1]);
+    a[jj][3] = repro::pack_bf16(p[2 * jj + 1][2], p[2 * jj + 1][3]);
+  }
+  const __nv_bfloat16* vr = vs + 2 * t4 * ldv + g;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const __nv_bfloat16* e = vr + 16 * jj * ldv + 8 * n;
+      repro::mma_bf16(c, a[jj], repro::pack_bf16(e[0], e[ldv]),
+                      repro::pack_bf16(e[8 * ldv], e[9 * ldv]));
+    }
+    o[n][0] = fmaf(o[n][0], alpha[0], c[0]);
+    o[n][1] = fmaf(o[n][1], alpha[0], c[1]);
+    o[n][2] = fmaf(o[n][2], alpha[1], c[2]);
+    o[n][3] = fmaf(o[n][3], alpha[1], c[3]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMaxThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o,
             const int* __restrict__ kept, const int* __restrict__ live,
             unsigned long long* __restrict__ work, int Hq, int Hkv, int Sq,
-            int Skv, int D, int bq, int bkv, int n_enum, float scale,
+            int Skv, int bq, int bkv, int n_enum, float scale_log2,
             int causal) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldk = D + 4, lds = bkv + 1, ldp = bq + 4;
-  float* qs = smem;                // bq x D
-  float* ks = qs + bq * D;         // bkv x ldk
-  float* vs = ks + bkv * ldk;      // bkv x D
-  float* ss = vs + bkv * D;        // bq x lds: scores
-  float* pt = ss + bq * lds;       // bkv x ldp: probabilities, transposed
-  float* m_s = pt + bkv * ldp;     // bq
-  float* l_s = m_s + bq;           // bq
-  float* a_s = l_s + bq;           // bq: rescale factor of this block
+  using L = Layout<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  int* list = reinterpret_cast<int*>(smem + L::kRingBytes);
+  int& n_vis_s = list[n_enum];  // the list, then its length
 
   const int iq = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nthr = blockDim.x;
   const int hk = h / (Hq / Hkv);
-  const int q0 = iq * bq + Skv - Sq;  // global position of row 0
-  const size_t qoff = (((size_t)bb * Hq + h) * Sq + (size_t)iq * bq) * D;
+  const int q0 = iq * bq + Skv - Sq;  // position of the CTA's row 0
+  const int wq = q0 + 16 * warp;      // position of the warp's row 0
+  const int last_q = q0 + bq - 1;
+  const size_t qoff = (((size_t)bb * Hq + h) * Sq + (size_t)iq * bq +
+                       16 * warp) * D;
   const size_t kvoff = ((size_t)bb * Hkv + hk) * Skv * D;
 
-  for (int e = tid; e < bq * D; e += kThreads) qs[e] = to_f32(q[qoff + e]);
-  for (int r = tid; r < bq; r += kThreads) {
-    m_s[r] = kNeg;
-    l_s[r] = 0.f;
+  if (warp == 0) {
+    // blocks wholly above the CTA's last row are not visited
+    const int limit =
+        !causal ? INT_MAX : (last_q < 0 ? 0 : last_q / bkv + 1);
+    const int n = repro::compact_live(kept, live, n_enum, limit, list);
+    if (lane == 0) n_vis_s = n;
   }
-  // P . V tile of this thread: rows r_lo .. r_lo + nr - 1, columns c0 .. +3
-  const int ncg = D / 4;
-  const int nr = bq * D / (4 * kThreads);
-  const int c0 = 4 * (tid % ncg), r_lo = (tid / ncg) * nr;
-  float acc[kMaxRows][4];
-#pragma unroll
-  for (int i = 0; i < kMaxRows; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int last_q = q0 + bq - 1;
-  int visited = 0;
-  for (int kk = 0; kk < n_enum; ++kk) {
-    const int kid = kept[kk];
-    const bool block_live =
-        (!causal || kid * bkv <= last_q) && live[kk] > 0;
-    if (!block_live) continue;  // uniform across the CTA
-    ++visited;
-    const int k0 = kid * bkv;
-    __syncthreads();  // the previous block is done with ks / vs / pt
-    for (int e = tid; e < bkv * D; e += kThreads) {
-      const int c = e / D, d = e % D;
-      ks[c * ldk + d] = to_f32(k[kvoff + (size_t)k0 * D + e]);
-      vs[e] = to_f32(v[kvoff + (size_t)k0 * D + e]);
-    }
-    __syncthreads();
-    // scores: unit = rows (2 rg, 2 rg + 1) x columns cb * 32 + cg + 8 j
-    const int units = (bq / 2) * (bkv / 4);
-    for (int u = tid; u < units; u += kThreads) {
-      const int cg = u % 8, rest = u / 8;
-      const int rg = rest % (bq / 2), cb = rest / (bq / 2);
-      const float* qa = qs + (2 * rg) * D;
-      const float* qb = qa + D;
-      const float* kc = ks + (cb * 32 + cg) * ldk;
-      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int d = 0; d < D; d += 4) {
-        const float4 xa = ld4(qa + d), xb = ld4(qb + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 y = ld4(kc + 8 * j * ldk + d);
-          sa[j] = fmaf(xa.x, y.x, sa[j]);
-          sa[j] = fmaf(xa.y, y.y, sa[j]);
-          sa[j] = fmaf(xa.z, y.z, sa[j]);
-          sa[j] = fmaf(xa.w, y.w, sa[j]);
-          sb[j] = fmaf(xb.x, y.x, sb[j]);
-          sb[j] = fmaf(xb.y, y.y, sb[j]);
-          sb[j] = fmaf(xb.z, y.z, sb[j]);
-          sb[j] = fmaf(xb.w, y.w, sb[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cb * 32 + cg + 8 * j, ra = 2 * rg;
-        float s0 = sa[j] * scale, s1 = sb[j] * scale;
-        if (causal && k0 + c > q0 + ra) s0 = kNeg;
-        if (causal && k0 + c > q0 + ra + 1) s1 = kNeg;
-        ss[ra * lds + c] = s0;
-        ss[(ra + 1) * lds + c] = s1;
-      }
-    }
-    __syncthreads();
-    // online softmax: 4 threads per row, columns j, j + 4, ...
-    const int jq = tid % 4;
-    for (int rb = 0; rb < bq; rb += kThreads / 4) {
-      const int r = rb + tid / 4;
-      const bool row_ok = r < bq;  // every lane takes part in the shuffles
-      const float* sr = ss + (row_ok ? r : 0) * lds;
-      float row_max = kNeg;
-      for (int c = jq; c < bkv; c += 4) row_max = fmaxf(row_max, sr[c]);
-      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
-      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
-      const float m_prev = row_ok ? m_s[r] : kNeg;
-      const float m_new = fmaxf(m_prev, row_max);
-      float psum = 0.f;
-      for (int c = jq; c < bkv; c += 4) {
-        const bool ok = !causal || k0 + c <= q0 + r;
-        const float p = ok ? expf(sr[c] - m_new) : 0.f;
-        if (row_ok) pt[c * ldp + r] = p;
-        psum += p;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      if (row_ok && jq == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * alpha + psum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-    // P . V on this thread's register tile
-#pragma unroll
-    for (int i = 0; i < kMaxRows; ++i) {
-      if (i < nr) {
-        const float alpha = a_s[r_lo + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-      }
-    }
-    for (int c = 0; c < bkv; ++c) {
-      const float4 y = ld4(vs + c * D + c0);
-      const float* pc = pt + c * ldp + r_lo;
-#pragma unroll
-      for (int i = 0; i < kMaxRows; ++i) {
-        if (i < nr) {
-          const float p = pc[i];
-          acc[i][0] = fmaf(p, y.x, acc[i][0]);
-          acc[i][1] = fmaf(p, y.y, acc[i][1]);
-          acc[i][2] = fmaf(p, y.z, acc[i][2]);
-          acc[i][3] = fmaf(p, y.w, acc[i][3]);
-        }
-      }
-    }
-  }
+  QFrag<T, D> qf;
+  qf.load(q + qoff, g, t4);
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) {
-    if (i < nr) {
-      const int r = r_lo + i;
-      const float l = l_s[r];
-      const float inv = l > 0.5f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        store(o + qoff + (size_t)r * D + c0 + j,
-              l > 0.5f ? acc[i][j] * inv : 0.f);
+  const int n_vis = n_vis_s;
+  const int cpb = bkv / kChunk;
+  const int total = n_vis * cpb;
+
+  auto chunk_key = [&](int t) {
+    return list[t / cpb] * bkv + (t % cpb) * kChunk;
+  };
+  auto load = [&](int stage, int t) {
+    const size_t base = kvoff + (size_t)chunk_key(t) * D;
+    T* ks = ring + stage * L::kStageElems;
+    T* vs = ks + kChunk * L::kLdk;
+    constexpr int spr = D / L::kVec;  // 16-byte pieces a row
+    for (int i = tid; i < kChunk * spr; i += nthr) {
+      const int r = i / spr, c = (i % spr) * L::kVec;
+      repro::cp_async16(ks + r * L::kLdk + c, k + base + (size_t)r * D + c,
+                        true);
+      repro::cp_async16(vs + r * L::kLdv + c, v + base + (size_t)r * D + c,
+                        true);
     }
+  };
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[n][u] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // rows g, g + 8
+
+  if (total > 0) load(0, 0);
+  repro::cp_async_commit();
+  for (int t = 0; t < total; ++t) {
+    repro::cp_async_wait<0>();
+    __syncthreads();  // chunk t landed; chunk t - 1's buffer is free
+    if (t + 1 < total) load((t + 1) % kStages, t + 1);
+    repro::cp_async_commit();
+    const int k0 = chunk_key(t);
+    if (causal && k0 > wq + 15) continue;  // above this warp's diagonal
+    const T* ks = ring + (t % kStages) * L::kStageElems;
+    const T* vs = ks + kChunk * L::kLdk;
+
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[j][u] = 0.f;
+    scores<D>(qf, ks, g, t4, s);
+
+    // online softmax in log2 units; s[j][u] is row g + 8 (u / 2), key
+    // k0 + 8j + 2t + u % 2
+    const bool crosses = causal && k0 + kChunk - 1 > wq;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float val = s[j][u] * scale_log2;
+        if (crosses && k0 + 8 * j + 2 * t4 + (u & 1) > wq + g + 8 * (u >> 1))
+          val = -CUDART_INF_F;
+        s[j][u] = val;
+        mx[u >> 1] = fmaxf(mx[u >> 1], val);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = exp2f(s[j][u] - m[u >> 1]);  // 0 where masked
+        s[j][u] = p;
+        sum[u >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+    accumulate<D>(s, vs, g, t4, alpha, acc);
   }
-  if (tid == 0) atomicAdd(work, (unsigned long long)visited);
+  repro::cp_async_wait<0>();
+
+  // each lane summed its own columns: the row's l is the quad's sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const bool ok0 = l[0] > 0.5f, ok1 = l[1] > 0.5f;
+  const float inv0 = ok0 ? 1.f / l[0] : 0.f, inv1 = ok1 ? 1.f / l[1] : 0.f;
+  T* op = o + qoff;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = 8 * n + 2 * t4;
+    store2(op + g * D + c, ok0 ? acc[n][0] * inv0 : 0.f,
+           ok0 ? acc[n][1] * inv0 : 0.f);
+    store2(op + (g + 8) * D + c, ok1 ? acc[n][2] * inv1 : 0.f,
+           ok1 ? acc[n][3] * inv1 : 0.f);
+  }
+  if (tid == 0) atomicAdd(work, (unsigned long long)n_vis);
+}
+
+template <typename T, int D>
+int launch(const T* q, const T* k, const T* v, T* o, const int* kept,
+           const int* live, unsigned long long* work, int B, int Hq,
+           int Hkv, int Sq, int Skv, int bq, int bkv, int n_enum,
+           float scale, int causal, void* stream) {
+  auto kernel = attn_kernel<T, D>;
+  static unsigned smem_set = 0;
+  cudaError_t err = repro::allow_max_smem(kernel, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem =
+      Layout<T, D>::kRingBytes + sizeof(int) * ((size_t)n_enum + 1);
+  const dim3 grid(Sq / bq, Hq, B);
+  kernel<<<grid, 2 * bq, smem, (cudaStream_t)stream>>>(
+      q, k, v, o, kept, live, work, Hq, Hkv, Sq, Skv, bq, bkv, n_enum,
+      scale * kLog2e, causal);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, const int* kept,
-           const int* live, unsigned long long* work, int B, int Hq,
-           int Hkv, int Sq, int Skv, int D, int bq, int bkv, int n_enum,
-           float scale, int causal, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)bq * D + (size_t)bkv * (D + 4) +
-                       (size_t)bkv * D + (size_t)bq * (bkv + 1) +
-                       (size_t)bkv * (bq + 4) + 3 * (size_t)bq);
-  cudaFuncSetAttribute(attn_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const dim3 grid(Sq / bq, Hq, B);
-  attn_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      q, k, v, o, kept, live, work, Hq, Hkv, Sq, Skv, D, bq, bkv, n_enum,
-      scale, causal);
-  return (int)cudaGetLastError();
+int launch_d(const T* q, const T* k, const T* v, T* o, const int* kept,
+             const int* live, unsigned long long* work, int B, int Hq,
+             int Hkv, int Sq, int Skv, int D, int bq, int bkv, int n_enum,
+             float scale, int causal, void* stream) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv,
+                           bq, bkv, n_enum, scale, causal, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv,
+                           bq, bkv, n_enum, scale, causal, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv,
+                           bq, bkv, n_enum, scale, causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq,
+                            Skv, bq, bkv, n_enum, scale, causal, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), o like q, all contiguous; kept and
-// live (n_enum) int32 on the device; work one uint64 that the kernel adds
-// the count of visited KV blocks to. Needs D % 4 == 0, 512 % D == 0,
-// bq * D a multiple of 512 and at most 16 * 512, bq even and bkv % 32 == 0
-// (the wrapper checks). Returns cudaGetLastError().
+// q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), o like q, all contiguous and
+// 16-byte aligned; kept and live (n_enum) int32 on the device; work one
+// uint64 that the kernel adds the count of visited KV blocks to. Needs D in
+// {16, 32, 64, 128}, bq in {16, 32, 64, 128} dividing Sq and bkv a multiple
+// of 32 dividing Skv (the wrapper checks). Returns the launch's
+// cudaError_t.
 extern "C" int attention_f32(const float* q, const float* k, const float* v,
                              float* o, const int* kept, const int* live,
                              unsigned long long* work, int B, int Hq, int Hkv,
                              int Sq, int Skv, int D, int bq, int bkv,
                              int n_enum, float scale, int causal,
                              void* stream) {
-  return launch<float>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv, D,
-                       bq, bkv, n_enum, scale, causal, stream);
+  return launch_d<float>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv, D,
+                         bq, bkv, n_enum, scale, causal, stream);
 }
 
 extern "C" int attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -255,6 +429,7 @@ extern "C" int attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               int Hkv, int Sq, int Skv, int D, int bq,
                               int bkv, int n_enum, float scale, int causal,
                               void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq,
-                               Skv, D, bq, bkv, n_enum, scale, causal, stream);
+  return launch_d<__nv_bfloat16>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq,
+                                 Skv, D, bq, bkv, n_enum, scale, causal,
+                                 stream);
 }

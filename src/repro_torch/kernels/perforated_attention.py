@@ -9,17 +9,23 @@ Two perforation modes share one kernel:
 
   * structural (`fraction=None`): the enumerated list holds only the kept
     KV blocks (`perforation.kept_indices`), so dropped blocks are never
-    visited;
+    visited; the list and its all-ones liveness vector are built once per
+    (number of blocks, perforation, device) and kept;
   * masked (`fraction=` a float or tensor; ini/fini/random kinds): the list
     holds every block and a liveness vector, built on the device by
-    `perforation.traced_execute_mask`, gates each one -- any fraction runs
-    the same launch and nothing is read back to the host.
+    `perforation.traced_execute_mask` from the fraction as a device tensor,
+    gates each one -- any fraction runs the same launch and nothing is read
+    back to the host.
+
+The kernel runs on the tensor cores: 3xTF32 for float32 (float32
+accuracy), bf16 in one pass for bfloat16. `launchable` says which head
+dims and blocks it takes.
 
 Plain version: `ref.attention_ref`, taken for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,21 +39,26 @@ from .ref import attention_ref as plain
 SOURCE = "src/repro_torch/kernels/csrc/perforated_attention.cu"
 REPLACES = "src/repro/kernels/perforated_attention.py:110"
 COUNTER = _build.Counter("perforated_attention")
+CUDA_KERNELS = ("attn_kernel",)  # the CUDA kernel one call launches
 
 _ARGTYPES = [_build.P] * 7 + [_build.I] * 9 + [_build.F, _build.I,
                                                 _build.P]
-_TILE = 512   # outputs of one P . V row group: 128 threads x 4 columns
-_MAX_ROWS = 16  # output rows a thread accumulates
+HEAD_DIMS = (16, 32, 64, 128)   # D the kernel is instantiated for
+BLOCK_Q = (16, 32, 64, 128)     # 16 query rows a warp, at most 8 warps
+_CHUNK = 32   # keys of one chunk: block_kv must be a multiple
+_STAGES = 2   # chunk buffers
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _ENTRIES = {torch.float32: "attention_f32", torch.bfloat16: "attention_bf16"}
 
 
-def smem_bytes(block_q: int, block_kv: int, d: int) -> int:
-    """q tile, padded K tile, V tile, scores, transposed probabilities and
-    three row vectors, all float32 (csrc/perforated_attention.cu)."""
-    return 4 * (block_q * d + block_kv * (d + 4) + block_kv * d +
-                block_q * (block_kv + 1) + block_kv * (block_q + 4) +
-                3 * block_q)
+def smem_bytes(d: int, n_blocks: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one CTA: two chunk buffers of 32 K rows
+    (padded by 8 elements) and 32 V rows (padded by 4 in float32, 8 in
+    bf16), the list of visited KV blocks (int32, one per enumerated
+    block) and its length (csrc/perforated_attention.cu)."""
+    pad_v = 4 if itemsize == 4 else 8
+    return (itemsize * _STAGES * _CHUNK * ((d + 8) + (d + pad_v))
+            + 4 * (n_blocks + 1))
 
 
 def _check(q, k, v, block_q, block_kv, perfo, fraction):
@@ -75,22 +86,22 @@ def launchable(shapes: Sequence[Sequence[int]],
                config: Dict[str, int]) -> Optional[str]:
     """None if the kernel launches at `config` (block_q, block_kv) on
     operands of `shapes` ((B, Hq, Sq, D), (B, Hkv, Skv, D), ...), else the
-    reason: the thread layout's rules on D and block_q, whole 32-column KV
-    groups, and the shared memory one block may use."""
-    d = int(shapes[0][3])
+    reason: D among the instantiated head dims, block_q whole warps of 16
+    rows (at most 8), block_kv whole 32-key chunks, and the shared memory
+    one block may use (float32, the larger case)."""
+    d, skv = int(shapes[0][3]), int(shapes[1][2])
     block_q, block_kv = config["block_q"], config["block_kv"]
-    if d % 4 or _TILE % d or (block_q * d) % _TILE or \
-            block_q * d > _MAX_ROWS * _TILE or block_q % 2 or block_kv % 32:
-        return (f"perforated_attention kernel needs D a multiple of 4 "
-                f"dividing {_TILE}, block_q * D a multiple of {_TILE} and "
-                f"at most {_MAX_ROWS * _TILE}, block_q even and block_kv a "
-                f"multiple of 32; got D={d}, block_q={block_q}, "
+    if d not in HEAD_DIMS or block_q not in BLOCK_Q or block_kv % _CHUNK:
+        return (f"perforated_attention kernel needs D in {HEAD_DIMS}, "
+                f"block_q in {BLOCK_Q} and block_kv a multiple of "
+                f"{_CHUNK}; got D={d}, block_q={block_q}, "
                 f"block_kv={block_kv}")
-    if smem_bytes(block_q, block_kv, d) > _SMEM_LIMIT:
+    smem = smem_bytes(d, skv // block_kv)
+    if smem > _SMEM_LIMIT:
         return (f"perforated_attention blocks (block_q={block_q}, "
-                f"block_kv={block_kv}) at D={d} need "
-                f"{smem_bytes(block_q, block_kv, d)} bytes of shared "
-                f"memory, more than the {_SMEM_LIMIT} a block may use")
+                f"block_kv={block_kv}) at D={d}, Skv={skv} need {smem} "
+                f"bytes of shared memory, more than the {_SMEM_LIMIT} a "
+                "block may use")
     return None
 
 
@@ -134,14 +145,16 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_geometry(q, k, v, block_q, block_kv)
     dev = q.device
     if fraction is not None:
-        kept = torch.arange(nkv, dtype=torch.int32, device=dev)
-        frac = torch.as_tensor(fraction, dtype=torch.float32, device=dev)
+        kept, _ = _enumeration(nkv, None, np.arange(nkv), dev)  # every block
+        frac = (fraction.to(device=dev, dtype=torch.float32)
+                if isinstance(fraction, torch.Tensor) else
+                torch.full((), float(fraction), dtype=torch.float32,
+                           device=dev))
         live = traced_execute_mask(nkv, perfo, frac).to(torch.int32)
     else:
-        kept = torch.as_tensor(kept_np, dtype=torch.int32, device=dev)
-        live = torch.ones((len(kept_np),), dtype=torch.int32, device=dev)
+        kept, live = _enumeration(nkv, perfo, kept_np, dev)
     scale = scale if scale is not None else float(1.0 / np.sqrt(d))
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
     o = torch.empty_like(qc)
     work = COUNTER.work_buffer(dev)
     fn = _build.function(_ENTRIES[q.dtype], _ARGTYPES)
@@ -152,3 +165,20 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     COUNTER.launches += 1
     _build.check("perforated_attention", err)
     return o
+
+
+# the enumerated KV blocks and their all-ones liveness on the device, built
+# once per (number of blocks, perforation, device): they depend on nothing
+# else, and the kernel only reads them
+_ENUMERATIONS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _enumeration(nkv: int, perfo: Optional[PerforationParams],
+                 kept_np: np.ndarray, dev: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (nkv, perfo, dev)
+    if key not in _ENUMERATIONS:
+        _ENUMERATIONS[key] = (
+            torch.as_tensor(kept_np, dtype=torch.int32, device=dev),
+            torch.ones((len(kept_np),), dtype=torch.int32, device=dev))
+    return _ENUMERATIONS[key]

@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from repro_torch.core import types as ttypes
-from repro_torch.kernels import (iact_memo, ops, perforated_matmul, ref,
-                                 taf_matmul, tuning)
+from repro_torch.core import perforation
+from repro_torch.kernels import (iact_memo, ops, perforated_attention,
+                                 perforated_matmul, ref, taf_matmul, tuning)
 
 TAF_ATOL = IACT_ATOL = PMM_ATOL = 1e-3
+PMM_FULL_ATOL = 1e-2  # sums of 3072 float32 products of order 1 (phase 3's)
 ATTN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
 
 
@@ -241,6 +243,110 @@ class TestOnCard:
             assert kernel_profile.launches_per_call(
                 lambda: ops.iact_rowfn(a, w1, w2, block_rows=br),
                 iact_memo.CUDA_KERNELS, dev) == 4
+
+    @pytest.mark.parametrize("bm", perforated_matmul.TILE_SIDES)
+    @pytest.mark.parametrize("bn", perforated_matmul.TILE_SIDES)
+    def test_perforated_matmul_tiles_at_full_width_k(self, bm, bn):
+        """Every CTA tile, structural and masked, rescale on and off, at
+        K4's full-width contraction length; a fraction that drops every
+        block gives zeros; the device tally counts the live blocks."""
+        rng = np.random.RandomState(12)
+        x = torch.from_numpy(rng.randn(256, 6144).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.randn(6144, 128).astype(np.float32)).cuda()
+        P, K = ttypes.PerforationParams, ttypes.PerforationKind
+        nk = 6144 // 128
+        for perfo, fraction, rescale in (
+                (P(kind=K.SMALL, skip=2), None, False),
+                (None, None, True),
+                (P(kind=K.LARGE, skip=4), None, True),
+                (P(kind=K.FINI), 0.5, True),
+                (P(kind=K.RANDOM), 0.3, False),
+                (P(kind=K.INI), 1.0, True)):
+            if fraction is not None:
+                live = int(perforation.traced_execute_mask(
+                    nk, perfo, fraction).sum())
+            else:
+                live = nk if perfo is None else len(
+                    perforation.kept_indices(nk, perfo))
+            work = perforated_matmul.COUNTER.work()
+            y = ops.perforated_matmul(x, w, block_m=bm, block_n=bn,
+                                      block_k=128, perfo=perfo,
+                                      fraction=fraction, rescale=rescale)
+            assert perforated_matmul.COUNTER.work() - work == live
+            yr = ref.perforated_matmul_ref(x, w, block_k=128, perfo=perfo,
+                                           fraction=fraction,
+                                           rescale=rescale)
+            assert float((y - yr).abs().max()) <= PMM_FULL_ATOL
+            if live == 0:
+                assert not bool(y.any())
+
+    @pytest.mark.parametrize("d", perforated_attention.HEAD_DIMS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_attention_head_dims(self, d, dtype):
+        """Every instantiated D in both types: GQA, Sq < Skv, non-causal,
+        masked and structural perforation, every block_q, and rows whose
+        only keys lie in a dropped block (output 0)."""
+        P, K = ttypes.PerforationParams, ttypes.PerforationKind
+        cases = [  # (hq, hkv, sq, skv, block_q, block_kv, causal, perfo, frac)
+            (4, 2, 128, 128, 32, 32, True, None, None),
+            (4, 1, 64, 128, 16, 32, True, P(kind=K.FINI), 0.5),
+            (2, 2, 128, 256, 64, 64, False, P(kind=K.SMALL, skip=2), None),
+            (2, 1, 128, 128, 128, 32, True, P(kind=K.INI, fraction=0.25),
+             None),
+            (4, 4, 64, 64, 32, 32, True, P(kind=K.RANDOM), 0.3),
+        ]
+        for i, (hq, hkv, sq, skv, bq, bkv, causal, perfo, frac) in \
+                enumerate(cases):
+            q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+                       for a in _qkv(20 + i, 2, hq, hkv, sq, skv, d))
+            o = ops.perforated_attention(q, k, v, block_q=bq, block_kv=bkv,
+                                         perfo=perfo, fraction=frac,
+                                         causal=causal)
+            orf = ref.attention_ref(q, k, v, block_kv=bkv, perfo=perfo,
+                                    fraction=frac, causal=causal)
+            assert o.dtype == dtype
+            assert float((o.float() - orf.float()).abs().max()) <= \
+                ATTN_ATOL[dtype], (i, d, dtype)
+            if perfo is not None and perfo.kind == K.INI:
+                # block 0 dropped: rows 0..bkv-1 see no key
+                assert not bool(o[:, :, :bkv].any())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_k1_k4_repeated_calls_are_identical(self, dtype):
+        rng = np.random.RandomState(13)
+        q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+                   for a in _qkv(13, 1, 4, 2, 256, 256, 128))
+        x = torch.from_numpy(rng.randn(256, 1024).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.randn(1024, 256).astype(np.float32)).cuda()
+        fini = ttypes.PerforationParams(kind=ttypes.PerforationKind.FINI)
+        runs = [(ops.perforated_attention(q, k, v, block_q=32, block_kv=32,
+                                          perfo=fini, fraction=0.5),
+                 ops.perforated_matmul(x, w, block_m=128, block_n=128,
+                                       block_k=128, perfo=fini,
+                                       fraction=0.25, rescale=True))
+                for _ in range(3)]
+        for o, y in runs[1:]:
+            assert torch.equal(o, runs[0][0]) and torch.equal(y, runs[0][1])
+
+    def test_one_call_is_one_k1_launch_and_one_k4_launch(self):
+        from repro_torch.benchmarks import kernel_profile
+        q, k, v = (torch.from_numpy(a).cuda()
+                   for a in _qkv(14, 1, 4, 4, 128, 128, 64))
+        rng = np.random.RandomState(14)
+        x = torch.from_numpy(rng.randn(256, 512).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.randn(512, 256).astype(np.float32)).cuda()
+        fini = ttypes.PerforationParams(kind=ttypes.PerforationKind.FINI)
+        for bq in (32, 64):
+            assert kernel_profile.launches_per_call(
+                lambda: ops.perforated_attention(
+                    q, k, v, block_q=bq, block_kv=32, perfo=fini,
+                    fraction=0.5),
+                perforated_attention.CUDA_KERNELS, q.device) == 1
+        for bm in (64, 128):
+            assert kernel_profile.launches_per_call(
+                lambda: ops.perforated_matmul(
+                    x, w, block_m=bm, block_n=128, block_k=128),
+                perforated_matmul.CUDA_KERNELS, x.device) == 1
 
     def test_autotune_launches_every_candidate(self):
         rng = np.random.RandomState(5)

@@ -265,14 +265,17 @@ def test_attention_kernel_geometry_limits():
     """The CUDA kernel's limits are checked before launch (host-side)."""
     q = torch.zeros(1, 2, 128, 128)
     perforated_attention._check_kernel_geometry(q, q, q, 32, 32)
-    with pytest.raises(ValueError):  # accumulator rows per thread
-        perforated_attention._check_kernel_geometry(q, q, q, 128, 32)
+    perforated_attention._check_kernel_geometry(q, q, q, 128, 32)
+    with pytest.raises(ValueError):  # at most 8 warps of 16 query rows
+        perforated_attention._check_kernel_geometry(q, q, q, 256, 32)
     q3 = torch.zeros(1, 2, 64, 48)
-    with pytest.raises(ValueError):  # D must divide the block's threads
+    with pytest.raises(ValueError):  # D must be an instantiated head dim
         perforated_attention._check_kernel_geometry(q3, q3, q3, 32, 32)
-    with pytest.raises(ValueError):  # KV blocks of whole 32-column groups
+    with pytest.raises(ValueError):  # KV blocks of whole 32-key chunks
         perforated_attention._check_kernel_geometry(q, q, q, 32, 16)
-    assert perforated_attention.smem_bytes(32, 32, 128) == 58880
+    # two chunk buffers of 32 K rows (D + 8) and 32 V rows (D + 4) in
+    # float32, and the list of 4 KV blocks with its length
+    assert perforated_attention.smem_bytes(128, 4) == 68628
 
 
 # ----------------------------------------------------------------------------

@@ -195,11 +195,11 @@ def test_drop_all_structural_and_bad_hook_raise_as_jax():
                     **blocks)
 
 
-@pytest.mark.parametrize("block,ok", [(8, False), (16, True), (48, False),
+@pytest.mark.parametrize("block,ok", [(8, False), (16, False), (48, False),
                                       (96, False), (128, True),
                                       (512, False)])
 def test_block_sides_are_cta_tiles(block, ok):
-    """block_m and block_n are the CTA tile itself: 16, 32, 64 or 128. A
+    """block_m and block_n are the CTA tile itself: 32, 64 or 128. A
     larger block would repeat the 128 launch, so it is rejected."""
     shapes = ((1024, 256), (256, 1024))
     for key in ("block_m", "block_n"):
@@ -214,13 +214,18 @@ def test_launchable_rule():
     shapes = ((4096, 6144), (6144, 2048))
     ok = dict(block_m=128, block_n=128, block_k=128)
     assert perforated_matmul.launchable(shapes, ok) is None
-    assert perforated_matmul.smem_bytes(ok) == 4 * 16 * (128 + 4 + 128)
+    # four chunks of A (128 x (32 + 8)) and B (32 x (128 + 4)), float32,
+    # and the list of 48 K blocks with its length
+    assert perforated_matmul.smem_bytes(ok, 48) == \
+        4 * (4 * (128 * 40 + 32 * 132) + 48 + 1)
     assert "block_m" in perforated_matmul.launchable(
         shapes, dict(ok, block_m=8))
     assert "block_n" in perforated_matmul.launchable(
         shapes, dict(ok, block_n=8))
+    assert "block_k" in perforated_matmul.launchable(
+        shapes, dict(ok, block_k=12))
     assert "CTA rows" in perforated_matmul.launchable(
-        ((16 * 70000, 64), (64, 64)), dict(ok, block_m=16))
+        ((32 * 70000, 64), (64, 64)), dict(ok, block_m=32))
 
 
 def test_wrapper_names_its_kernels():
