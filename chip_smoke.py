@@ -50,6 +50,28 @@ failure could still exit 0):
      with phase 3's tolerances. The full geometry's tuning cache lands in
      chiprun_out/kernel_micro_full/.
 
+  8. the five HPC apps (`repro_torch.apps`) at the size of the public
+     benchmark each reproduces (FULL_APPS), through `make_app(...).run` on
+     the card: NONE, TAF (2, 8, 0.5) at ELEMENT and BLOCK, IACT (2, 0.3,
+     private tables) at ELEMENT (MiniFE: PERFO small 4 instead), each with
+     its wall time (CUDA events, one warm-up, one timed run), approx
+     fraction, error against the app's NONE and host reads; a TAF spec of
+     each app must approximate. Then: the ELEMENT / TILE sequences run
+     under `torch.cuda.set_sync_debug_mode("error")`; binomial's launch-
+     bound share (torch.profiler); `run_batch` equals `run` for a TAF
+     group of three thresholds; at the JAX default size every spec on the
+     card equals the CPU (masks of the run_sequence apps stepped side by
+     side, each differing decision printed with its margin; approx
+     fraction within 0.005, QoI within rtol 1e-4, atol 1e-3); and an
+     `ApproxRegion` on the "cuda" substrate over `taf_matmul_region` /
+     `iact_ffn_region` at phase 5's widths launches K2 / K3 and returns
+     what the substrate call returns;
+  9. the port's fig6 and fig7 sweeps at the JAX sizes and grids, each row
+     held against the JAX package's rows in
+     src/repro_torch/benchmarks/fig6_fig7_reference.json (the same best
+     spec, modeled speedup within 1%, error within 1e-4, approx fractions
+     within 0.005).
+
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
 0.25, masked ini/fini/random at fractions up to one that drops every
@@ -63,6 +85,7 @@ Prints the `kernels` JSON line, then as its last line
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device, and
 when run outside a checkout (src/repro_torch missing).
 """
+import collections
 import json
 import os
 import subprocess
@@ -99,6 +122,23 @@ APP_KERNELS = ("taf_matmul", "iact_rowfn", "perforated_attention")
 # K4 at 256^3 (the JAX test's size) and at the FFN down-projection
 PMM_GEOMS = (("256^3", (256, 256, 256), (64, 64, 64)),
              ("full", (4096, 6144, 2048), (128, 128, 128)))
+# phase 8: each app at the size of the public benchmark it reproduces
+FULL_APPS = (
+    # CUDA Samples BlackScholes: OPT_N = 4,000,000 (65536 x 64 = 4,194,304)
+    ("blackscholes", dict(n_elements=65536, steps=64)),
+    # CUDA Samples binomialOptions: OPT_N 1024, NUM_STEPS 2048
+    ("binomial_options", dict(n_elements=1024, steps=8, tree_steps=2048)),
+    # Rodinia kmeans, the kdd_cup input's shape (synthetic points)
+    ("kmeans", dict(n=494020, d=34, k=5)),
+    # Rodinia lavaMD -boxes1d 10
+    ("lavamd", dict(nx=10)),
+    # miniFE 100 x 100 x 100 (about 1.03 M rows): a 1024^2 grid
+    ("minife_cg", dict(n=1024, iters=60)),
+)
+APP_TAF = (2, 8, 0.5)
+APP_IACT = (2, 0.3, 0)
+APP_RTOL, APP_ATOL, APP_FRACTION_TOL = 1e-4, 1e-3, 0.005
+SEQUENCE_APPS = ("blackscholes", "binomial_options", "lavamd")
 
 
 class SmokeFailure(Exception):
@@ -147,6 +187,352 @@ def plain_call(kernel, config, arrays):
         return ref.perforated_matmul_ref(*arrays, block_k=config["block_k"],
                                          perfo=None)
     return ref.attention_ref(*arrays)
+
+
+def app_specs(name):
+    """(label, spec) pairs phase 8 runs on app `name`."""
+    from repro_torch.core.types import (ApproxSpec, IACTParams, Level,
+                                        PerforationKind, PerforationParams,
+                                        TAFParams, Technique)
+    specs = [("none", ApproxSpec())] + [
+        (f"taf_{lv.value}", ApproxSpec(Technique.TAF, lv,
+                                       taf=TAFParams(*APP_TAF)))
+        for lv in (Level.ELEMENT, Level.BLOCK)]
+    if name == "minife_cg":
+        specs.append(("perfo_small4", ApproxSpec(
+            Technique.PERFORATION, perforation=PerforationParams(
+                kind=PerforationKind.SMALL, skip=4))))
+    else:
+        specs.append(("iact_element", ApproxSpec(
+            Technique.IACT, Level.ELEMENT, iact=IACTParams(*APP_IACT))))
+    return specs
+
+
+# the JAX apps' default sizes of the run_sequence apps
+DEFAULT_KW = {"blackscholes": dict(n_elements=512, steps=64),
+              "binomial_options": dict(n_elements=64, steps=32,
+                                       tree_steps=128),
+              "lavamd": dict(nx=5)}
+
+
+def sequence_of(name, kw, device):
+    """(invocation sequence, region fn) of a run_sequence app at `kw`."""
+    import torch
+    from repro_torch.apps import binomial_options, blackscholes, lavamd
+    if name == "blackscholes":
+        xs = blackscholes.gen_inputs(kw["n_elements"], kw["steps"])
+        return torch.from_numpy(xs).to(device), blackscholes.bs_price
+    if name == "binomial_options":
+        xs = binomial_options.gen_inputs(kw["n_elements"], kw["steps"])
+        return torch.from_numpy(xs).to(device), \
+            lambda x: binomial_options.binomial_price(x, kw["tree_steps"])
+    region, xs, _ = lavamd.region_setup(kw["nx"], 0, device)
+    return xs, region
+
+
+def lockstep(spec, xs_cpu, xs_card, fn):
+    """Step `spec`'s technique over one invocation sequence on the CPU and
+    on the card side by side, each on its own accurate outputs. Returns the
+    decisions that differ: step, element, each side's mask and its margin
+    (TAF: RSD of the element's window after the step minus the threshold;
+    iACT: nearest cached distance minus the threshold)."""
+    from repro_torch.core import iact, rsd, taf
+    from repro_torch.core.types import Technique
+    diffs, states = [], [None, None]
+    for t in range(xs_cpu.shape[0]):
+        seen = []
+        for k, xs in enumerate((xs_cpu, xs_card)):
+            y = fn(xs[t])
+            if spec.technique == Technique.TAF:
+                p = spec.taf
+                if states[k] is None:
+                    states[k] = taf.init(p, y.shape[0], tuple(y.shape[1:]),
+                                         y.dtype, y.device)
+                _, states[k], m = taf.step(states[k], lambda: y, p,
+                                           spec.level)
+                margin = rsd.rsd(states[k].window, dim=1) - p.rsd_threshold
+                decided = states[k].remaining
+            else:
+                p = spec.iact
+                if states[k] is None:
+                    states[k] = iact.init(p, iact.n_tables_for(p, y.shape[0]),
+                                          xs.shape[-1], tuple(y.shape[1:]),
+                                          y.dtype, y.device)
+                decided, _, dist = iact.read_phase(states[k], xs[t],
+                                                   p.threshold)
+                margin = dist - p.threshold
+                _, states[k], m = iact.step(states[k], xs[t], lambda x: y, p,
+                                            spec.level)
+            seen.append((m.cpu(), decided.cpu(), margin.cpu()))
+        (mc, dc, gc), (mg, dg, gg) = seen
+        for e in ((mc != mg) | (dc != dg)).nonzero().flatten().tolist():
+            diffs.append(dict(step=t, element=e, cpu=bool(mc[e]),
+                              card=bool(mg[e]), margin_cpu=float(gc[e]),
+                              margin_card=float(gg[e])))
+    return diffs
+
+
+def phase_apps(dev, s, loose):
+    """Phase 8 (see the module docstring); returns its report."""
+    import importlib
+    import numpy as np
+    import torch
+    from repro_torch.apps import minife_cg
+    from repro_torch.benchmarks import kernel_profile
+    from repro_torch.core import ApproxRegion, hierarchy, iact, substrate, taf
+    from repro_torch.core.harness import ERROR_METRICS, mape, mcr
+    from repro_torch.core.types import (ApproxSpec, IACTParams, Level,
+                                        PerforationKind, PerforationParams,
+                                        TAFParams, Technique)
+    from repro_torch.kernels import ops
+    out = {"full": {}, "no_sync": {}, "run_batch": {}, "default_size": {}}
+    mods = {name: importlib.import_module(f"repro_torch.apps.{name}")
+            for name, _ in FULL_APPS}
+
+    # each app at full width through make_app(...).run
+    for name, kw in FULL_APPS:
+        t0 = time.perf_counter()
+        app = mods[name].make_app(device=dev, **kw)
+        metric = ERROR_METRICS[app.error_metric]
+        rows, exact = {}, None
+        for label, spec in app_specs(name):
+            res = app.run(spec)
+            if exact is None:
+                check(bool(np.isfinite(res.qoi).all()),
+                      f"{name}: the exact QoI is not finite")
+                exact = res.qoi
+            row = dict(wall_ms=res.wall_time_s * 1e3,
+                       approx_fraction=res.approx_fraction,
+                       error=float(metric(exact, res.qoi)),
+                       host_reads=res.extra.get("host_reads"))
+            if "iters" in res.extra:
+                row["iters"] = res.extra["iters"]
+            rows[label] = row
+            log(f"  {name} {label}: wall_ms={row['wall_ms']!r} (CUDA "
+                f"events) approx_fraction={row['approx_fraction']!r} "
+                f"{app.error_metric}={row['error']!r} "
+                f"host_reads={row['host_reads']}"
+                + (f" iters={row['iters']}" if "iters" in row else ""))
+        check(rows["taf_element"]["approx_fraction"] > 0
+              or rows["taf_block"]["approx_fraction"] > 0,
+              f"{name}: no TAF spec approximated at full width")
+        out["full"][name] = dict(args=kw, rows=rows,
+                                 seconds=time.perf_counter() - t0)
+        del app, exact
+        torch.cuda.empty_cache()
+
+    # the ELEMENT / TILE paths make no synchronizing call (kmeans' host
+    # convergence loop reads once an iteration by design and is left out):
+    # PyTorch's sync debug mode raises on one, and, as a second witness
+    # (the mode does not see every synchronizing call), torch.profiler
+    # must record no more CUDA synchronize calls and device-to-host copies
+    # than it records around an empty window (its own)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def under_sync_error(fn):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def traced_waits(fn):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+        return collections.Counter(
+            e.name for e in prof.events()
+            if "Synchronize" in e.name or "DtoH" in e.name)
+
+    own_waits = traced_waits(lambda: None)
+    # positive control: the witness sees one 0-d read
+    control = traced_waits(lambda: float(torch.ones((), device=dev)))
+    check(bool(control - own_waits), "the profiler witness does not see a "
+          f"device-to-host read ({dict(control)})")
+
+    def no_sync(fn, witness=None):
+        """fn() under the sync debug mode, then `witness` (default fn: a
+        shorter run of the same path where a full one would trace too many
+        launches) under the profiler too; returns (fn's value, the waits
+        the profiler saw beyond its own)."""
+        torch.cuda.synchronize()
+        value = under_sync_error(fn)
+        waits = traced_waits(lambda: under_sync_error(witness or fn))
+        return value, dict(waits - own_waits)
+
+    taf_p, iact_p = TAFParams(*APP_TAF), IACTParams(*APP_IACT)
+    full_kw = dict(FULL_APPS)
+    for name in SEQUENCE_APPS:
+        xs, fn = sequence_of(name, full_kw[name], dev)
+        # binomial's full sequence is 1.6e5 launches a run: the profiler
+        # witnesses its first three invocations
+        short = xs[:3] if name == "binomial_options" else xs
+        for label, run in (
+                ("taf_element", lambda x: taf.run_sequence(
+                    taf_p, x, fn, Level.ELEMENT)),
+                ("taf_tile", lambda x: taf.run_sequence(
+                    taf_p, x, fn, Level.TILE)),
+                ("iact_element", lambda x: iact.run_sequence(
+                    iact_p, x, fn, Level.ELEMENT))):
+            (_, _, frac), waits = no_sync(lambda: run(xs),
+                                          lambda: run(short))
+            out["no_sync"][f"{name}/{label}"] = dict(
+                approx_fraction=float(frac), waits=waits)
+    n, iters = full_kw["minife_cg"]["n"], full_kw["minife_cg"]["iters"]
+    b = torch.from_numpy(minife_cg._gen_b(n, 0)).to(dev)
+    ini = ApproxSpec(Technique.PERFORATION, perforation=PerforationParams(
+        kind=PerforationKind.INI))
+    for label, spec, kw in (
+            ("taf_element", ApproxSpec(Technique.TAF, Level.ELEMENT,
+                                       taf=taf_p), {}),
+            ("perfo_ini_fraction_tensor", ini,
+             dict(fraction=torch.full((), 0.25, device=dev)))):
+        (_, _, frac), waits = no_sync(
+            lambda: minife_cg.cg_solve(b, spec, iters, **kw))
+        out["no_sync"][f"minife_cg/{label}"] = dict(
+            approx_fraction=float(frac), waits=waits)
+    for run, r in out["no_sync"].items():
+        log(f"  {run}: no synchronizing call under sync debug mode "
+            f"'error'; synchronize calls and DtoH copies traced beyond "
+            f"the profiler's own {dict(own_waits)}: {r['waits']} "
+            f"approx_fraction={r['approx_fraction']!r}")
+        check(not r["waits"], f"{run} waited for the card: {r['waits']}")
+
+    # binomial at full width is bound by launches: one price call's kernels
+    xs, fn = sequence_of("binomial_options", full_kw["binomial_options"],
+                         dev)
+    x0 = xs[0]
+    kernels = kernel_profile.device_kernels({"price": lambda: fn(x0)}, dev)
+    call = kernel_profile.time_call(lambda: fn(x0), dev)
+    device_ms = sum(r["total_ms"] for r in kernels)
+    launches = sum(r["count"] for r in kernels)
+    out["binomial_price_call"] = dict(
+        call, device_ms=device_ms, launches=launches,
+        idle=1.0 - device_ms / call["wall_ms"],
+        us_per_launch=call["wall_ms"] * 1e3 / max(launches, 1))
+    log(f"  binomial_price ({x0.shape[0]} options, "
+        f"{full_kw['binomial_options']['tree_steps']} tree steps), one "
+        f"call: {out['binomial_price_call']}")
+
+    # run_batch equals run, spec by spec, for one TAF group
+    for name, kw in FULL_APPS:
+        app = mods[name].make_app(device=dev, **kw)
+        specs = [ApproxSpec(Technique.TAF, Level.ELEMENT,
+                            taf=TAFParams(2, 8, th)) for th in (0.1, 0.5,
+                                                                1.5)]
+        fracs = []
+        for spec, got in zip(specs, app.run_batch(specs)):
+            want = app.run(spec)
+            same = (np.array_equal(got.qoi, want.qoi, equal_nan=True)
+                    and abs(got.approx_fraction - want.approx_fraction)
+                    <= 1e-6
+                    and got.extra.get("iters") == want.extra.get("iters"))
+            check(same, f"{name}: run_batch differs from run at "
+                        f"{spec.taf}")
+            fracs.append(got.approx_fraction)
+        out["run_batch"][name] = fracs
+        del app
+        torch.cuda.empty_cache()
+    log(f"  run_batch == run (TAF 2/8 at 0.1, 0.5, 1.5), approx "
+        f"fractions: {out['run_batch']}")
+
+    # at the JAX default size every spec on the card equals the CPU
+    for name, _ in FULL_APPS:
+        card, cpu = mods[name].make_app(device=dev), \
+            mods[name].make_app(device="cpu")
+        exact = cpu.exact().qoi
+        rows = {}
+        for label, spec in app_specs(name):
+            rc, rg = cpu.run(spec), card.run(spec)
+            frac_ok = abs(rc.approx_fraction - rg.approx_fraction) <= \
+                APP_FRACTION_TOL
+            if name == "kmeans":
+                qoi_ok = mcr(rc.qoi, rg.qoi) <= APP_FRACTION_TOL
+            elif name == "minife_cg" and not mape(exact, rc.qoi) < 1.0:
+                # a blown-up solve: rounding is amplified without bound
+                qoi_ok = bool(np.array_equal(np.isfinite(rc.qoi),
+                                             np.isfinite(rg.qoi))
+                              and not mape(exact, rg.qoi) < 1.0)
+            else:
+                qoi_ok = bool(np.allclose(rg.qoi, rc.qoi, rtol=APP_RTOL,
+                                          atol=APP_ATOL))
+            diffs = []
+            if name in SEQUENCE_APPS and spec.technique in (
+                    Technique.TAF, Technique.IACT):
+                xs_c, fn = sequence_of(name, DEFAULT_KW[name], "cpu")
+                diffs = lockstep(spec, xs_c, xs_c.to(dev), fn)
+            for d_ in diffs:
+                log(f"    {name} {label}: decision differs {d_}")
+            rows[label] = dict(cpu_fraction=rc.approx_fraction,
+                               card_fraction=rg.approx_fraction,
+                               qoi_ok=qoi_ok, mask_diffs=diffs)
+            log(f"  {name} {label} at the default size: approx fraction "
+                f"cpu={rc.approx_fraction!r} card={rg.approx_fraction!r} "
+                f"QoI agrees={qoi_ok} differing decisions={len(diffs)}")
+            check(frac_ok and qoi_ok and not diffs,
+                  f"{name} {label}: the card departs from the CPU at the "
+                  "default size")
+        out["default_size"][name] = rows
+
+    # ApproxRegion on the "cuda" substrate launches K2 / K3 at phase 5's
+    # widths and returns exactly what the substrate call returns
+    seq, d = FULL_GEOM["seq"], FULL_GEOM["d"]
+    taf_spec = ApproxSpec(Technique.TAF, Level.BLOCK,
+                          taf=TAFParams(*TAF_SPEC[1:]))
+    iact_spec = ApproxSpec(Technique.IACT, Level.BLOCK,
+                           iact=IACTParams(IACT_SPEC[1], loose, 1))
+    cases = (
+        ("taf_matmul", taf_spec, s["x"],
+         lambda xx, **kw: substrate.taf_matmul_region(
+             xx, s["wp"], taf_spec, block_m=16, block_n=d,
+             rsd_threshold=kw.get("rsd_threshold"))),
+        ("iact_rowfn", iact_spec, s["a"],
+         lambda xx, **kw: substrate.iact_ffn_region(
+             xx, s["w1"], s["w2"], iact_spec, block_rows=16,
+             threshold=kw.get("threshold"))))
+    out["region"] = {}
+    for kern, spec, x, impl in cases:
+        region = ApproxRegion(spec, None, n_elements=seq, substrate="cuda",
+                              cuda_impl=impl)
+        before = ops.launch_counts()[kern]
+        ys, frac = region.run(x)
+        y1, state, m1 = region.step(None, x)
+        launched = ops.launch_counts()[kern] - before
+        y_direct, mask = impl(x)
+        same = (torch.equal(ys, y_direct) and torch.equal(y1, y_direct)
+                and torch.equal(m1, mask)
+                and float(frac) == float(hierarchy.fraction(mask)))
+        out["region"][kern] = dict(launches=launched, equal=same,
+                                   approx_fraction=float(frac))
+        log(f"  ApproxRegion({spec.technique.value}, substrate='cuda') -> "
+            f"{kern}: launches={launched} approx_fraction={float(frac)!r} "
+            f"equal to the substrate call={same}")
+        check(launched > 0 and same, f"ApproxRegion did not run {kern} or "
+                                     "departs from the substrate call")
+    return out
+
+
+def phase_figures(dev):
+    """Phase 9: the port's fig6 and fig7 against the JAX rows."""
+    from repro_torch.benchmarks import fig6_best_speedup as fig6
+    from repro_torch.benchmarks import fig7_cg_sweep as fig7
+    ref = fig6.load_reference()
+
+    def rep(name, value, derived=""):
+        log(f"  {name},{value},{derived}")
+
+    res6 = fig6.main(report=rep, device=dev, repeats=1)
+    res7 = fig7.main(report=rep, device=dev)
+    bad = fig6.check(res6, ref) + fig7.check(res7, ref)
+    for b in bad:
+        log(f"  departs from the JAX rows: {b}")
+    check(not bad, f"{len(bad)} fig6/fig7 rows depart from the JAX rows")
+    log(f"  fig6 and fig7: every row agrees with "
+        f"{os.path.relpath(fig6.REFERENCE, HERE)}")
+    return dict(fig6={n: {t: a[t]["best"] for t in ("taf", "iact")}
+                      for n, a in res6.items()},
+                fig7=res7, failures=bad)
 
 
 def main():
@@ -631,6 +1017,18 @@ def main():
                      f"kernel_micro {geometry} {label} {t[label]}")
     report["kernel_micro"] = dict(results=micro, launches=micro_launches)
     report["phases"]["kernel_micro_s"] = time.perf_counter() - t0
+
+    # -- 8. the five HPC apps -------------------------------------------------
+    log("phase 8: the five HPC apps at the public benchmarks' sizes")
+    t0 = time.perf_counter()
+    report["apps"] = phase_apps(dev, full_inputs, loose)
+    report["phases"]["apps_s"] = time.perf_counter() - t0
+
+    # -- 9. fig6 and fig7 against the JAX rows --------------------------------
+    log("phase 9: fig6 and fig7 at the JAX sizes and grids")
+    t0 = time.perf_counter()
+    report["figures"] = phase_figures(dev)
+    report["phases"]["figures_s"] = time.perf_counter() - t0
 
     kernels = []
     for r in rows:

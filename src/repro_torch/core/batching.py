@@ -12,6 +12,9 @@ the same launch path.
                         perforation) and must run serially.
   traced_param(spec) -- the spec's knob.
   group_specs(specs) -- indices grouped by static_key + the serial leftovers.
+  group_lanes(specs) -- per-lane specs of one serving tick, grouped.
+  sequence_runner(..) -- `th -> (ys, approx_fraction)` over a technique's
+                        run_sequence: the memoization apps' group body.
   make_run_batch(..) -- assembles an `ApproxApp.run_batch` from an app's
                         `make_group_fn(key) -> fn(knobs)` factory.
 
@@ -31,6 +34,8 @@ import numpy as np
 import torch
 
 from ..obs import timing, trace
+from . import iact as iact_mod
+from . import taf as taf_mod
 from .harness import AppResult
 from .perforation import FRACTION_KINDS
 from .types import (ApproxSpec, IACTParams, PerforationParams, TAFParams,
@@ -80,6 +85,47 @@ def spec_from_key(key: Tuple) -> ApproxSpec:
                       else None)
 
 
+def sequence_runner(key: Tuple, xs: torch.Tensor, fn):
+    """`th -> (ys, approx_fraction)` over the technique's run_sequence with
+    the key's static params and the 0-d float32 tensor `th` as the knob --
+    the shared body of the memoization apps' group runners. Returns None
+    for keys with no run_sequence shape (perforation)."""
+    tech, level = key[0], key[1]
+    params = params_from_key(key)
+    if tech == Technique.TAF:
+        def run(th):
+            ys, _, frac = taf_mod.run_sequence(params, xs, fn, level,
+                                               rsd_threshold=th)
+            return ys, frac
+        return run
+    if tech == Technique.IACT:
+        def run(th):
+            ys, _, frac = iact_mod.run_sequence(params, xs, fn, level,
+                                                threshold=th)
+            return ys, frac
+        return run
+    return None
+
+
+def lanes(run_lane: Callable) -> Callable:
+    """A group function from a per-lane runner: `knobs -> stacks`, calling
+    `run_lane(knob)` once per lane with that lane's 0-d float32 knob (a
+    view of the device tensor, never a Python float) and stacking each of
+    its outputs. `run_lane` returns a tuple of tensors, optionally ending
+    in a dict of per-lane extras."""
+    def group(knobs: torch.Tensor):
+        outs = [run_lane(knobs[lane]) for lane in range(knobs.shape[0])]
+        head = outs[0]
+        extra = head[-1] if isinstance(head[-1], dict) else None
+        n = len(head) - (extra is not None)
+        stacked = tuple(torch.stack([o[i] for o in outs]) for i in range(n))
+        if extra is None:
+            return stacked
+        return stacked + ({k: torch.stack([o[-1][k] for o in outs])
+                           for k in extra},)
+    return group
+
+
 def traced_param(spec: ApproxSpec) -> float:
     """The spec's knob (the parameter a batched runner stacks)."""
     if spec.technique == Technique.TAF:
@@ -107,6 +153,38 @@ def group_specs(specs: Sequence[ApproxSpec], min_group: int = 2
     for key in [k for k, idxs in groups.items() if len(idxs) < min_group]:
         serial.extend(groups.pop(key))
     return groups, sorted(serial)
+
+
+def group_lanes(specs: Sequence[Optional[ApproxSpec]]
+                ) -> Tuple[Dict[Tuple, Tuple[List[int], List[float]]],
+                           List[int]]:
+    """Partition PER-LANE specs for one batched serving tick.
+
+    Lanes are positional (lane i's request is served at index i), so every
+    lane lands somewhere and singleton groups are kept. Returns
+
+      groups:  static-structure key -> (lane indices, their knobs) -- each
+               group runs as ONE group call per tick;
+      precise: lanes whose spec is None / technique NONE (the exact path).
+
+    A lane spec with no knob (skip-driven perforation) cannot share a
+    group call and raises.
+    """
+    groups: Dict[Tuple, Tuple[List[int], List[float]]] = {}
+    precise: List[int] = []
+    for i, spec in enumerate(specs):
+        if spec is None or spec.technique == Technique.NONE:
+            precise.append(i)
+            continue
+        key = static_key(spec)
+        if key is None:
+            raise ValueError(
+                f"lane {i} spec {spec} has no traced quality knob and "
+                "cannot share a compiled serving step")
+        idxs, knobs = groups.setdefault(key, ([], []))
+        idxs.append(i)
+        knobs.append(traced_param(spec))
+    return groups, precise
 
 
 def _default_result(qoi: np.ndarray, frac: float, extra: Dict,

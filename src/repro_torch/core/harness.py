@@ -216,6 +216,16 @@ def _timed(fn: Callable[[], AppResult], repeats: int) -> AppResult:
     return best
 
 
+def evaluate_spec(app: ApproxApp, spec: ApproxSpec, exact: AppResult,
+                  repeats: int = 1) -> Record:
+    """Evaluate one spec against a pre-measured exact baseline -> Record.
+
+    The single scoring path shared by sweep, autotune, and pareto.refine.
+    """
+    res = _timed(lambda: app.run(spec), repeats)
+    return _make_record(app, spec, res, exact)
+
+
 def _make_record(app: ApproxApp, spec: ApproxSpec, res: AppResult,
                  exact: AppResult) -> Record:
     metric = ERROR_METRICS[app.error_metric]

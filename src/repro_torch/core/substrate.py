@@ -10,9 +10,10 @@ Two substrates run an approximated region:
              fraction) are float32 device tensors, so a sweep never
              rebuilds anything per knob value.
 
-"cuda" is the default. `use(substrate)` scopes another choice (the harness
-entry points take `substrate=` and evaluate inside `use(...)`);
-`resolve(None)` reads the ambient value at call time. The ambient value is
+The process default comes from `$REPRO_SUBSTRATE` ("host" or "cuda"; any
+other value raises), else "cuda". `use(substrate)` scopes another choice
+(the harness entry points take `substrate=` and evaluate inside
+`use(...)`); `resolve(None)` reads the ambient value at call time. The ambient value is
 a process-wide global, not thread-local, so `run_specs(jobs>1)` worker
 threads see the harness's scope; two concurrent sweeps with different
 substrates in one process should pin the substrate on the app instead.
@@ -24,6 +25,7 @@ return -- (output, approx_mask).
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional
 
 import torch
@@ -36,11 +38,22 @@ HOST = "host"
 CUDA = "cuda"
 SUBSTRATES = (HOST, CUDA)
 
-_default: str = CUDA
+_default: Optional[str] = None  # read from the environment on first use
+
+
+def _env_default() -> str:
+    sub = os.environ.get("REPRO_SUBSTRATE", CUDA).strip().lower()
+    if sub not in SUBSTRATES:
+        raise ValueError(
+            f"$REPRO_SUBSTRATE={sub!r} is not one of {SUBSTRATES}")
+    return sub
 
 
 def get_default() -> str:
     """The ambient substrate (process default or innermost `use(...)`)."""
+    global _default
+    if _default is None:
+        _default = _env_default()
     return _default
 
 
@@ -61,7 +74,7 @@ def use(substrate: Optional[str]):
     if substrate is None:
         yield get_default()
         return
-    prev = _default
+    prev = get_default()
     _default = resolve(substrate)
     try:
         yield _default

@@ -49,6 +49,13 @@ class Level(enum.Enum):
     BLOCK = "block"      # paper: team
 
 
+# The JAX package's TILE decision unit, an (8, 128) TPU vector register: the
+# TILE vote's default group is one 128-element row of it. The port keeps it
+# so that one spec gives one result in both packages; on the GPU 128
+# elements are four warps, and `tile_size=32` is the paper's warp vote.
+TILE_SHAPE = (8, 128)
+
+
 class PerforationKind(enum.Enum):
     SMALL = "small"  # skip one of every M iterations
     LARGE = "large"  # execute one of every M iterations

@@ -160,6 +160,23 @@ def reset() -> None:
     _GLOBAL.reset()
 
 
+# Device-to-host reads the technique state machines and the apps make on
+# purpose (a BLOCK-level decision, a run length, a convergence test): one
+# increment per read. A read forces the host to wait for the device, so it
+# is the count that says how far a loop is from running ahead of the card.
+HOST_READS = "technique.host_reads"
+
+
+def count_host_read(n: int = 1) -> None:
+    """Tally `n` deliberate device-to-host reads under `HOST_READS`."""
+    _GLOBAL.counter(HOST_READS).inc(n)
+
+
+def host_reads() -> int:
+    """The `HOST_READS` tally so far (take differences around a run)."""
+    return int(_GLOBAL.counter(HOST_READS).value)
+
+
 def stamp(doc: Dict) -> Dict:
     """Return `doc` with the process metrics snapshot embedded under
     `doc["obs"]` -- the shared tail every BENCH_*.json artifact carries.

@@ -365,3 +365,139 @@ class TestOnCard:
         assert tuning.validate_config("perforated_matmul", shapes,
                                       cfg) is None
         assert tuning.current_substrate(x.device) == "cuda"
+
+
+@pytest.mark.cuda
+class TestTechniquesOnCard:
+    """The technique state machines, the five HPC apps and `ApproxRegion` on
+    the "cuda" substrate, on the card."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _bs(n=4096, steps=16, device="cuda"):
+        from repro_torch.apps import blackscholes
+        return torch.from_numpy(blackscholes.gen_inputs(n, steps)).to(
+            device), blackscholes.bs_price
+
+    @pytest.mark.parametrize("tech", ["taf", "iact"])
+    @pytest.mark.parametrize("level", [ttypes.Level.ELEMENT,
+                                       ttypes.Level.TILE])
+    def test_run_sequence_makes_no_sync(self, tech, level):
+        from repro_torch.core import iact, taf
+        xs, fn = self._bs()
+        if tech == "taf":
+            run = lambda x: taf.run_sequence(  # noqa: E731
+                ttypes.TAFParams(2, 8, 0.5), x, fn, level)
+        else:
+            run = lambda x: iact.run_sequence(  # noqa: E731
+                ttypes.IACTParams(2, 0.3, 0), x, fn, level)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ys, _, frac = run(xs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ys_c, _, frac_c = run(xs.cpu())
+        assert float(frac) > 0
+        assert abs(float(frac) - float(frac_c)) <= 0.005
+        np.testing.assert_allclose(ys.cpu().numpy(), ys_c.numpy(),
+                                   rtol=1e-4, atol=1e-3)
+
+    def test_taf_block_reads_equal_accurate_steps(self):
+        from repro_torch.core import taf
+        from repro_torch.obs import metrics
+        xs, fn = self._bs(steps=48)
+        before = metrics.host_reads()
+        ys, _, frac = taf.run_sequence(ttypes.TAFParams(2, 8, 0.5), xs, fn,
+                                       ttypes.Level.BLOCK)
+        reads = metrics.host_reads() - before
+        accurate = round((1.0 - float(frac)) * xs.shape[0])
+        assert 0 < accurate < xs.shape[0]
+        assert reads == accurate
+        ys_c, _, frac_c = taf.run_sequence(ttypes.TAFParams(2, 8, 0.5),
+                                           xs.cpu(), fn, ttypes.Level.BLOCK)
+        assert float(frac) == float(frac_c)
+
+    def test_iact_block_reads_are_bounded(self):
+        from repro_torch.core import iact
+        from repro_torch.obs import metrics
+        xs, fn = self._bs(steps=33)
+        steps = xs.shape[0]
+        same = xs[:1].expand_as(xs).contiguous()
+        # every step after the first approximates: one read per chunk, the
+        # chunks 1, 2, 4, ... steps long
+        before = metrics.host_reads()
+        _, _, frac = iact.run_sequence(ttypes.IACTParams(2, 0.3, 0), same,
+                                       fn, ttypes.Level.BLOCK)
+        reads = metrics.host_reads() - before
+        assert round(float(frac) * steps) == steps - 1
+        assert reads <= int(np.ceil(np.log2(steps))) + 1
+        # nothing approximates: one read before each accurate step but the
+        # first
+        before = metrics.host_reads()
+        _, _, frac = iact.run_sequence(ttypes.IACTParams(2, 0.0, 0), xs, fn,
+                                       ttypes.Level.BLOCK)
+        assert float(frac) == 0.0
+        assert metrics.host_reads() - before == steps - 1
+
+    @pytest.mark.parametrize("name", ["blackscholes", "binomial_options",
+                                      "kmeans", "lavamd", "minife_cg"])
+    def test_app_on_card_equals_cpu(self, name):
+        import importlib
+        from repro_torch.core import harness
+        mod = importlib.import_module(f"repro_torch.apps.{name}")
+        spec = ttypes.ApproxSpec(ttypes.Technique.TAF, ttypes.Level.ELEMENT,
+                                 taf=ttypes.TAFParams(
+                                     3 if name == "minife_cg" else 2, 8,
+                                     0.5))
+        card = mod.make_app().run(spec)
+        cpu = mod.make_app(device="cpu").run(spec)
+        assert abs(card.approx_fraction - cpu.approx_fraction) <= 0.005
+        if name == "kmeans":
+            assert harness.mcr(cpu.qoi, card.qoi) <= 0.005
+        else:
+            np.testing.assert_allclose(card.qoi, cpu.qoi, rtol=1e-4,
+                                       atol=1e-3)
+
+    def test_region_on_cuda_launches_k2_and_k3(self):
+        from repro_torch.core import ApproxRegion, hierarchy, substrate
+        rng = np.random.RandomState(9)
+        base = rng.randn(8, 1, 64)[[0, 0, 1, 1, 2, 2, 3, 3]]
+        x = torch.from_numpy((np.repeat(base, 32, axis=1).reshape(256, 64)
+                              + 0.01 * rng.randn(256, 64)).astype(
+                                  np.float32)).cuda()
+        w = torch.from_numpy((rng.randn(64, 64) / 8).astype(
+            np.float32)).cuda()
+        w2 = torch.from_numpy((rng.randn(128, 64) / 11).astype(
+            np.float32)).cuda()
+        w1 = torch.from_numpy((rng.randn(64, 128) / 8).astype(
+            np.float32)).cuda()
+        T, L = ttypes.Technique, ttypes.Level
+        taf_spec = ttypes.ApproxSpec(T.TAF, L.BLOCK,
+                                     taf=ttypes.TAFParams(2, 4, 0.2))
+        iact_spec = ttypes.ApproxSpec(T.IACT, L.BLOCK,
+                                      iact=ttypes.IACTParams(2, 0.5, 1))
+        cases = [
+            (taf_spec, taf_matmul.COUNTER,
+             lambda xx, **kw: substrate.taf_matmul_region(
+                 xx, w, taf_spec, block_m=32, block_n=64,
+                 rsd_threshold=kw.get("rsd_threshold"))),
+            (iact_spec, iact_memo.COUNTER,
+             lambda xx, **kw: substrate.iact_ffn_region(
+                 xx, w1, w2, iact_spec, block_rows=32,
+                 threshold=kw.get("threshold"))),
+        ]
+        for spec, counter, impl in cases:
+            region = ApproxRegion(spec, None, n_elements=256,
+                                  substrate="cuda", cuda_impl=impl)
+            before = counter.launches
+            ys, frac = region.run(x)
+            assert counter.launches > before
+            y_direct, mask = impl(x)
+            assert torch.equal(ys, y_direct)
+            assert float(frac) == float(hierarchy.fraction(mask))

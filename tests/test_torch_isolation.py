@@ -80,6 +80,35 @@ def test_entry_points_default_to_cuda_and_raise_without_one(no_gpu):
         convert.ffn_arrays(*approx_ffn.host_arrays(32, 8, 16, 0))
 
 
+HPC_APPS = ("blackscholes", "binomial_options", "kmeans", "lavamd",
+            "minife_cg")
+
+
+@pytest.mark.parametrize("name", HPC_APPS)
+def test_hpc_apps_default_to_cuda(no_gpu, name):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.apps.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.make_app()
+    assert mod.make_app(device="cpu").run is not None
+
+
+def test_figures_and_regions_default_to_cuda(no_gpu):
+    from repro_torch.benchmarks import fig6_best_speedup, fig7_cg_sweep
+    from repro_torch.core import ApproxRegion, ApproxSpec, Technique
+    with pytest.raises(RuntimeError):
+        fig6_best_speedup.main(report=lambda *a: None, apps=["kmeans"])
+    with pytest.raises(RuntimeError):
+        fig7_cg_sweep.main(report=lambda *a: None)
+    region = ApproxRegion(ApproxSpec(Technique.TAF), lambda: None,
+                          n_elements=4)
+    with pytest.raises(RuntimeError):
+        region.init_state()
+    state = ApproxRegion(ApproxSpec(Technique.TAF), lambda: None,
+                         n_elements=4, device="cpu").init_state()
+    assert state.memo.device.type == "cpu"
+
+
 def test_cpu_is_taken_only_when_asked(no_gpu):
     assert device.resolve("cpu").type == "cpu"
     x = convert.ffn_arrays(*approx_ffn.host_arrays(32, 8, 16, 0),
