@@ -66,11 +66,20 @@ failure could still exit 0):
      `ApproxRegion` on the "cuda" substrate over `taf_matmul_region` /
      `iact_ffn_region` at phase 5's widths launches K2 / K3 and returns
      what the substrate call returns;
-  9. the port's fig6 and fig7 sweeps at the JAX sizes and grids, each row
-     held against the JAX package's rows in
-     src/repro_torch/benchmarks/fig6_fig7_reference.json (the same best
-     spec, modeled speedup within 1%, error within 1e-4, approx fractions
-     within 0.005).
+  9. the port's benchmark runner (`repro_torch.benchmarks.run`) over
+     fig3, fig6, fig7, fig8c, fig10c, fig11c, fig12c and pareto, with the
+     full-size rows on (fig10c at 65536 x 64, fig11c at 1000 boxes, fig12c
+     at 494020 x 34, k 5); each module's JAX-size rows held against the
+     JAX package's rows in src/repro_torch/benchmarks/
+     fig6_fig7_reference.json and figures_reference.json by the module's
+     `check` (fractions within 0.005, errors within 1e-4 or by class past
+     1, modeled speedups within 1%, K-Means iterations and pareto counts
+     exact, hypervolumes within 1e-4 relative); any ERROR row fails. Then
+     `repro_torch.quickstart` on the card (K2 must launch and equal its
+     plain version), and the regression gate: phase 4's BENCH_ffn.json
+     and phase 7's full-geometry BENCH_kernel.json (in chiprun_out/bench/,
+     stamped with the card's nvidia-smi line) against the committed H100
+     baselines in src/repro_torch/benchmarks/baselines/.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -88,6 +97,7 @@ when run outside a checkout (src/repro_torch missing).
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +106,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 BASELINE = os.path.join(HERE, "benchmarks", "baselines", "BENCH_ffn.json")
 REPORT = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
+# the artifacts the regression gate reads (phase 4's BENCH_ffn.json, phase
+# 7's full-geometry BENCH_kernel.json)
+BENCH_DIR = os.path.join(HERE, "chiprun_out", "bench")
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth. Each kernel
@@ -513,26 +526,77 @@ def phase_apps(dev, s, loose):
     return out
 
 
-def phase_figures(dev):
-    """Phase 9: the port's fig6 and fig7 against the JAX rows."""
+def stamp_card(bench_dir, card):
+    """Add the card's nvidia-smi line to every BENCH_*.json of `bench_dir`,
+    so an artifact names the card it was taken on (and can become a
+    committed baseline as it stands)."""
+    for name in sorted(os.listdir(bench_dir)):
+        if name.startswith("BENCH_") and name.endswith(".json"):
+            path = os.path.join(bench_dir, name)
+            with open(path) as f:
+                doc = json.load(f)
+            doc["card"] = card
+            with open(path, "w") as f:
+                json.dump(doc, f, indent=1)
+
+
+def phase_runner(dev, card):
+    """Phase 9: the port's benchmark runner on the card (fig3, fig6, fig7,
+    fig8c, fig10c, fig11c, fig12c, pareto; full-size rows on), each
+    module's JAX-size rows held against the JAX rows; the quickstart; then
+    the regression gate over phase 4's and phase 7's artifacts against the
+    committed H100 baselines. Returns the report and the gate's failures
+    (the caller fails on them after writing the report)."""
+    import torch
+    from repro_torch import quickstart
+    from repro_torch.benchmarks import run as bench_run
     from repro_torch.benchmarks import fig6_best_speedup as fig6
-    from repro_torch.benchmarks import fig7_cg_sweep as fig7
-    ref = fig6.load_reference()
+    from repro_torch.kernels import ops
 
     def rep(name, value, derived=""):
         log(f"  {name},{value},{derived}")
 
-    res6 = fig6.main(report=rep, device=dev, repeats=1)
-    res7 = fig7.main(report=rep, device=dev)
-    bad = fig6.check(res6, ref) + fig7.check(res7, ref)
+    keys = [k for k in bench_run.MODULES if k not in ("ffn", "kernel")]
+    results, errors = bench_run.run_modules(keys, rep, device=dev, full=True,
+                                            artifacts_dir=BENCH_DIR)
+    check(not errors, f"runner modules raised: {errors}")
+    refs = dict(fig6.load_reference(),
+                **fig6.load_reference(fig6.FIGURES_REFERENCE))
+    bad = []
+    for key in keys:
+        bad += bench_run.MODULES[key].check(results[key], refs)
     for b in bad:
         log(f"  departs from the JAX rows: {b}")
-    check(not bad, f"{len(bad)} fig6/fig7 rows depart from the JAX rows")
-    log(f"  fig6 and fig7: every row agrees with "
-        f"{os.path.relpath(fig6.REFERENCE, HERE)}")
+    check(not bad, f"{len(bad)} figure rows depart from the JAX rows")
+    log(f"  {', '.join(keys)}: every JAX-size row agrees with the JAX rows")
+    mem = results["fig3"]["memory"]
+    log(f"  fig3: total_memory {mem['bytes']} bytes ({mem['of']})")
+
+    log("  quickstart:")
+    ops.reset_counts()
+    qs = quickstart.main(device=dev)
+    k2 = ops.launch_counts()["taf_matmul"]
+    log(f"  quickstart K2 launches {k2}, k2_matches {qs['k2_matches']}")
+    check(qs["k2_matches"] and k2 > 0,
+          "quickstart: K2 did not launch or departs from its plain version")
+    torch.cuda.synchronize()
+
+    stamp_card(BENCH_DIR, card)
+    fails = bench_run.check_regression(BENCH_DIR, bench_run.BASELINES)
+    for f in fails:
+        log(f"  regression FAIL {f}")
+    if not fails:
+        log(f"  regression gate OK: {os.path.relpath(BENCH_DIR, HERE)} "
+            f"against {os.path.relpath(bench_run.BASELINES, HERE)}")
+    full = {k: results[k]["full"] for k in ("fig10c", "fig11c", "fig12c")}
     return dict(fig6={n: {t: a[t]["best"] for t in ("taf", "iact")}
-                      for n, a in res6.items()},
-                fig7=res7, failures=bad)
+                      for n, a in results["fig6"].items()},
+                fig7=results["fig7"], fig3=results["fig3"],
+                fig8c=results["fig8c"], pareto=results["pareto"],
+                jax_size={k: results[k]["jax_size"]
+                          for k in ("fig10c", "fig11c", "fig12c")},
+                full=full, quickstart=qs, quickstart_k2_launches=k2,
+                gate_failures=fails)
 
 
 def main():
@@ -746,9 +810,10 @@ def main():
     with open(BASELINE) as f:
         baseline = json.load(f)
     ops.reset_counts()
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
     summary = approx_ffn_sweep.main(
         report=lambda n, v, d: log(f"  {n},{v},{d}"), substrate="cuda",
-        device=dev)
+        device=dev, artifacts_dir=BENCH_DIR)
     sweep_launches = ops.launch_counts()
     bad = approx_ffn_sweep.check_front(summary, baseline)
     log(f"  front: n_records={summary['n_records']} "
@@ -1015,6 +1080,8 @@ def main():
                 yr = plain_call(kern, t[label], arrays[kern])
                 note(kern, max_err(y, yr), tol, True,
                      f"kernel_micro {geometry} {label} {t[label]}")
+    shutil.copy(os.path.join(os.path.dirname(REPORT), "kernel_micro_full",
+                             "BENCH_kernel.json"), BENCH_DIR)
     report["kernel_micro"] = dict(results=micro, launches=micro_launches)
     report["phases"]["kernel_micro_s"] = time.perf_counter() - t0
 
@@ -1024,11 +1091,12 @@ def main():
     report["apps"] = phase_apps(dev, full_inputs, loose)
     report["phases"]["apps_s"] = time.perf_counter() - t0
 
-    # -- 9. fig6 and fig7 against the JAX rows --------------------------------
-    log("phase 9: fig6 and fig7 at the JAX sizes and grids")
+    # -- 9. the benchmark runner, the quickstart and the regression gate ----
+    log("phase 9: the benchmark runner (figures at the JAX sizes and full "
+        "size), the quickstart, the regression gate")
     t0 = time.perf_counter()
-    report["figures"] = phase_figures(dev)
-    report["phases"]["figures_s"] = time.perf_counter() - t0
+    report["figures"] = phase_runner(dev, card)
+    report["phases"]["runner_s"] = time.perf_counter() - t0
 
     kernels = []
     for r in rows:
@@ -1060,6 +1128,8 @@ def main():
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1, default=str)
     log(f"phases (s): {json.dumps(report['phases'])}")
+    gate = report["figures"]["gate_failures"]
+    check(not gate, f"regression gate: {len(gate)} check(s) failed")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

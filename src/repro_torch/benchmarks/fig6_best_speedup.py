@@ -26,6 +26,9 @@ from ..core.types import Level
 
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "fig6_fig7_reference.json")
+# the JAX rows of fig3, fig8c, fig10c, fig11c, fig12c and pareto_refine
+FIGURES_REFERENCE = os.path.join(os.path.dirname(REFERENCE),
+                                 "figures_reference.json")
 
 APPS = {
     "blackscholes": (blackscholes.make_app, dict(n_elements=512, steps=48)),

@@ -188,7 +188,8 @@ def perforated_loop(spec: ApproxSpec, n_iters: int,
     (`perforation.traced_execute_mask`), gates the body with a select on
     the carry, so no value is read back to the host; the executed fraction
     is a 0-d tensor. The body then runs for every index and must return a
-    carry of the same structure (a tensor or a tuple of tensors).
+    carry of the same structure: a tensor, or tuples, NamedTuples, lists
+    and dicts of them.
     """
     if spec.technique != Technique.PERFORATION:
         if fraction is not None:
@@ -222,6 +223,8 @@ def perforated_loop(spec: ApproxSpec, n_iters: int,
 
 def _device_of(carry) -> Optional[torch.device]:
     """The device of the carry's first tensor leaf (None: the CPU)."""
+    if isinstance(carry, dict):
+        carry = tuple(carry.values())
     if isinstance(carry, (tuple, list)):
         for c in carry:
             dev = _device_of(c)
@@ -232,7 +235,14 @@ def _device_of(carry) -> Optional[torch.device]:
 
 
 def _select(keep: torch.Tensor, new, old):
-    """`new` where the 0-d bool `keep` holds, else `old`, leaf by leaf."""
+    """`new` where the 0-d bool `keep` holds, else `old`, leaf by leaf over
+    tensors, tuples, NamedTuples, lists and dicts (the containers of a
+    carry, as a pytree has them)."""
+    if isinstance(new, dict):
+        return type(new)((k, _select(keep, new[k], old[k])) for k in new)
     if isinstance(new, (tuple, list)):
-        return type(new)(_select(keep, n, o) for n, o in zip(new, old))
+        leaves = (_select(keep, n, o) for n, o in zip(new, old))
+        if hasattr(new, "_fields"):  # a NamedTuple takes its fields apart
+            return type(new)(*leaves)
+        return type(new)(leaves)
     return torch.where(keep, new, old)

@@ -11,7 +11,9 @@ set is one 1-D mask. `execute_mask` / `kept_indices` are host-side numpy
 (the structural form: the kernel enumerates only kept blocks);
 `traced_execute_mask` builds the same mask as a device tensor from a
 fraction that may itself be a device tensor, so the masked mode of a
-kernel needs no host sync.
+kernel needs no host sync. `element_masks` gives every element its own row
+(identical rows when herded), `perforated_bounds` the ini/fini loop bounds,
+and `perforated_sum` reduces a tensor over its kept iterations only.
 
 Fraction comparisons are float32 on both paths, and `RANDOM` draws from
 numpy's `RandomState(seed).uniform` (never torch's generator), so both
@@ -19,7 +21,7 @@ masks equal the JAX package's bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +100,54 @@ def kept_indices(n_iters: int, params: PerforationParams) -> np.ndarray:
     return np.nonzero(execute_mask(n_iters, params))[0]
 
 
+def element_masks(n_iters: int, n_elements: int,
+                  params: PerforationParams) -> np.ndarray:
+    """(n_elements, n_iters) host masks. Herded: all rows identical.
+    Non-herded: row e of SMALL / LARGE is rolled by e % skip, and row e of
+    RANDOM draws from `RandomState(seed + e)` (private per-thread counters
+    whose region-encounter counts differ: the divergent case herding
+    removes). INI / FINI change loop bounds and stay uniform."""
+    base = execute_mask(n_iters, params)
+    if params.herded or params.kind in (PerforationKind.INI,
+                                        PerforationKind.FINI):
+        return np.broadcast_to(base, (n_elements, n_iters)).copy()
+    if params.kind in (PerforationKind.SMALL, PerforationKind.LARGE):
+        return np.stack([np.roll(base, e % params.skip)
+                         for e in range(n_elements)])
+    # float64 draws against the float64 fraction, as the JAX rows compare
+    return np.stack([np.random.RandomState(params.seed + e).uniform(
+        size=n_iters) >= params.fraction for e in range(n_elements)])
+
+
+def perforated_bounds(n_iters: int, params: PerforationParams
+                      ) -> Tuple[int, int]:
+    """Loop bounds [lo, hi) for ini/fini (the paper: "the compiler
+    generates code to change the lower or upper bounds of the loop"). The
+    floor is taken in float64, as the JAX function takes it."""
+    if params.kind == PerforationKind.INI:
+        return int(np.floor(params.fraction * n_iters)), n_iters
+    if params.kind == PerforationKind.FINI:
+        return 0, n_iters - int(np.floor(params.fraction * n_iters))
+    raise ValueError("perforated_bounds applies to ini/fini only")
+
+
 def drop_fraction(n_iters: int, params: PerforationParams) -> float:
     """Fraction of iterations dropped = upper bound on FLOP savings."""
     return 1.0 - float(execute_mask(n_iters, params).mean())
+
+
+def perforated_sum(xs: torch.Tensor, params: PerforationParams,
+                   axis: int = 0, rescale: bool = True) -> torch.Tensor:
+    """Reduce `xs` over `axis` using only the kept iterations, on `xs`'s
+    device.
+
+    `rescale` multiplies by n / kept -- the standard perforation
+    extrapolation for additive reductions, so the QoI keeps its magnitude.
+    """
+    n = xs.shape[axis]
+    keep = kept_indices(n, params)
+    sub = xs.index_select(axis, torch.as_tensor(keep, device=xs.device))
+    total = sub.sum(dim=axis)
+    if rescale and len(keep) > 0:
+        total = total * (n / len(keep))
+    return total

@@ -13,14 +13,16 @@ Two substrates run an approximated region:
 The process default comes from `$REPRO_SUBSTRATE` ("host" or "cuda"; any
 other value raises), else "cuda". `use(substrate)` scopes another choice
 (the harness entry points take `substrate=` and evaluate inside
-`use(...)`); `resolve(None)` reads the ambient value at call time. The ambient value is
-a process-wide global, not thread-local, so `run_specs(jobs>1)` worker
-threads see the harness's scope; two concurrent sweeps with different
-substrates in one process should pin the substrate on the app instead.
+`use(...)`), and `set_default` changes it for the process; `resolve(None)`
+reads the ambient value at call time. The ambient value is a process-wide
+global, not thread-local, so `run_specs(jobs>1)` worker threads see the
+harness's scope; two concurrent sweeps with different substrates in one
+process should pin the substrate on the app instead.
 
 The `*_region` evaluators below are the kernel-backed counterparts of the
 technique entry points: spec-driven, knob-aware, and uniform in what they
-return -- (output, approx_mask).
+return -- (output, approx_mask). `dispatch(technique)` names the one for a
+technique.
 """
 from __future__ import annotations
 
@@ -55,6 +57,13 @@ def get_default() -> str:
     if _default is None:
         _default = _env_default()
     return _default
+
+
+def set_default(substrate: str) -> None:
+    """Set the process default (validated by `resolve`: host or cuda). It is
+    process-wide; `use(...)` scopes a choice and restores the old one."""
+    global _default
+    _default = resolve(substrate)
 
 
 def resolve(substrate: Optional[str]) -> str:
@@ -148,3 +157,20 @@ def attention_region(q, k, v, spec: Optional[ApproxSpec], *,
         mask = torch.as_tensor(perfo_mod.execute_mask(nkv, p),
                                device=q.device)
     return o, mask
+
+
+_REGIONS = {
+    Technique.TAF: taf_matmul_region,
+    Technique.IACT: iact_ffn_region,
+    Technique.PERFORATION: attention_region,
+}
+
+
+def dispatch(technique: Technique):
+    """The kernel-backed region evaluator for `technique`; ValueError for a
+    technique that has none (Technique.NONE)."""
+    fn = _REGIONS.get(technique)
+    if fn is None:
+        raise ValueError(
+            f"no cuda region evaluator for technique {technique}")
+    return fn

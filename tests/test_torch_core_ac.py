@@ -13,6 +13,7 @@ lets both continue from one mid-run state.
 """
 import os
 import sys
+from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,7 @@ from repro.core import hierarchy as jhier
 from repro.core import iact as jiact
 from repro.core import pareto as jpareto
 from repro.core import rsd as jrsd
+from repro.core import substrate as jsubstrate
 from repro.core import taf as jtaf
 from repro.core import types as jtypes
 from repro.kernels import ops as jops
@@ -36,6 +38,7 @@ from repro_torch.core import (ApproxRegion, ApproxSpec, IACTParams, Level,
                               Technique, autotune, batching, harness,
                               hierarchy, iact, pareto, parse_pragma,
                               perforated_loop, rsd, substrate, taf)
+from repro_torch.core import approx as tapprox
 from repro_torch.obs import metrics
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
@@ -535,6 +538,71 @@ def test_perforated_loop_traced_fraction(kind):
     assert out == 6 and frac == 1.0
 
 
+class C(NamedTuple):
+    a: object
+    b: object
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for c in tree for x in _leaves(c)]
+    return [float(tree)]
+
+
+@pytest.mark.parametrize("carry", ["namedtuple", "dict", "nested"])
+def test_perforated_loop_traced_fraction_takes_any_carry(carry):
+    """ROADMAP F1: a NamedTuple, a dict and a nested carry under a tensor
+    fraction, against the JAX `perforated_loop` (any pytree). Every value is
+    a small integer or power of two, so the two must agree exactly."""
+    spec = ApproxSpec(Technique.PERFORATION, perforation=PerforationParams(
+        kind=PerforationKind.FINI, fraction=0.5))
+
+    def make(z, o):
+        if carry == "namedtuple":
+            return C(a=z, b=o)
+        if carry == "dict":
+            return {"a": z}
+        return {"c": C(a=z, b=[o, (z,)]), "d": o}
+
+    def body(i, c):
+        if carry == "namedtuple":
+            return C(a=c.a + 1.0, b=c.b * 2.0)
+        if carry == "dict":
+            return {"a": c["a"] + 1.0}
+        return {"c": C(a=c["c"].a + i, b=[c["c"].b[0] * 2.0,
+                                          (c["c"].b[1][0] - 1.0,)]),
+                "d": c["d"] + c["c"].a}
+
+    for fr in (0.0, 0.5):
+        got, frac = perforated_loop(spec, 8, body,
+                                    make(torch.zeros(()), torch.ones(())),
+                                    fraction=torch.tensor(fr))
+        want, jfrac = japprox.perforated_loop(
+            jspec(spec), 8, body, make(jnp.float32(0), jnp.float32(1)),
+            fraction=jnp.float32(fr))
+        assert type(got) is type(want)
+        assert _leaves(got) == _leaves(want)
+        assert float(frac) == float(jfrac)
+        if carry == "nested":
+            assert isinstance(got["c"], C) and isinstance(got["c"].b, list)
+    # the values ROADMAP F1 names, at fraction 0.5: 4 of 8 iterations run
+    if carry == "namedtuple":
+        assert _leaves(got) == [4.0, 16.0] and got == C(a=got.a, b=got.b)
+    if carry == "dict":
+        assert list(got) == ["a"] and float(got["a"]) == 4.0
+
+
+def test_perforated_loop_mask_follows_a_dict_carry():
+    """The mask is built on the device of the carry's first tensor leaf,
+    found inside dicts too (None would put it on the CPU)."""
+    dev = torch.device("cpu")
+    assert tapprox._device_of({"a": (1, torch.zeros((), device=dev))}) \
+        == dev
+    assert tapprox._device_of({"a": 1}) is None
+
+
 # -- batching, harness, pareto, autotune ------------------------------------
 
 def test_sequence_runner_matches_jax():
@@ -658,3 +726,32 @@ def test_substrate_reads_the_environment(monkeypatch):
     with pytest.raises(ValueError, match="REPRO_SUBSTRATE"):
         substrate.get_default()
     monkeypatch.setattr(substrate, "_default", None)
+
+
+def test_substrate_set_default_and_dispatch():
+    """`tests/test_kernel_substrate.py`'s set_default / dispatch cases, on
+    the port ("cuda" where the JAX package has "pallas")."""
+    prev = substrate.get_default()
+    try:
+        substrate.set_default("host")
+        assert substrate.get_default() == substrate.HOST
+        with substrate.use("cuda"):
+            assert substrate.get_default() == substrate.CUDA
+        assert substrate.get_default() == substrate.HOST
+        substrate.set_default("cuda")
+        assert substrate.get_default() == substrate.CUDA
+        with pytest.raises(ValueError, match="unknown substrate"):
+            substrate.set_default("pallas")
+        assert substrate.get_default() == substrate.CUDA
+    finally:
+        substrate.set_default(prev)
+    for tech, fn in ((Technique.TAF, substrate.taf_matmul_region),
+                     (Technique.IACT, substrate.iact_ffn_region),
+                     (Technique.PERFORATION, substrate.attention_region)):
+        assert substrate.dispatch(tech) is fn
+        assert jsubstrate.dispatch(jtypes.Technique(tech.value)).__name__ \
+            == fn.__name__
+    with pytest.raises(ValueError, match="no cuda region"):
+        substrate.dispatch(Technique.NONE)
+    with pytest.raises(ValueError, match="no pallas region"):
+        jsubstrate.dispatch(jtypes.Technique.NONE)

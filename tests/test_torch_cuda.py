@@ -501,3 +501,62 @@ class TestTechniquesOnCard:
             y_direct, mask = impl(x)
             assert torch.equal(ys, y_direct)
             assert float(frac) == float(hierarchy.fraction(mask))
+
+
+@pytest.mark.cuda
+class TestSixthSliceOnCard:
+    """`perforation.perforated_sum`, `perforated_loop`'s carries and the
+    quickstart's K2 section on the card."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @pytest.mark.parametrize("kind,arg", [("small", 4), ("large", 3),
+                                          ("ini", 0.25), ("fini", 0.5),
+                                          ("random", 0.3)])
+    @pytest.mark.parametrize("rescale", [True, False])
+    def test_perforated_sum_stays_on_the_card(self, kind, arg, rescale):
+        k = ttypes.PerforationKind(kind)
+        p = (ttypes.PerforationParams(kind=k, skip=arg) if isinstance(arg, int)
+             else ttypes.PerforationParams(kind=k, fraction=arg))
+        xs = torch.from_numpy(np.random.RandomState(4).standard_normal(
+            (64, 1000, 3)).astype(np.float32))
+        for axis in (0, 1):
+            got = perforation.perforated_sum(xs.cuda(), p, axis=axis,
+                                             rescale=rescale)
+            want = perforation.perforated_sum(xs, p, axis=axis,
+                                              rescale=rescale)
+            assert got.device.type == "cuda"
+            # float32 sums of up to 1000 terms of order 1, in the card's
+            # and the CPU's orders
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-5, atol=1e-4)
+
+    def test_perforated_loop_dict_carry_masks_on_the_card(self):
+        from repro_torch.core import ApproxSpec, Technique, perforated_loop
+        spec = ApproxSpec(Technique.PERFORATION,
+                          perforation=ttypes.PerforationParams(
+                              kind=ttypes.PerforationKind.FINI,
+                              fraction=0.5))
+        dev = torch.device("cuda")
+        out, frac = perforated_loop(
+            spec, 8, lambda i, c: {"a": c["a"] + 1.0},
+            {"a": torch.zeros((), device=dev)},
+            fraction=0.5)  # a float knob: the mask follows the carry
+        assert out["a"].device.type == "cuda" and float(out["a"]) == 4.0
+        assert frac.device.type == "cuda" and float(frac) == 0.5
+
+    def test_quickstart_k2_section(self, capsys):
+        from repro_torch import quickstart
+        before = taf_matmul.COUNTER.launches
+        out = quickstart.main(device="cuda")
+        assert taf_matmul.COUNTER.launches > before
+        assert out["k2_matches"]
+        cpu = quickstart.main(device="cpu")
+        assert out["k2_approx_blocks"] == cpu["k2_approx_blocks"]
+        assert out["taf_fraction"] == cpu["taf_fraction"]
+        assert out["best"]["spec"] == cpu["best"]["spec"]
+        assert "taf_matmul kernel == oracle: True" in capsys.readouterr().out

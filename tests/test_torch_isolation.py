@@ -109,6 +109,32 @@ def test_figures_and_regions_default_to_cuda(no_gpu):
     assert state.memo.device.type == "cpu"
 
 
+NEW_FIGURES = ("fig3_table_memory", "fig8c_items_per_thread",
+               "fig10c_rsd_behavior", "fig11c_hierarchy",
+               "fig12c_kmeans_convergence", "pareto_refine")
+
+
+@pytest.mark.parametrize("name", NEW_FIGURES)
+def test_new_figures_default_to_cuda(no_gpu, name):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(report=lambda *a: None)
+
+
+def test_quickstart_and_runner_default_to_cuda(no_gpu, capsys):
+    from repro_torch import quickstart
+    from repro_torch.benchmarks import fig3_table_memory, run
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main()
+    # the runner turns the module's refusal into an ERROR row and exit 1
+    assert run.main(["--only", "fig3"]) == 1
+    assert "fig3,ERROR,RuntimeError: no CUDA device" in capsys.readouterr().out
+    assert run.main(["--only", "fig3", "--device", "cpu"]) == 0
+    rows = fig3_table_memory.main(report=lambda *a: None, device="cpu")
+    assert rows["memory"]["bytes"] == fig3_table_memory.H100_TOTAL_MEMORY
+
+
 def test_cpu_is_taken_only_when_asked(no_gpu):
     assert device.resolve("cpu").type == "cpu"
     x = convert.ffn_arrays(*approx_ffn.host_arrays(32, 8, 16, 0),

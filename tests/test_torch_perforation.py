@@ -113,3 +113,91 @@ def test_record_rows_interoperate(tmp_path):
     assert rec.spec_hash == row.spec_hash
     assert tharness.workload_hash(rec.workload) == \
         jharness.workload_hash(row.workload)
+
+
+# -- element_masks, perforated_bounds, perforated_sum ------------------------
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("herded", (True, False))
+@pytest.mark.parametrize("n_iters,n_elements", ((16, 8), (33, 5), (1, 3)))
+def test_element_masks_match_bit_for_bit(kind, herded, n_iters, n_elements):
+    for arg in _args(kind):
+        for seed in (0, 3):
+            jp = _params(jtypes, kind, arg, seed)
+            tp = _params(ttypes, kind, arg, seed)
+            jp = jtypes.PerforationParams(kind=jp.kind, skip=jp.skip,
+                                          fraction=jp.fraction, seed=seed,
+                                          herded=herded)
+            tp = ttypes.PerforationParams(kind=tp.kind, skip=tp.skip,
+                                          fraction=tp.fraction, seed=seed,
+                                          herded=herded)
+            got = tperf.element_masks(n_iters, n_elements, tp)
+            want = jperf.element_masks(n_iters, n_elements, jp)
+            assert got.dtype == want.dtype == np.bool_
+            assert got.shape == (n_elements, n_iters)
+            assert np.array_equal(got, want)
+
+
+def test_element_masks_herded_rows_identical_and_divergent_otherwise():
+    """`tests/test_core_ac.py`'s two element_masks cases, on the port."""
+    p = ttypes.PerforationParams(kind=ttypes.PerforationKind.SMALL, skip=4,
+                                 herded=True)
+    m = tperf.element_masks(16, 8, p)
+    assert (m == m[0]).all()
+    p = ttypes.PerforationParams(kind=ttypes.PerforationKind.SMALL, skip=4,
+                                 herded=False)
+    m = tperf.element_masks(16, 8, p)
+    assert not (m == m[0]).all()
+    # every row still drops exactly 1/4
+    np.testing.assert_allclose(m.mean(axis=1), 0.75)
+
+
+@pytest.mark.parametrize("kind", ("ini", "fini"))
+@pytest.mark.parametrize("n_iters", (1, 4, 10, 16, 33, 128))
+def test_perforated_bounds_match(kind, n_iters):
+    for frac in FRACTIONS:
+        assert tperf.perforated_bounds(n_iters, _params(ttypes, kind, frac)) \
+            == jperf.perforated_bounds(n_iters, _params(jtypes, kind, frac))
+    # `tests/test_core_ac.py::test_ini_fini_bounds`
+    assert tperf.perforated_bounds(16, _params(ttypes, "ini", 0.25)) == \
+        (4, 16)
+    assert tperf.perforated_bounds(16, _params(ttypes, "fini", 0.25)) == \
+        (0, 12)
+
+
+@pytest.mark.parametrize("kind", ("small", "large", "random"))
+def test_perforated_bounds_reject_other_kinds(kind):
+    with pytest.raises(ValueError, match="ini/fini only"):
+        tperf.perforated_bounds(8, _params(ttypes, kind, _args(kind)[1]))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("axis", (0, 1, -1))
+@pytest.mark.parametrize("rescale", (True, False))
+def test_perforated_sum_matches(kind, axis, rescale):
+    """The same seeded (12, 10, 3) tensor reduced over its kept iterations:
+    float32 sums of at most 12 terms of order 1, taken in the two
+    libraries' orders, agree within rtol 1e-6 / atol 1e-6."""
+    import jax.numpy as jnp
+    xs = np.random.RandomState(11).standard_normal((12, 10, 3)).astype(
+        np.float32)
+    for arg in _args(kind):
+        jp, tp = _params(jtypes, kind, arg, 2), _params(ttypes, kind, arg, 2)
+        got = tperf.perforated_sum(torch.from_numpy(xs), tp, axis=axis,
+                                   rescale=rescale)
+        want = np.asarray(jperf.perforated_sum(jnp.asarray(xs), jp,
+                                               axis=axis, rescale=rescale))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_perforated_sum_rescales_by_n_over_kept():
+    xs = torch.ones(8, 2)
+    p = _params(ttypes, "small", 4)  # keeps 6 of 8
+    assert torch.equal(tperf.perforated_sum(xs, p, rescale=False),
+                       torch.full((2,), 6.0))
+    assert torch.equal(tperf.perforated_sum(xs, p), torch.full((2,), 8.0))
+    # nothing kept: an empty sum, never a division by zero
+    drop_all = _params(ttypes, "random", 0.99)
+    assert tperf.kept_indices(8, drop_all).size == 0
+    assert torch.equal(tperf.perforated_sum(xs, drop_all), torch.zeros(2))
