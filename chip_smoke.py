@@ -81,6 +81,23 @@ failure could still exit 0):
      stamped with the card's nvidia-smi line) against the committed H100
      baselines in src/repro_torch/benchmarks/baselines/.
 
+  10. this slice's paths: (a) the lane-grid form of K1-K3 at full width,
+     a group of LANES knobs in one wrapper call (x and wp shared for K2,
+     the exact attention output and both FFN weights for K3, q = k = v for
+     K1 in masked fini mode): each lane against the plain version's lanes
+     and against a single call at its knob (masks equal), the CUDA kernels
+     one group call runs (torch.profiler), and CUDA-event times of the
+     group call, of LANES single calls, of the plain version and of one
+     PyTorch library call computing the same LANES outputs, beside the
+     bound of the work this run's data needs; (b) phase 4's sweep through
+     `run_batch` (jobs 4), with the counts set to 0 just before and read
+     just after: it must reproduce the committed front, and every lane
+     kernel must have run a group there; (c) the benchmark driver's
+     `--only costmodel,ffn --predict --check-regression` against the
+     committed H100 BENCH_costmodel.json (the ffn band recovering the
+     committed front within 0.90, the app models' counts and Spearman
+     correlations as committed).
+
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
 0.25, masked ini/fini/random at fractions up to one that drops every
@@ -109,6 +126,13 @@ REPORT = os.path.join(HERE, "chiprun_out", "chip_smoke.json")
 # the artifacts the regression gate reads (phase 4's BENCH_ffn.json, phase
 # 7's full-geometry BENCH_kernel.json)
 BENCH_DIR = os.path.join(HERE, "chiprun_out", "bench")
+# phase 10's predict-mode driver run (BENCH_costmodel.json and
+# BENCH_ffn_predict.json, stamped with the card's nvidia-smi line)
+PREDICT_DIR = os.path.join(HERE, "chiprun_out", "bench_predict")
+# phase 10: a group of LANES knobs per lane-grid call, one knob stack each
+LANES = 4
+LANE_KNOBS = {"taf_matmul": (0.2, 0.02, 0.5, 2.0),
+              "perforated_attention": (0.5, 0.25, 0.75, 0.0)}
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth. Each kernel
@@ -556,7 +580,8 @@ def phase_runner(dev, card):
     def rep(name, value, derived=""):
         log(f"  {name},{value},{derived}")
 
-    keys = [k for k in bench_run.MODULES if k not in ("ffn", "kernel")]
+    keys = [k for k in bench_run.MODULES
+            if k not in ("ffn", "kernel", "costmodel")]  # phase 10: costmodel
     results, errors = bench_run.run_modules(keys, rep, device=dev, full=True,
                                             artifacts_dir=BENCH_DIR)
     check(not errors, f"runner modules raised: {errors}")
@@ -582,7 +607,11 @@ def phase_runner(dev, card):
     torch.cuda.synchronize()
 
     stamp_card(BENCH_DIR, card)
-    fails = bench_run.check_regression(BENCH_DIR, bench_run.BASELINES)
+    # phase 4's and phase 7's artifacts against their baselines (phase 10
+    # gates BENCH_costmodel.json)
+    fails = [f for name in ("BENCH_ffn.json", "BENCH_kernel.json")
+             for f in bench_run.check_regression(
+                 BENCH_DIR, os.path.join(bench_run.BASELINES, name))]
     for f in fails:
         log(f"  regression FAIL {f}")
     if not fails:
@@ -597,6 +626,211 @@ def phase_runner(dev, card):
                           for k in ("fig10c", "fig11c", "fig12c")},
                 full=full, quickstart=qs, quickstart_k2_launches=k2,
                 gate_failures=fails)
+
+
+def lane_calls(s, loose, dev):
+    """Phase 10's lane groups at full width: kernel -> (group call of
+    LANES knobs, single call at lane l, plain lanes), and the knob
+    stacks."""
+    import torch
+    from repro_torch.core.types import PerforationKind, PerforationParams
+    from repro_torch.kernels import ops, ref
+
+    d = FULL_GEOM["d"]
+    fini = PerforationParams(kind=PerforationKind.FINI)
+    iact_knobs = (IACT_SPEC[2], loose, 0.5 * loose, 2.0 * loose)
+    kn = {k: torch.tensor(v[:LANES], dtype=torch.float32, device=dev)
+          for k, v in dict(LANE_KNOBS, iact_rowfn=iact_knobs).items()}
+    taf_kw = dict(block_m=16, block_n=d, history_size=TAF_SPEC[1],
+                  prediction_size=TAF_SPEC[2])
+    iact_kw = dict(block_rows=16, table_size=IACT_SPEC[1])
+    attn_kw = dict(block_q=32, block_kv=32, perfo=fini)
+    q = s["q"]
+    calls = {
+        "taf_matmul": (
+            lambda: ops.taf_matmul(s["x"], s["wp"], **taf_kw,
+                                   rsd_threshold=kn["taf_matmul"]),
+            lambda l_: ops.taf_matmul(s["x"], s["wp"], **taf_kw,
+                                      rsd_threshold=kn["taf_matmul"][l_]),
+            lambda: ref.taf_matmul_lanes_ref(
+                s["x"], s["wp"], **taf_kw, rsd_threshold=kn["taf_matmul"])),
+        "iact_rowfn": (
+            lambda: ops.iact_rowfn(s["a"], s["w1"], s["w2"], **iact_kw,
+                                   threshold=kn["iact_rowfn"]),
+            lambda l_: ops.iact_rowfn(s["a"], s["w1"], s["w2"], **iact_kw,
+                                      threshold=kn["iact_rowfn"][l_]),
+            lambda: ref.iact_rowfn_lanes_ref(
+                s["a"], s["w1"], s["w2"], **iact_kw,
+                threshold=kn["iact_rowfn"])),
+        "perforated_attention": (
+            lambda: ops.perforated_attention(
+                q, q, q, **attn_kw, fraction=kn["perforated_attention"]),
+            lambda l_: ops.perforated_attention(
+                q, q, q, **attn_kw,
+                fraction=kn["perforated_attention"][l_]),
+            lambda: ref.attention_lanes_ref(
+                q, q, q, block_kv=32, perfo=fini,
+                fraction=kn["perforated_attention"])),
+    }
+    return calls, kn
+
+
+# CUDA kernels one lane-group call runs (K3: iact_union lists the union of
+# the lanes' computed blocks first)
+LANE_CUDA = {"taf_matmul": 1, "iact_rowfn": 5, "perforated_attention": 1}
+
+
+def phase_lanes(dev, s, loose, card, serial_launches, lane_cuda, ms, note):
+    """Phase 10: (a) the lane-grid kernels at full width against their
+    plain versions and LANES single calls, with times; (b) the 30-spec
+    sweep through run_batch; (c) the driver's predict mode and the
+    cost model's gate. Returns (report, kernel rows, lane launches of (b),
+    gate failures)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks import approx_ffn_sweep
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.core import perforation
+    from repro_torch.core.types import PerforationKind, PerforationParams
+    from repro_torch.kernels import (iact_memo, ops, perforated_attention,
+                                     taf_matmul)
+
+    seq, d, d_h = FULL_GEOM["seq"], FULL_GEOM["d"], FULL_GEOM["d_h"]
+    f4 = 4
+    fini = PerforationParams(kind=PerforationKind.FINI)
+    q = s["q"]
+    calls, kn = lane_calls(s, loose, dev)
+    modules = {"taf_matmul": taf_matmul, "iact_rowfn": iact_memo,
+               "perforated_attention": perforated_attention}
+    rows, lane_report = [], {}
+    for kern, (group, single, plain) in calls.items():
+        ops.reset_counts()
+        out = group()
+        per_group = ops.launch_counts()[kern]
+        n_lane = ops.lane_counts()[kern]
+        check(per_group == 1 and n_lane == 1,
+              f"{kern}: a group of {LANES} took {per_group} wrapper calls")
+        want = plain()
+        if kern == "perforated_attention":
+            o, orf = out, want
+            mask_ok = True
+            kept = perforation.traced_execute_mask(
+                seq // 32, fini, kn[kern][:, None])
+        else:
+            (o, m), (orf, mr) = out, want
+            mask_ok = bool(torch.equal(m, mr))
+        err = float((o.float() - orf.float()).abs().max())
+        note(kern, err, ATOL[kern], mask_ok,
+             f"lane grid, {LANES} lanes at full width, knobs "
+             f"{[round(float(v), 6) for v in kn[kern]]}")
+        same = all(torch.equal(single(l_)[0] if kern != "perforated_attention"
+                               else single(l_), o[l_])
+                   for l_ in range(LANES))
+        if kern != "perforated_attention":
+            same = same and all(torch.equal(single(l_)[1], m[l_])
+                                for l_ in range(LANES))
+        log(f"  {kern} lane l equals a single call at knob l: {same}")
+        check(same, f"{kern}: a lane departs from the single call at its "
+                    "knob")
+        n_cuda = lane_cuda[kern]  # counted in phase 6 (torch.profiler)
+        # the work this run's data needs, and one library call computing
+        # the same LANES outputs
+        if kern == "taf_matmul":
+            union = int((~m).any(0).sum())
+            ops_ = 2.0 * 16 * d * d * union
+            bytes_ = f4 * (seq * d + d * d + LANES * seq * d)
+            xb = s["x"].expand(LANES, -1, -1)
+            lib = lambda: torch.matmul(xb, s["wp"])  # noqa: E731
+            work = (f"{union} of {m.shape[1]} row blocks computed in some "
+                    f"lane (per lane {[int((~mm).sum()) for mm in m]})")
+        elif kern == "iact_rowfn":
+            union = int((~m).any(0).sum())
+            ops_ = union * 2.0 * 16 * d * d_h * 2
+            bytes_ = f4 * (seq * d + 2 * d * d_h + LANES * seq * d)
+            ab = s["a"].expand(LANES, -1, -1)
+            lib = lambda: F.gelu(ab @ s["w1"], approximate="tanh") \
+                @ s["w2"]  # noqa: E731
+            work = (f"{union} of {m.shape[1]} blocks computed in some lane "
+                    f"(per lane {[int((~mm).sum()) for mm in m]})")
+        else:
+            causal = torch.tril(torch.ones(seq, seq, dtype=torch.bool,
+                                           device=dev))
+            allowed = causal[None] & kept.repeat_interleave(32, 1)[:, None]
+            pairs = int(allowed.sum()) * q.shape[1]
+            ops_ = 4.0 * q.shape[3] * pairs
+            bytes_ = f4 * (3 + LANES) * q.numel()
+            qb = q[0].expand(LANES, -1, -1, -1)
+            am = allowed[:, None]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qb, qb, qb, attn_mask=am)
+            work = f"{pairs} (query, key) pairs over {LANES} lanes"
+        row = dict(
+            kernel=kern, module=modules[kern], lanes=LANES,
+            max_abs_err=err, ms=ms(group),
+            singles_ms=ms(lambda: [single(l_) for l_ in range(LANES)]),
+            plain_ms=ms(plain, repeats=3), library_ms=ms(lib),
+            ops=ops_, bytes=bytes_, work=work, cuda_per_group=n_cuda)
+        log(f"  {kern} [lane grid, {LANES} lanes]: ms={row['ms']!r} "
+            f"{LANES} single calls ms={row['singles_ms']!r} "
+            f"plain_ms={row['plain_ms']!r} library_ms={row['library_ms']!r}"
+            f" CUDA kernels a group call={n_cuda} ({work})")
+        rows.append(row)
+        lane_report[kern] = {k: v for k, v in row.items() if k != "module"}
+    torch.cuda.synchronize()
+
+    # (b) the 30-spec sweep through run_batch: the slice's main path
+    log("  phase 4's sweep through run_batch (jobs 4):")
+    with open(BASELINE) as f:
+        baseline = json.load(f)
+    ops.reset_counts()
+    summary = approx_ffn_sweep.main(
+        report=lambda n, v, d_: log(f"    {n},{v},{d_}"), substrate="cuda",
+        device=dev, jobs=4)
+    launches, lane_launches = ops.launch_counts(), ops.lane_counts()
+    bad = approx_ffn_sweep.check_front(summary, baseline)
+    log(f"  batched front: n_records={summary['n_records']} "
+        f"n_front={summary['front']['n_front']} "
+        f"hv={summary['front']['hypervolume']!r} best approx fractions "
+        + " / ".join(str(summary['best_under_10pct'][t]['approx_fraction'])
+                     for t in approx_ffn_sweep.TECHNIQUES)
+        + f" parity={summary['parity']} launches={launches} (serial sweep, "
+        f"phase 4: {serial_launches}) lane calls={lane_launches}")
+    check(not bad, f"batched sweep front departs from the committed one: "
+                   f"{bad}")
+    for k in APP_KERNELS:
+        check(lane_launches[k] > 0,
+              f"{k}: no group ran as one lane-grid call in the batched "
+              "sweep")
+        check(launches[k] < serial_launches[k],
+              f"{k}: the batched sweep made {launches[k]} calls, the serial "
+              f"one {serial_launches[k]}")
+
+    # (c) the driver's predict mode and the cost model's regression gate
+    log("  python -m repro_torch.benchmarks.run --only costmodel,ffn "
+        "--predict --check-regression (in process):")
+    shutil.rmtree(PREDICT_DIR, ignore_errors=True)
+    gate_base = os.path.join(bench_run.BASELINES, "BENCH_costmodel.json")
+    rc = bench_run.main(["--only", "costmodel,ffn", "--predict",
+                         "--device", str(dev), "--artifacts", PREDICT_DIR,
+                         "--check-regression", gate_base])
+    stamp_card(PREDICT_DIR, card)
+    with open(os.path.join(PREDICT_DIR, "BENCH_costmodel.json")) as f:
+        cm = json.load(f)
+    with open(os.path.join(PREDICT_DIR, "BENCH_ffn_predict.json")) as f:
+        fp = json.load(f)
+    log(f"  costmodel: ffn kept {cm['ffn']['kept']} dropped "
+        f"{cm['ffn']['dropped']} band {cm['ffn']['band_measured']} of "
+        f"{cm['ffn']['n_grid']} recovery {cm['ffn']['front_recovery']!r}; "
+        f"ffn --predict recovery {fp['front_recovery']['ratio']!r}; apps "
+        + json.dumps({k: [v["kept"], v["spearman"], v["bound_holds"]]
+                      for k, v in cm["apps"].items()}))
+    check(fp["front_recovery"]["recovered"]
+          and cm["ffn"]["front_recovery"]["ratio"] >= 0.90,
+          "the predicted band does not recover the committed front")
+    fails = [] if rc == 0 else [f"benchmarks.run --predict exited {rc}"]
+    return (dict(lanes=lane_report, batched_sweep=dict(
+        summary=summary, launches=launches, lane_launches=lane_launches),
+        costmodel=cm, ffn_predict=fp), rows, lane_launches, fails)
 
 
 def main():
@@ -1020,6 +1254,14 @@ def main():
                   "iact_rowfn": [4, 4]}
     check(per_call == want_calls,
           f"CUDA launches a call: {per_call}, want {want_calls}")
+    # and one lane-group call of phase 10 (K3 also runs iact_union)
+    lane_cuda = {k: kernel_profile.launches_per_call(
+        group, ops.KERNELS[k].LANE_CUDA_KERNELS, dev)
+        for k, (group, _, _) in lane_calls(s, loose, dev)[0].items()}
+    log(f"  CUDA kernels a lane-group call ({LANES} lanes) runs: "
+        f"{lane_cuda}")
+    check(lane_cuda == LANE_CUDA,
+          f"CUDA kernels a lane-group call: {lane_cuda}, want {LANE_CUDA}")
     report["phases"]["timing_s"] = time.perf_counter() - t0
 
     # -- 7. the kernel-engineering path: machine profile, kernel_micro ------
@@ -1098,6 +1340,14 @@ def main():
     report["figures"] = phase_runner(dev, card)
     report["phases"]["runner_s"] = time.perf_counter() - t0
 
+    # -- 10. this slice: the lane grid, the batched sweep, the cost model ---
+    log(f"phase 10: the lane-grid kernels ({LANES} lanes, full width), the "
+        "sweep through run_batch, the cost model's predict mode and gate")
+    t0 = time.perf_counter()
+    report["slice"], lane_rows, lane_launches, predict_fails = phase_lanes(
+        dev, full_inputs, loose, card, sweep_launches, lane_cuda, ms, note)
+    report["phases"]["lanes_s"] = time.perf_counter() - t0
+
     kernels = []
     for r in rows:
         t_ops = r["ops"] / PEAK_F32_FLOPS * 1e3
@@ -1123,12 +1373,32 @@ def main():
         for extra in ("library_full_ms", "launches_per_call", "loose"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+    for r in lane_rows:  # the lane-grid forms: a group of LANES knobs
+        t_ops = r["ops"] / PEAK_F32_FLOPS * 1e3
+        t_bytes = r["bytes"] / PEAK_BYTES * 1e3
+        route, products, peak = ROUTES[r["kernel"]]
+        t_route = products * r["ops"] / peak * 1e3
+        kernels.append({
+            "name": f"{r['kernel']} (lane grid, {r['lanes']} lanes)",
+            "route": "cuda", "source": r["module"].SOURCE,
+            "replaces": r["module"].REPLACES,
+            "launches": lane_launches[r["kernel"]],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": r["library_ms"], "precision": route,
+            "route_bound_ms": max(t_route, t_bytes),
+            "singles_ms": r["singles_ms"], "lanes": r["lanes"],
+            "cuda_kernels_per_group": r["cuda_per_group"],
+            "ops": r["ops"], "bytes": r["bytes"], "work": r["work"],
+        })
     report["kernels"] = kernels
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1, default=str)
     log(f"phases (s): {json.dumps(report['phases'])}")
-    gate = report["figures"]["gate_failures"]
+    gate = report["figures"]["gate_failures"] + predict_fails
     check(not gate, f"regression gate: {len(gate)} check(s) failed")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -118,6 +118,24 @@ def attn_exact(p: torch.Tensor, heads: int) -> torch.Tensor:
     return merge_heads(ref.attention_ref(q, q, q, causal=True))
 
 
+def split_heads_lanes(p: torch.Tensor, heads: int) -> torch.Tensor:
+    """(L, S, d) -> (L, heads, S, d // heads): the lanes as the batch."""
+    n, s, d = p.shape
+    return p.reshape(n, s, heads, d // heads).transpose(1, 2)
+
+
+def merge_heads_lanes(a: torch.Tensor) -> torch.Tensor:
+    """(L, heads, S, dh) -> (L, S, heads * dh)."""
+    n, h, s, dh = a.shape
+    return a.transpose(1, 2).reshape(n, s, h * dh)
+
+
+def attn_exact_lanes(p: torch.Tensor, heads: int) -> torch.Tensor:
+    """`attn_exact` of every lane of p (L, S, d) in one batched call."""
+    q = split_heads_lanes(p, heads)
+    return merge_heads_lanes(ref.attention_ref(q, q, q, causal=True))
+
+
 def ffn_exact(a: torch.Tensor, w1, w2) -> torch.Tensor:
     return ref.gelu_tanh(a @ w1) @ w2
 
@@ -268,16 +286,37 @@ def make_app(substrate: Optional[str] = None, seq: int = 128, d: int = 32,
         qoi, frac, mask = m.value
         return _result(spec, qoi, frac, mask, m.seconds)
 
+    def group_eval(spec: ApproxSpec, knobs: torch.Tensor):
+        """(qoi, approx_frac, mask), each with a leading L, for the (L,)
+        knob stack: one kernel call for the whole group (the kernels' lane
+        grid), and the exact stages batched over the lanes."""
+        t = spec.technique
+        if t == Technique.TAF:
+            p, mask = substrate_mod.taf_matmul_region(
+                x, wp, spec, block_m=block_m, block_n=d, rsd_threshold=knobs)
+            qoi = ffn_exact(attn_exact_lanes(p, heads), w1, w2)
+            return qoi, mask.flatten(1).float().mean(1), mask
+        if t == Technique.IACT:
+            a = attn_exact(x @ wp, heads)
+            qoi, mask = substrate_mod.iact_ffn_region(
+                a, w1, w2, spec, block_rows=block_rows, threshold=knobs)
+            return qoi, mask.flatten(1).float().mean(1), mask
+        if t == Technique.PERFORATION:
+            q = split_heads(x @ wp, heads)
+            o, kept = substrate_mod.attention_region(
+                q, q, q, spec, block_q=block_attn, block_kv=block_attn,
+                fraction=knobs)
+            qoi = ffn_exact(merge_heads_lanes(o[:, 0]), w1, w2)
+            return qoi, 1.0 - kept.float().mean(1), ~kept
+        raise ValueError(f"no kernel evaluator for {t}")
+
     run_batch = None
     if sub == substrate_mod.CUDA:
         def make_group_fn(key):
             spec = batching.spec_from_key(key)
 
             def group(knobs):
-                # one lane after another: each kernel launches once a lane
-                outs = [cuda_eval(spec, knobs[lane])
-                        for lane in range(knobs.shape[0])]
-                qois, fracs, masks = (torch.stack(z) for z in zip(*outs))
+                qois, fracs, masks = group_eval(spec, knobs)
                 return qois, fracs, {"approx_mask": masks}
             return group
 

@@ -31,7 +31,7 @@ def _phi(x):
 def bs_price(inputs: torch.Tensor) -> torch.Tensor:
     """inputs: (N, 5) = [S, K, T, r, sigma] -> call prices (N,)."""
     s, k, t, r, sig = (inputs[:, i] for i in range(5))
-    d1 = (torch.log(s / k) + (r + 0.5 * (sig * sig)) * t) / \
+    d1 = (torch.log(s / k) + (r + 0.5 * torch.square(sig)) * t) / \
         (sig * torch.sqrt(t))
     d2 = d1 - sig * torch.sqrt(t)
     return s * _phi(d1) - k * torch.exp(-r * t) * _phi(d2)

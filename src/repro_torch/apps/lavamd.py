@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..analysis import cost
 from ..core import batching
 from ..core.harness import AppResult, ApproxApp
 from ..core.types import ApproxSpec
@@ -51,17 +52,20 @@ def pair_force(own: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
     own/other: (NB, PPB, 3) -> force (NB, PPB, 3)."""
     d = own[:, :, None, :] - other[:, None, :, :]       # (NB, P, P, 3)
     r2 = (d * d).sum(dim=-1) + 0.25
-    inv = 1.0 / r2
-    inv2 = inv * inv
-    # inv ** 4 as XLA's integer power computes it: (x*x)*(x*x)
-    mag = inv2 * inv2 - 0.5 * inv2
+    inv = torch.reciprocal(r2)
+    inv2 = torch.square(inv)
+    # inv ** 4 as XLA's integer power computes it: (x*x)*(x*x) (a square
+    # is x*x exactly, and counts as the JAX package's integer_pow)
+    mag = torch.square(inv2) - 0.5 * inv2
     return sum_in_order(mag[..., None] * d, dim=2)
 
 
+@cost.reduction
 def sum_in_order(t: torch.Tensor, dim: int) -> torch.Tensor:
     """`t.sum(dim)` added one slice after another, in index order: the
     order XLA's reduction takes on the CPU. The forces are sums of terms of
-    order 1e3 that cancel, so another order moves them by 1e-4."""
+    order 1e3 that cancel, so another order moves them by 1e-4.
+    `cost.trace_cost` counts it as the one reduction it is."""
     parts = t.unbind(dim)
     acc = parts[0]
     for part in parts[1:]:

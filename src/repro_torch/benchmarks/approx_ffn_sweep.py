@@ -13,6 +13,11 @@ committed one of the JAX package, `benchmarks/baselines/BENCH_ffn.json`;
 
     PYTHONPATH=src python -m repro_torch.benchmarks.approx_ffn_sweep \\
         [--device cuda|cpu] [--substrate cuda|host] [--jobs N] [--db PATH]
+        [--predict]
+
+`--predict` measures only the band the app cost model predicts
+(`costmodel.ffn_model().select_band`, a fifth of the grid) and writes
+BENCH_ffn_predict.json beside, never over, BENCH_ffn.json.
 """
 from __future__ import annotations
 
@@ -50,12 +55,65 @@ def _report(name: str, value: str, derived: str) -> None:
     print(f"{name},{value},{derived}")
 
 
+def predict_main(report: Callable[[str, str, str], None] = _report,
+                 jobs: int = 1, db_path: Optional[str] = None,
+                 substrate: Optional[str] = "cuda", device=None,
+                 artifacts_dir: Optional[str] = None) -> Dict:
+    """Cost-model pruned sweep: measure only the predicted front band (a
+    fifth of the grid, `costmodel.ffn_model().select_band`) and report its
+    recovery of the committed front's hypervolume. Writes
+    BENCH_ffn_predict.json, never BENCH_ffn.json."""
+    from . import costmodel
+
+    app = approx_ffn.make_app(substrate=substrate, device=device)
+    specs = grid()
+    budget = max(1, len(specs) // 5)
+    band = costmodel.ffn_model().select_band(specs, budget=budget)
+    recs = sweep(app, band, repeats=1, db_path=db_path, jobs=max(jobs, 1))
+    fs = pareto.front_summary(recs, use_modeled=True)
+    base_hv = costmodel.baseline_hypervolume()
+    ratio = fs["hypervolume"] / base_hv
+    recovered = ratio >= costmodel.FRONT_TOLERANCE
+    report("approx_ffn_predict_band", f"{len(band)}",
+           f"budget={budget},grid={len(specs)}")
+    report("approx_ffn_predict_front", f"{len(recs)}",
+           f"n_front={fs['n_front']},hv={fs['hypervolume']:.7f},"
+           f"recovery={ratio:.6f},tol={costmodel.FRONT_TOLERANCE}")
+    summary = {
+        "substrate": app.workload["substrate"],
+        "n_grid": len(specs),
+        "band_budget": budget,
+        "n_records": len(recs),
+        "front": fs,
+        "front_recovery": {
+            "hv_band": fs["hypervolume"],
+            "hv_baseline": base_hv,
+            "ratio": ratio,
+            "tolerance": costmodel.FRONT_TOLERANCE,
+            "recovered": bool(recovered),
+        },
+    }
+    if artifacts_dir:
+        os.makedirs(artifacts_dir, exist_ok=True)
+        path = os.path.join(artifacts_dir, "BENCH_ffn_predict.json")
+        with open(path, "w") as f:
+            json.dump(summary, f, indent=1)
+        report("ffn_predict_json", "0", path)
+    return summary
+
+
 def main(report: Callable[[str, str, str], None] = _report, jobs: int = 1,
          db_path: Optional[str] = None, substrate: Optional[str] = "cuda",
-         device=None, artifacts_dir: Optional[str] = None) -> Dict:
+         device=None, artifacts_dir: Optional[str] = None,
+         predict: bool = False) -> Dict:
     """Sweep the grid; return (and with `artifacts_dir`, write as
     BENCH_ffn.json) the summary: record/front counts, hypervolume,
-    best-under-10% rows and parity bits."""
+    best-under-10% rows and parity bits. `predict` runs `predict_main`
+    instead."""
+    if predict:
+        return predict_main(report, jobs=jobs, db_path=db_path,
+                            substrate=substrate, device=device,
+                            artifacts_dir=artifacts_dir)
     app = approx_ffn.make_app(substrate=substrate, device=device)
     specs = grid()
     recs = sweep(app, specs, repeats=1, db_path=db_path, jobs=max(jobs, 1))
@@ -148,6 +206,8 @@ if __name__ == "__main__":
     ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--db", default=None)
     ap.add_argument("--artifacts", default=None)
+    ap.add_argument("--predict", action="store_true",
+                    help="measure only the cost model's predicted band")
     a = ap.parse_args()
     main(jobs=a.jobs, db_path=a.db, substrate=a.substrate, device=a.device,
-         artifacts_dir=a.artifacts)
+         artifacts_dir=a.artifacts, predict=a.predict)

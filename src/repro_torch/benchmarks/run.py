@@ -7,6 +7,7 @@ Prints ``name,value,derived`` CSV lines. Usage:
       [--device cuda|cpu] [--full] [--jobs N] [--db PATH]
       [--substrate host|cuda] [--artifacts DIR]
       [--check-regression BASELINE] [--noise 0.8] [--trace OUT.json]
+      [--predict]
 
 ``--device`` runs every module there (``cuda`` unless ``cpu`` is asked
 for). ``--full`` adds each module's full-size rows: fig10c, fig11c and
@@ -19,7 +20,12 @@ cuda); a module must be able to measure that path -- see
 ``substrate_support()`` -- so the flag never silently measures another one.
 ``--artifacts`` names a directory for machine-readable outputs (`ffn`
 writes ``BENCH_ffn.json``; `kernel` writes ``BENCH_kernel.json``,
-``kernel_micro.json`` and the autotuner's ``tuning_cache.json``).
+``kernel_micro.json`` and the autotuner's ``tuning_cache.json``;
+`costmodel` validates the app cost model against measured sweeps and
+writes ``BENCH_costmodel.json``). ``--predict`` switches predict-aware
+modules (`ffn`) into cost-model pruned mode: only the predicted front band
+of the grid is measured, and ``BENCH_ffn_predict.json`` is written instead
+of the full-grid ``BENCH_ffn.json``.
 
 ``--check-regression <baseline-dir-or-file>`` compares the artifacts of
 THIS run with committed baselines (``src/repro_torch/benchmarks/
@@ -30,9 +36,8 @@ tolerance; ratios taken from walls only have to stay above
 gate catches order-of-magnitude regressions, not jitter between hosts).
 
 A module that raises prints an ``ERROR`` row, the other modules still run,
-and the process then exits 1. The JAX runner's `qos`, `lint`, `roofline`,
-`costmodel` and `obs` are not ported yet; naming one is an error that says
-so.
+and the process then exits 1. The JAX runner's `qos`, `lint`, `roofline`
+and `obs` are not ported yet; naming one is an error that says so.
 """
 from __future__ import annotations
 
@@ -48,8 +53,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 from ..core import substrate as substrate_mod
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
-from . import (approx_ffn_sweep, fig3_table_memory, fig6_best_speedup,
-               fig7_cg_sweep, fig8c_items_per_thread, fig10c_rsd_behavior,
+from . import (approx_ffn_sweep, costmodel, fig3_table_memory,
+               fig6_best_speedup, fig7_cg_sweep, fig8c_items_per_thread, fig10c_rsd_behavior,
                fig11c_hierarchy, fig12c_kmeans_convergence, kernel_micro,
                pareto_refine)
 
@@ -64,12 +69,12 @@ MODULES = {
     "kernel": kernel_micro,
     "ffn": approx_ffn_sweep,
     "pareto": pareto_refine,
+    "costmodel": costmodel,
 }
 
 # keys of the JAX runner that the port does not have yet, and the ROADMAP
 # Queue 1 item that ports each
 NOT_PORTED = {
-    "costmodel": "Queue 1 item 3 (the app cost model)",
     "qos": "Queue 1 item 4 (serving and QoS)",
     "obs": "Queue 1 item 4 (serving and QoS: obs_overhead)",
     "roofline": "Queue 1 item 6 (the XLA-only tools)",
@@ -121,8 +126,8 @@ def run_modules(keys: Sequence[str], report: Callable[..., None], *,
                 device=None, full: bool = False, jobs: int = 1,
                 db_path: Optional[str] = None,
                 substrate: Optional[str] = None,
-                artifacts_dir: Optional[str] = None
-                ) -> Tuple[Dict, List[str]]:
+                artifacts_dir: Optional[str] = None,
+                predict: bool = False) -> Tuple[Dict, List[str]]:
     """Run each module of `keys` with the options its `main` takes.
     Returns ({key: what its main returned}, [keys that raised]); a module
     that raises reports an ERROR row and the others still run."""
@@ -134,7 +139,8 @@ def run_modules(keys: Sequence[str], report: Callable[..., None], *,
             ("jobs", jobs), ("db_path", db_path), ("substrate", substrate),
             ("artifacts_dir", artifacts_dir), ("device", device),
             ("full", full or None),
-            ("geometry", "full" if full else None))
+            ("geometry", "full" if full else None),
+            ("predict", True if predict else None))
             if k in accepted and v is not None}
         # each module starts from a clean metrics registry, so the obs
         # snapshot stamped into its BENCH_*.json is that module's alone
@@ -194,6 +200,24 @@ _BASELINE_CHECKS = {
                     "tuning.iact_rowfn.speedup",
                     "tuning.perforated_matmul.speedup",
                     "tuning.perforated_attention.speedup"),
+    },
+    # the app cost model's validation (the JAX rules): kept / dropped grid
+    # counts and the band are structural (exact); rank correlations and
+    # the pruned sweep's front recovery are deterministic up to float
+    # rounding (close). The machine profile the counts were taken on is
+    # exact too: kept / dropped depend on it.
+    "BENCH_costmodel.json": {
+        "exact": ("machine", "apps.blackscholes.kept",
+                  "apps.blackscholes.bound_holds",
+                  "apps.binomial_options.bound_holds",
+                  "apps.lavamd.bound_holds",
+                  "ffn.n_grid", "ffn.kept", "ffn.dropped",
+                  "ffn.band_budget", "ffn.band_measured", "ffn.recovered"),
+        "close": ("apps.blackscholes.spearman",
+                  "apps.binomial_options.spearman", "apps.kmeans.spearman",
+                  "apps.lavamd.spearman", "apps.minife_cg.spearman",
+                  "ffn.spearman", "ffn.front_recovery.ratio"),
+        "atleast": (),
     },
 }
 
@@ -314,6 +338,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="record a Chrome/Perfetto trace of the whole run "
                     "(one span per module plus every repro_torch.obs span "
                     "the modules emit) and write it to this path")
+    ap.add_argument("--predict", action="store_true",
+                    help="cost-model pruned mode for predict-aware modules "
+                    "(ffn: measure only the predicted front band, a fifth "
+                    "of the grid, and write BENCH_ffn_predict.json)")
     args = ap.parse_args(argv)
     if args.check_regression and not args.artifacts:
         ap.error("--check-regression needs --artifacts (the gate compares "
@@ -329,7 +357,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         _, errors = run_modules(
             keys, _report, device=args.device, full=args.full,
             jobs=args.jobs, db_path=args.db, substrate=args.substrate,
-            artifacts_dir=args.artifacts)
+            artifacts_dir=args.artifacts, predict=args.predict)
     finally:
         if tracer is not None:
             obs_trace.disable()

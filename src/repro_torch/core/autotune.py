@@ -9,10 +9,9 @@ repeats), the best `1/eta` survive to the next rung at higher fidelity.
 stream as harness.sweep (via `harness._make_record`, the scoring path of
 `harness.evaluate_spec`) and dispatch evaluations through
 `harness.run_specs`, so `jobs > 1` uses an app's batched runner. For
-front-guided refinement of a coarse grid, see `pareto.refine`.
-
-The JAX package's `predict=` (an app cost model that prunes the pool before
-it runs) waits for the port of `analysis.cost.AppCostModel`.
+front-guided refinement of a coarse grid, see `pareto.refine`. Both take
+`predict=` (an `analysis.cost.AppCostModel`), which prunes what the cost
+model rejects before anything runs.
 """
 from __future__ import annotations
 
@@ -47,13 +46,22 @@ def successive_halving(app: ApproxApp, specs: Sequence[ApproxSpec], *,
                        max_error: float = 0.10, eta: int = 3,
                        base_repeats: int = 1, jobs: int = 1,
                        seed: int = 0,
-                       substrate: Optional[str] = None) -> List[Record]:
+                       substrate: Optional[str] = None,
+                       predict=None) -> List[Record]:
     """Multi-fidelity race over `specs`: each rung costs ~n_base cheap
     evaluations (the pool shrinks by eta while fidelity grows by eta).
     Returns the FINAL rung's records, best first. `jobs > 1` evaluates each
-    rung's pool concurrently; `substrate` scopes every evaluation."""
+    rung's pool concurrently; `substrate` scopes every evaluation.
+
+    `predict` (an `analysis.cost.AppCostModel`) prunes the STARTING pool
+    before the first rung runs: specs predicted sub-1x, or whose error
+    bound already exceeds `max_error`, never consume evaluations."""
     rng = random.Random(seed)
     pool = list(specs)
+    if predict is not None:
+        from ..analysis.cost import filter_specs
+        pool, _ = filter_specs(predict, pool, max_error=max_error,
+                               context=f"autotune:{app.name}")
     with substrate_mod.use(substrate):
         exact = app.exact()
     rng.shuffle(pool)
@@ -82,13 +90,31 @@ def random_search(app: ApproxApp, sampler: Callable[[random.Random],
                   budget: int = 20, max_error: float = 0.10,
                   repeats: int = 1, jobs: int = 1,
                   seed: int = 0,
-                  substrate: Optional[str] = None) -> List[Record]:
+                  substrate: Optional[str] = None,
+                  predict=None) -> List[Record]:
     """Budget-capped random search with a spec sampler. `substrate` scopes
-    every evaluation."""
+    every evaluation.
+
+    With `predict`, sampled specs that the cost model rejects (sub-1x
+    predicted speedup or error bound over `max_error`) are re-drawn
+    instead of measured, so the evaluation budget is spent only on
+    plausible candidates (bounded redraws: a sampler whose whole support
+    is rejected degrades to the unpredicted behavior)."""
     rng = random.Random(seed)
     with substrate_mod.use(substrate):
         exact = app.exact()
-    specs = [sampler(rng) for _ in range(budget)]
+    if predict is None:
+        specs = [sampler(rng) for _ in range(budget)]
+    else:
+        from ..analysis.cost import filter_specs
+        specs, attempts = [], 0
+        while len(specs) < budget and attempts < 20 * budget:
+            draw = [sampler(rng) for _ in range(budget - len(specs))]
+            attempts += len(draw)
+            kept, _ = filter_specs(predict, draw, max_error=max_error,
+                                   context=f"autotune:{app.name}")
+            specs.extend(kept)
+        specs = specs[:budget] or [sampler(rng) for _ in range(budget)]
     with trace.span("autotune.random_search", app=app.name,
                     budget=len(specs), repeats=repeats):
         records = _evaluate_all(app, specs, exact, repeats, jobs, substrate)

@@ -21,9 +21,11 @@ the same launch path.
 An app's `make_group_fn(key)` returns a callable mapping a (B,) float32
 tensor of knobs to `(qoi_stack, frac_stack)` (optionally a third dict of
 stacked per-spec extras), or None to decline the group. Where the JAX
-package `vmap`s the knobs through one compiled program, the port's group
-function loops over the lanes and launches each kernel once per lane; a
-kernel with a lane grid dimension is later work.
+package `vmap`s the knobs through one compiled program, the port's kernels
+take the (B,) knob tensor itself: K1-K3 have a lane grid dimension
+(`kernels/ops.py`), so approx_ffn's group function is one kernel call per
+group. The HPC apps' group functions (`lanes`) still run their technique
+loops once per lane: their regions are plain PyTorch.
 """
 from __future__ import annotations
 

@@ -324,7 +324,9 @@ def run_specs(app: ApproxApp, specs: Sequence[ApproxSpec], repeats: int = 1,
 def sweep(app: ApproxApp, specs: Iterable[ApproxSpec], repeats: int = 3,
           db_path: Optional[str] = None, verbose: bool = False, *,
           jobs: int = 1, resume: bool = True,
-          substrate: Optional[str] = None) -> List[Record]:
+          substrate: Optional[str] = None,
+          predict=None, predict_min_speedup: float = 1.0,
+          predict_max_error: Optional[float] = None) -> List[Record]:
     """Run `app` once per spec (plus the exact baseline), computing error
     vs. the exact QoI and speedups; append new results to the JSON database.
 
@@ -349,8 +351,25 @@ def sweep(app: ApproxApp, specs: Iterable[ApproxSpec], repeats: int = 3,
     baseline included) -- see `run_specs`. Apps whose substrate matters to
     their results should bake it into `workload` so DB cache keys do not
     collide across substrates.
+
+    `predict`: an `analysis.cost.AppCostModel` (or any
+    spec -> CostPrediction callable). The grid is PRUNED before anything
+    executes: specs whose predicted speedup is below
+    `predict_min_speedup` (default 1.0 -- "cannot pay for itself") or
+    whose predicted error bound exceeds `predict_max_error` are dropped,
+    with a logged kept/dropped count. Only the surviving specs are
+    measured and returned, so the result list can be SHORTER than the
+    input grid. Pruning composes with resume: cached rows for dropped
+    specs are simply not consulted, and a later unpruned sweep fills
+    them in.
     """
     specs = list(specs)
+    if predict is not None:
+        from ..analysis.cost import filter_specs
+        specs, _ = filter_specs(predict, specs,
+                                min_speedup=predict_min_speedup,
+                                max_error=predict_max_error,
+                                context=f"sweep:{app.name}")
     hashes = [spec_hash(s) for s in specs]
 
     cached: Dict[str, Record] = {}

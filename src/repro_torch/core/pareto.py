@@ -20,6 +20,7 @@ All functions consume the same `Record` stream (or DB rows) as
 """
 from __future__ import annotations
 
+import logging
 import math
 import os
 from typing import Dict, List, Optional, Sequence, Union
@@ -27,6 +28,8 @@ from typing import Dict, List, Optional, Sequence, Union
 from .harness import (ApproxApp, Record, db_index, load_db, spec_from_dict,
                       spec_hash, sweep)
 from .types import ApproxSpec
+
+log = logging.getLogger("repro_torch.core.pareto")
 
 RecordLike = Union[Record, Dict]
 
@@ -181,7 +184,8 @@ def refine(app: ApproxApp, records: Sequence[RecordLike], *,
            budget: int = 16, rounds: int = 2, repeats: int = 1, eta: int = 2,
            jobs: int = 1, db_path: Optional[str] = None,
            use_modeled: bool = False, verbose: bool = False,
-           substrate: Optional[str] = None) -> List[Record]:
+           substrate: Optional[str] = None,
+           predict=None, predict_band: float = 0.10) -> List[Record]:
     """Front-guided adaptive densification (successive-halving style).
 
     Starting from coarse-grid `records`, run up to `rounds` rounds; each
@@ -190,8 +194,11 @@ def refine(app: ApproxApp, records: Sequence[RecordLike], *,
     `sweep`, folds the results in, and raises fidelity by `eta` for the next
     round. `substrate` scopes the ambient execution substrate.
 
-    The JAX package's `predict=` (an app cost model that ranks each
-    round's candidates) waits for the port of `analysis.cost`.
+    `predict` (an `analysis.cost.AppCostModel`) turns refinement into a
+    predicted-front seeding strategy: each round's candidates are ranked
+    by their regret against the PREDICTED (error bound, speedup) front
+    and only those within `predict_band` relative regret -- capped at the
+    remaining budget -- are measured.
 
     Returns only the newly-EXECUTED Records: candidates served from the DB
     cache fold into the working front but cost no budget.
@@ -204,7 +211,15 @@ def refine(app: ApproxApp, records: Sequence[RecordLike], *,
         if remaining <= 0:
             break
         cands = propose_candidates(pool, use_modeled=use_modeled,
-                                   max_candidates=remaining)
+                                   max_candidates=None if predict is not None
+                                   else remaining)
+        if predict is not None and cands:
+            n_all = len(cands)
+            cands = predict.select_band(cands, budget=remaining,
+                                        band=predict_band)
+            log.info("predict[refine:%s]: kept %d / dropped %d of %d "
+                     "candidates (band=%.3g)", app.name, len(cands),
+                     n_all - len(cands), n_all, predict_band)
         if not cands:
             break
         already = set()

@@ -21,7 +21,9 @@ process should pin the substrate on the app instead.
 
 The `*_region` evaluators below are the kernel-backed counterparts of the
 technique entry points: spec-driven, knob-aware, and uniform in what they
-return -- (output, approx_mask). `dispatch(technique)` names the one for a
+return -- (output, approx_mask). An (L,) knob tensor runs a structural
+group's L knobs in one wrapper call (the kernels' lane grid); outputs and
+masks then gain a leading L. `dispatch(technique)` names the one for a
 technique.
 """
 from __future__ import annotations
@@ -96,8 +98,9 @@ def taf_matmul_region(x, w, spec: ApproxSpec, *,
                       block_n: Optional[int] = None, rsd_threshold=None):
     """TAF-memoized projection y = x @ w under `spec.taf`.
 
-    `rsd_threshold` overrides the spec's value (a float or tensor).
-    Returns (y, approx_mask (num_i, num_j) bool).
+    `rsd_threshold` overrides the spec's value (a float, a 0-d tensor or an
+    (L,) knob stack). Returns (y, approx_mask (num_i, num_j) bool), each
+    with a leading L for a knob stack.
     """
     if spec.technique != Technique.TAF:
         raise ValueError(f"taf_matmul_region needs a TAF spec, got {spec}")
@@ -113,8 +116,9 @@ def iact_ffn_region(x, w1, w2, spec: ApproxSpec, *,
                     block_rows: Optional[int] = None, threshold=None):
     """iACT-memoized FFN tile y = gelu_tanh(x @ w1) @ w2 under `spec.iact`.
 
-    `threshold` overrides the spec's value. One table serves each row block.
-    Returns (y, block_approx_mask (num_blocks,) bool).
+    `threshold` overrides the spec's value (an (L,) stack runs L lanes).
+    One table serves each row block. Returns (y, block_approx_mask
+    (num_blocks,) bool), each with a leading L for a knob stack.
     """
     if spec.technique != Technique.IACT:
         raise ValueError(f"iact_ffn_region needs an IACT spec, got {spec}")
@@ -130,16 +134,17 @@ def attention_region(q, k, v, spec: Optional[ApproxSpec], *,
                      fraction=None, causal: bool = True):
     """(Perforated) flash attention under `spec.perforation` (None = exact).
 
-    `fraction` (ini/fini/random kinds) flips the kernel into masked mode.
-    Block args left None resolve through `ops.resolve_blocks` (the tuning
-    cache, then the fallbacks) here, so the kept-mask granularity follows
-    the block_kv the kernel runs. Returns
+    `fraction` (ini/fini/random kinds) flips the kernel into masked mode;
+    an (L,) fraction stack runs L lanes, and o and the mask gain a leading
+    L. Block args left None resolve through `ops.resolve_blocks` (the
+    tuning cache, then the fallbacks) here, so the kept-mask granularity
+    follows the block_kv the kernel runs. Returns
     (o, kept_block_mask (nkv,) bool on q's device), True = executed.
     """
     blocks = ops.resolve_blocks("perforated_attention", (q, k), q.dtype,
                                 block_q=block_q, block_kv=block_kv)
     block_q, block_kv = blocks["block_q"], blocks["block_kv"]
-    nkv = k.shape[2] // block_kv
+    nkv = k.shape[-2] // block_kv
     if spec is None or spec.technique == Technique.NONE:
         o = ops.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv,
                                 causal=causal)
@@ -150,7 +155,10 @@ def attention_region(q, k, v, spec: Optional[ApproxSpec], *,
     p = spec.perforation
     o = ops.perforated_attention(q, k, v, block_q=block_q, block_kv=block_kv,
                                  perfo=p, fraction=fraction, causal=causal)
-    if fraction is not None:
+    if isinstance(fraction, torch.Tensor) and fraction.dim() == 1:
+        mask = perfo_mod.traced_execute_mask(
+            nkv, p, fraction.to(q.device)[:, None])
+    elif fraction is not None:
         mask = perfo_mod.traced_execute_mask(nkv, p, fraction,
                                              device=q.device).to(q.device)
     else:

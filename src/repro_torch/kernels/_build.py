@@ -163,12 +163,15 @@ class Counter:
     """Launch count of one kernel wrapper, plus a device-side tally the
     kernel adds to (the tiles or blocks it actually computed or visited).
 
-    `launches` is a plain int the wrapper bumps where it launches; the
-    tally is read only on request (`work()`), which synchronizes."""
+    `launches` is a plain int the wrapper bumps where it launches;
+    `lane_calls` counts those launches that ran a lane stack (one call for
+    L knobs). The tally is read only on request (`work()`), which
+    synchronizes."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.lane_calls = 0
         self._work: Dict[torch.device, torch.Tensor] = {}
 
     def work_buffer(self, device: torch.device) -> torch.Tensor:
@@ -181,7 +184,13 @@ class Counter:
     def work(self) -> int:
         return sum(int(b.item()) for b in self._work.values())
 
+    def launched(self, lanes: int) -> None:
+        """Count one launch (of a lane stack when `lanes` > 0)."""
+        self.launches += 1
+        self.lane_calls += lanes > 0
+
     def reset(self) -> None:
         self.launches = 0
+        self.lane_calls = 0
         for b in self._work.values():
             b.zero_()

@@ -42,6 +42,18 @@
 // The GEMM grids are sized for the worst case (all N rows); CTAs past the
 // computed rows read the device count and exit, so there is no host sync.
 //
+// Lanes. One call may carry L thresholds (the JAX package vmaps the kernel
+// over a stack of them): iact_schedule runs one cluster of 8 CTAs per lane
+// (grid 8 L), each cluster walking its lane's blocks with its own table, so
+// distributed shared memory stays inside a lane and the L schedules run side
+// by side. Lanes that share x, w1 and w2 (the app's IACT group) compute a
+// block's FFN rows once whichever lanes compute it: iact_union lists the
+// union of their computed blocks, iact_ffn1 / iact_ffn2 run over it, and
+// iact_ffn2 writes each row to every lane that computes its block. With a
+// stacked operand, iact_ffn1 / iact_ffn2 take the lane in grid z, each
+// lane's CTAs reading that lane's computed count on the device. iact_fill
+// takes the lane in grid y. `work` adds each lane's computed blocks.
+//
 // Bound on this card: the float32 operations of the computed rows, 2 * rows
 // * d_h * (d_in + d_out), over the 67 TFLOP/s float32 rate. The previous
 // design ran a 4-launch chain per block that streamed all of w1 and w2
@@ -92,12 +104,19 @@ __device__ __forceinline__ void warp_argmax(float& m, int& arg) {
 
 __global__ void __cluster_dims__(kSchedCluster, 1, 1)
 __launch_bounds__(kSchedThreads)
-iact_schedule(const float* __restrict__ x, const float* __restrict__ thresh,
-              int* __restrict__ mask, int* __restrict__ list,
-              int* __restrict__ n_comp, int* __restrict__ src,
-              unsigned long long* __restrict__ work, int num_b, int R, int T,
-              int d_in) {
+iact_schedule(const float* __restrict__ x_all,
+              const float* __restrict__ thresh, int* __restrict__ mask,
+              int* __restrict__ list, int* __restrict__ n_comp,
+              int* __restrict__ src, unsigned long long* __restrict__ work,
+              int num_b, int R, int T, int d_in, size_t x_lane) {
   cg::cluster_group cluster = cg::this_cluster();
+  // this cluster's lane: its x, threshold and outputs
+  const int ln = blockIdx.x / kSchedCluster;
+  const float* __restrict__ x = x_all + ln * x_lane;
+  mask += (size_t)ln * num_b;
+  list += (size_t)ln * num_b;
+  n_comp += ln;
+  src += (size_t)ln * num_b * R;
   const int crank = (int)cluster.block_rank();
   const int ks = (d_in + kSchedCluster - 1) / kSchedCluster;
   const int k_lo = min(d_in, crank * ks);
@@ -110,7 +129,7 @@ iact_schedule(const float* __restrict__ x, const float* __restrict__ thresh,
   __shared__ float wv[kSchedWarps];
   __shared__ int wa[kSchedWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float thr = thresh[0];
+  const float thr = thresh[ln];
   const float thr2 = thr * thr;
   for (int t = tid; t < T; t += kSchedThreads) slot_row[t] = -1;
   int cursor = 0, n_valid = 0, n_c = 0;  // the same in every thread
@@ -226,11 +245,27 @@ struct SameRow {
   __device__ int operator()(int p) const { return p; }
 };
 
+// How the FFN launches read their rows: one call (or the union of lanes
+// that share every operand) reads one list; with a stacked operand, grid z
+// is the lane. Template arguments, so that the single call's kernels carry
+// no lane arithmetic.
+enum FfnRows { kOne = 0, kLaneZ = 1, kUnion = 2 };
+
+template <int kRows>
 __global__ void __launch_bounds__(repro::gemm::kThreads, 2)
 iact_ffn1(const float* __restrict__ x, const float* __restrict__ w1,
           float* __restrict__ h, const int* __restrict__ list,
-          const int* __restrict__ n_comp, int R, int d_in, int d_h) {
+          const int* __restrict__ n_comp, int N, int R, int d_in, int d_h,
+          size_t x_lane, size_t w1_lane) {
   extern __shared__ __align__(16) float smem[];
+  if (kRows == kLaneZ) {
+    const int ln = blockIdx.z;
+    x += ln * x_lane;
+    w1 += ln * w1_lane;
+    h += (size_t)ln * N * d_h;
+    list += (size_t)ln * (N / R);
+    n_comp += ln;
+  }
   const int rows = *n_comp * R, m0 = blockIdx.y * repro::gemm::kBM;
   if (m0 >= rows) return;
   repro::gemm::tile(x, d_in, w1, d_h, rows, d_h, d_in, m0, ListRow{list, R},
@@ -243,24 +278,69 @@ iact_ffn1(const float* __restrict__ x, const float* __restrict__ w1,
                     smem);
 }
 
+// kUnion: the rows are the union of n_lanes lanes' computed blocks, and a
+// row goes to the y of every lane that computes its block (`masks`).
+template <int kRows>
 __global__ void __launch_bounds__(repro::gemm::kThreads, 2)
 iact_ffn2(const float* __restrict__ h, const float* __restrict__ w2,
           float* __restrict__ y, const int* __restrict__ list,
-          const int* __restrict__ n_comp, int R, int d_h, int d_out) {
+          const int* __restrict__ n_comp, int N, int R, int d_h, int d_out,
+          size_t w2_lane, const int* __restrict__ masks, int n_lanes) {
   extern __shared__ __align__(16) float smem[];
+  if (kRows == kLaneZ) {
+    const int ln = blockIdx.z;
+    h += (size_t)ln * N * d_h;
+    w2 += ln * w2_lane;
+    y += (size_t)ln * N * d_out;
+    list += (size_t)ln * (N / R);
+    n_comp += ln;
+  }
   const int rows = *n_comp * R, m0 = blockIdx.y * repro::gemm::kBM;
   if (m0 >= rows) return;
   const ListRow dst{list, R};
+  const int nb = N / R;
   repro::gemm::tile(h, d_h, w2, d_out, rows, d_out, d_h, m0, SameRow{},
                     [=](int p, int c, float4 v) {
-                      *reinterpret_cast<float4*>(
-                          y + (size_t)dst(p) * d_out + c) = v;
+                      const int row = dst(p);
+                      if (kRows != kUnion) {
+                        *reinterpret_cast<float4*>(
+                            y + (size_t)row * d_out + c) = v;
+                        return;
+                      }
+                      for (int l = 0; l < n_lanes; ++l)
+                        if (!masks[(size_t)l * nb + row / R])
+                          *reinterpret_cast<float4*>(
+                              y + ((size_t)l * N + row) * d_out + c) = v;
                     },
                     smem);
 }
 
+// The union of n_lanes lanes' computed blocks, in block order: list (N / R)
+// and its length n (one int), from each lane's mask (0 = computed). One
+// warp, 32 blocks at a time.
+__global__ void iact_union(const int* __restrict__ masks, int n_lanes,
+                           int nb, int* __restrict__ list,
+                           int* __restrict__ n) {
+  const int lane = threadIdx.x;
+  int count = 0;
+  for (int base = 0; base < nb; base += 32) {
+    const int b = base + lane;
+    bool on = false;
+    for (int l = 0; b < nb && l < n_lanes && !on; ++l)
+      on = masks[(size_t)l * nb + b] == 0;
+    const unsigned bits = __ballot_sync(0xffffffffu, on);
+    if (on) list[count + __popc(bits & ((1u << lane) - 1u))] = b;
+    count += __popc(bits);
+  }
+  if (lane == 0) *n = count;
+}
+
 __global__ void __launch_bounds__(kFillThreads)
-iact_fill(const int* __restrict__ src, float* __restrict__ y, int d_out) {
+iact_fill(const int* __restrict__ src, float* __restrict__ y, int N,
+          int d_out) {
+  const int ln = blockIdx.y;  // the lane
+  src += (size_t)ln * N;
+  y += (size_t)ln * N * d_out;
   const int r = blockIdx.x, s = src[r];
   if (s == r) return;  // a computed row
   float4* yr = reinterpret_cast<float4*>(y + (size_t)r * d_out);
@@ -269,15 +349,38 @@ iact_fill(const int* __restrict__ src, float* __restrict__ y, int d_out) {
     yr[c] = s < 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : ys[c];
 }
 
+template <int kRows>
+int launch_ffn(dim3 grid1, dim3 grid2, const float* x, const float* w1,
+               const float* w2, float* h, float* y, const int* list,
+               const int* n_comp, const int* masks, int N, int R, int d_in,
+               int d_h, int d_out, size_t x_lane, size_t w1_lane,
+               size_t w2_lane, int L, cudaStream_t st) {
+  using repro::gemm::kSmemBytes;
+  cudaFuncSetAttribute(iact_ffn1<kRows>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  cudaFuncSetAttribute(iact_ffn2<kRows>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  iact_ffn1<kRows><<<grid1, repro::gemm::kThreads, kSmemBytes, st>>>(
+      x, w1, h, list, n_comp, N, R, d_in, d_h, x_lane, w1_lane);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  iact_ffn2<kRows><<<grid2, repro::gemm::kThreads, kSmemBytes, st>>>(
+      h, w2, y, list, n_comp, N, R, d_h, d_out, w2_lane, masks, L);
+  return (int)cudaGetLastError();
+}
+
 int launch_schedule(const float* x, const float* thresh, int* mask, int* list,
                     int* n_comp, int* src, unsigned long long* work, int N,
-                    int d_in, int R, int T, cudaStream_t st) {
+                    int d_in, int R, int T, int L, size_t x_lane,
+                    cudaStream_t st) {
   const size_t smem = schedule_smem(R, T);
   cudaFuncSetAttribute(iact_schedule,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  iact_schedule<<<kSchedCluster, kSchedThreads, smem, st>>>(
-      x, thresh, mask, list, n_comp, src, work, N / R, R, T, d_in);
+  iact_schedule<<<kSchedCluster * L, kSchedThreads, smem, st>>>(
+      x, thresh, mask, list, n_comp, src, work, N / R, R, T, d_in, x_lane);
   return (int)cudaGetLastError();
 }
 
@@ -292,38 +395,53 @@ extern "C" int iact_schedule_f32(const float* x, const float* thresh,
                                  unsigned long long* work, int N, int d_in,
                                  int R, int T, void* stream) {
   return launch_schedule(x, thresh, mask, list, n_comp, src, work, N, d_in,
-                         R, T, (cudaStream_t)stream);
+                         R, T, 1, 0, (cudaStream_t)stream);
 }
 
 // x (N, d_in), w1 (d_in, d_h), w2 (d_h, d_out) float32 row-major, 16-byte
-// aligned, widths multiples of 4; y (N, d_out). Scratch from the caller:
-// list (N / R), n_comp (1), src (N) int32 and h (N, d_h) float32. Four
-// launches, no host sync. Returns the first cudaError_t.
+// aligned, widths multiples of 4, each shared by the L lanes or stacked per
+// lane (*_stacked: a leading L); thresh L float32 on the device; y
+// (L, N, d_out), mask (L, N / R). Scratch from the caller: list (L, N / R),
+// n_comp (L), src (L, N) int32 and h (L, N, d_h) float32. Four launches
+// whatever L is, no host sync. Returns the first cudaError_t.
 extern "C" int iact_rowfn_f32(const float* x, const float* w1,
                               const float* w2, float* y, int* mask,
                               int* list, int* n_comp, int* src, float* h,
                               const float* thresh, unsigned long long* work,
                               int N, int d_in, int d_h, int d_out, int R,
-                              int T, void* stream) {
+                              int T, int L, int x_stacked, int w1_stacked,
+                              int w2_stacked, int* list_u, int* n_u,
+                              void* stream) {
   using repro::gemm::kBM;
   using repro::gemm::kBN;
-  using repro::gemm::kSmemBytes;
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t x_lane = x_stacked ? (size_t)N * d_in : 0;
   int err = launch_schedule(x, thresh, mask, list, n_comp, src, work, N,
-                            d_in, R, T, st);
+                            d_in, R, T, L, x_lane, st);
   if (err) return err;
-  cudaFuncSetAttribute(iact_ffn1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
-  cudaFuncSetAttribute(iact_ffn2, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
   const int row_tiles = (N + kBM - 1) / kBM;
-  iact_ffn1<<<dim3((d_h + kBN - 1) / kBN, row_tiles), repro::gemm::kThreads,
-              kSmemBytes, st>>>(x, w1, h, list, n_comp, R, d_in, d_h);
-  if ((err = (int)cudaGetLastError())) return err;
-  iact_ffn2<<<dim3((d_out + kBN - 1) / kBN, row_tiles),
-              repro::gemm::kThreads, kSmemBytes, st>>>(h, w2, y, list, n_comp,
-                                                       R, d_h, d_out);
-  if ((err = (int)cudaGetLastError())) return err;
-  iact_fill<<<N, kFillThreads, 0, st>>>(src, y, d_out);
+  // lanes that share every operand compute the union of their blocks once
+  const bool shared = L > 1 && !x_stacked && !w1_stacked && !w2_stacked;
+  if (shared) {
+    iact_union<<<1, 32, 0, st>>>(mask, L, N / R, list_u, n_u);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const dim3 grid1((d_h + kBN - 1) / kBN, row_tiles, shared ? 1 : L);
+  const dim3 grid2((d_out + kBN - 1) / kBN, row_tiles, shared ? 1 : L);
+  const size_t w1_lane = w1_stacked ? (size_t)d_in * d_h : 0;
+  const size_t w2_lane = w2_stacked ? (size_t)d_h * d_out : 0;
+  if (L == 1) {
+    err = launch_ffn<kOne>(grid1, grid2, x, w1, w2, h, y, list, n_comp,
+                           nullptr, N, R, d_in, d_h, d_out, 0, 0, 0, 1, st);
+  } else if (shared) {
+    err = launch_ffn<kUnion>(grid1, grid2, x, w1, w2, h, y, list_u, n_u,
+                             mask, N, R, d_in, d_h, d_out, 0, 0, 0, L, st);
+  } else {
+    err = launch_ffn<kLaneZ>(grid1, grid2, x, w1, w2, h, y, list, n_comp,
+                             nullptr, N, R, d_in, d_h, d_out, x_lane,
+                             w1_lane, w2_lane, L, st);
+  }
+  if (err) return err;
+  iact_fill<<<dim3(N, L), kFillThreads, 0, st>>>(src, y, N, d_out);
   return (int)cudaGetLastError();
 }

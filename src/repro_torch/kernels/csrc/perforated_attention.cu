@@ -37,6 +37,11 @@
 // Shared rows are padded so that the fragment reads of a warp fall in
 // distinct banks (K by 8 elements, V by 4 in float32 and 8 in bf16).
 //
+// Lanes. One call may carry L fractions (the JAX package vmaps the masked
+// mode over a stack of them): grid z runs over (lane, batch), each lane
+// with its own liveness vector (built on the device from its fraction) and
+// its own output; q, k and v are shared by every lane or stacked per lane.
+//
 // Bound on this card: 4 * D operations per (query, key) pair inside the
 // causal mask and the kept blocks; in 3xTF32 three TF32 products each at
 // 495 TFLOP/s (bf16: one product at 989); q, k, v and o each cross device
@@ -228,16 +233,22 @@ __global__ void __launch_bounds__(kMaxThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o,
             const int* __restrict__ kept, const int* __restrict__ live,
-            unsigned long long* __restrict__ work, int Hq, int Hkv, int Sq,
-            int Skv, int bq, int bkv, int n_enum, float scale_log2,
-            int causal) {
+            unsigned long long* __restrict__ work, int B, int Hq, int Hkv,
+            int Sq, int Skv, int bq, int bkv, int n_enum, float scale_log2,
+            int causal, size_t q_lane, size_t kv_lane, int live_lane) {
   using L = Layout<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   int* list = reinterpret_cast<int*>(smem + L::kRingBytes);
   int& n_vis_s = list[n_enum];  // the list, then its length
 
-  const int iq = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
+  const int iq = blockIdx.x, h = blockIdx.y, bb = blockIdx.z % B;
+  const int ln = blockIdx.z / B;  // the lane: its operands and liveness
+  q += ln * q_lane;
+  k += ln * kv_lane;
+  v += ln * kv_lane;
+  o += (size_t)ln * B * Hq * Sq * D;
+  live += (size_t)ln * live_lane;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int nthr = blockDim.x;
@@ -363,21 +374,27 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) atomicAdd(work, (unsigned long long)n_vis);
 }
 
+struct Lanes {
+  int L;           // lanes in grid z beside the batch
+  size_t q, kv;    // elements between lanes of q and of k / v (0: shared)
+  int live;        // ints between lanes' liveness vectors (0: shared)
+};
+
 template <typename T, int D>
 int launch(const T* q, const T* k, const T* v, T* o, const int* kept,
            const int* live, unsigned long long* work, int B, int Hq,
            int Hkv, int Sq, int Skv, int bq, int bkv, int n_enum,
-           float scale, int causal, void* stream) {
+           float scale, int causal, Lanes ln, void* stream) {
   auto kernel = attn_kernel<T, D>;
   static unsigned smem_set = 0;
   cudaError_t err = repro::allow_max_smem(kernel, smem_set);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
       Layout<T, D>::kRingBytes + sizeof(int) * ((size_t)n_enum + 1);
-  const dim3 grid(Sq / bq, Hq, B);
+  const dim3 grid(Sq / bq, Hq, B * ln.L);
   kernel<<<grid, 2 * bq, smem, (cudaStream_t)stream>>>(
-      q, k, v, o, kept, live, work, Hq, Hkv, Sq, Skv, bq, bkv, n_enum,
-      scale * kLog2e, causal);
+      q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv, bq, bkv, n_enum,
+      scale * kLog2e, causal, ln.q, ln.kv, ln.live);
   return (int)cudaGetLastError();
 }
 
@@ -385,20 +402,20 @@ template <typename T>
 int launch_d(const T* q, const T* k, const T* v, T* o, const int* kept,
              const int* live, unsigned long long* work, int B, int Hq,
              int Hkv, int Sq, int Skv, int D, int bq, int bkv, int n_enum,
-             float scale, int causal, void* stream) {
+             float scale, int causal, Lanes ln, void* stream) {
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv,
-                           bq, bkv, n_enum, scale, causal, stream);
+                           bq, bkv, n_enum, scale, causal, ln, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv,
-                           bq, bkv, n_enum, scale, causal, stream);
+                           bq, bkv, n_enum, scale, causal, ln, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv,
-                           bq, bkv, n_enum, scale, causal, stream);
+                           bq, bkv, n_enum, scale, causal, ln, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq,
-                            Skv, bq, bkv, n_enum, scale, causal, stream);
+                            Skv, bq, bkv, n_enum, scale, causal, ln, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -410,16 +427,21 @@ int launch_d(const T* q, const T* k, const T* v, T* o, const int* kept,
 // 16-byte aligned; kept and live (n_enum) int32 on the device; work one
 // uint64 that the kernel adds the count of visited KV blocks to. Needs D in
 // {16, 32, 64, 128}, bq in {16, 32, 64, 128} dividing Sq and bkv a multiple
-// of 32 dividing Skv (the wrapper checks). Returns the launch's
+// of 32 dividing Skv (the wrapper checks). With L lanes, o is (L, B, Hq,
+// Sq, D) and live (L, n_enum); q and k / v are each shared or stacked per
+// lane (a leading L: q_stacked, kv_stacked). Returns the launch's
 // cudaError_t.
 extern "C" int attention_f32(const float* q, const float* k, const float* v,
                              float* o, const int* kept, const int* live,
                              unsigned long long* work, int B, int Hq, int Hkv,
                              int Sq, int Skv, int D, int bq, int bkv,
-                             int n_enum, float scale, int causal,
-                             void* stream) {
+                             int n_enum, float scale, int causal, int L,
+                             int q_stacked, int kv_stacked, void* stream) {
+  const Lanes ln{L, q_stacked ? (size_t)B * Hq * Sq * D : 0,
+                 kv_stacked ? (size_t)B * Hkv * Skv * D : 0,
+                 L > 1 ? n_enum : 0};
   return launch_d<float>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq, Skv, D,
-                         bq, bkv, n_enum, scale, causal, stream);
+                         bq, bkv, n_enum, scale, causal, ln, stream);
 }
 
 extern "C" int attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -428,8 +450,12 @@ extern "C" int attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               unsigned long long* work, int B, int Hq,
                               int Hkv, int Sq, int Skv, int D, int bq,
                               int bkv, int n_enum, float scale, int causal,
+                              int L, int q_stacked, int kv_stacked,
                               void* stream) {
+  const Lanes ln{L, q_stacked ? (size_t)B * Hq * Sq * D : 0,
+                 kv_stacked ? (size_t)B * Hkv * Skv * D : 0,
+                 L > 1 ? n_enum : 0};
   return launch_d<__nv_bfloat16>(q, k, v, o, kept, live, work, B, Hq, Hkv, Sq,
-                                 Skv, D, bq, bkv, n_enum, scale, causal,
+                                 Skv, D, bq, bkv, n_enum, scale, causal, ln,
                                  stream);
 }

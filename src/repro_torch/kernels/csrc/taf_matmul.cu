@@ -33,6 +33,24 @@
 //     slices straight from its memo: no barrier, no product, since a CTA
 //     copies only what it computed itself.
 //
+// Lanes. One call may carry L thresholds (the JAX package vmaps the kernel
+// over a stack of them); L > 1 runs `taf_lanes`, a single call (L = 1)
+// `taf_persistent` as above. Lanes that share x and w (the app's TAF group)
+// form one lane set of up to 32: the set walks the row blocks of a column
+// block together, each lane with its own window, countdown, last computed
+// tile and mask, and a step's product is computed once if any lane of the
+// set computes it, written to the y of every lane that does, so a group
+// costs about the union of its lanes' computed steps, not their sum; a
+// lane that approximates copies its last computed tile from its own y. A
+// stacked operand gives every lane its own products: then each lane is a
+// set of one, and the teams take (lane, column block) units in rounds as
+// they take column blocks, so L never multiplies the grid and the launch
+// stays co-resident. Each unit has its own arrival counter and float64
+// partials, one per column slice, summed in slice order, so a lane's tile
+// means, and its mask, are a single call's at its threshold whatever the
+// team's size; with several units per column block the host may give a
+// team more slices per CTA, so that more units run at once.
+//
 // The cooperative launch guarantees every CTA of the grid is resident, so
 // no CTA waits on a team mate that is not running; a launch that cannot be
 // co-resident fails and the wrapper raises. `work` counts the tiles whose
@@ -86,18 +104,21 @@ __device__ __forceinline__ int w_row(int k) {
   return k / kKc * kKc + (k & 3) * kGroups + (k % kKc) / 4;
 }
 
+// Lanes of one lane set: a bit each in the mask of lanes that compute a step.
+constexpr int kMaxLanes = 32;
+
 struct Layout {  // dynamic shared memory of one CTA, in floats, after the
-                 // window of h doubles
+                 // windows (nl lanes x h doubles)
   int xs, ws, memo, total;
   bool resident;
 };
 
 __host__ __device__ inline Layout layout(int K, int bm, int h, int spc,
-                                         bool resident) {
+                                         bool resident, int nl = 1) {
   const int k_pad = (K + kKc - 1) / kKc * kKc;
   Layout l;
   l.resident = resident;
-  l.xs = (2 * h + 3) / 4 * 4;                  // kStages x kRows x kKc
+  l.xs = (2 * h * nl + 3) / 4 * 4;             // kStages x kRows x kKc
   l.ws = l.xs + kStages * kRows * kXStride;    // W: resident or staged
   l.memo = l.ws + (resident ? spc * k_pad * kCols : kStages * kKc * kCols);
   l.total = l.memo + spc * bm * kCols;
@@ -109,14 +130,16 @@ struct Args {
   const float* w;
   float* y;
   int* mask;
-  double* partials;   // 2 x num_j x g
-  unsigned* arrive;   // num_j, zeroed by the host
-  const float* thresh;
+  double* partials;     // 2 x n_units x n_sub
+  unsigned* arrive;     // n_units, zeroed by the host
+  const float* thresh;  // L
   unsigned long long* work;
-  int M, K, N, bm, bn, cols, h, p, spc, g, n_teams;
+  int M, K, N, bm, bn, cols, h, p, spc, g, n_teams, n_units, L, nl;
+  size_t x_lane, w_lane;  // elements between lanes (0: shared)
   bool resident;
 };
 
+// One threshold (a single call): one column block a unit.
 __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
   extern __shared__ __align__(16) float sm[];
   __shared__ int remaining_s;
@@ -306,56 +329,313 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
   }
 }
 
+// The lane form (L > 1). kSet: units of several lanes that share x and w
+// (a.nl > 1); else one lane a unit, whose approximate steps copy the memo
+// in shared memory.
+template <bool kSet>
+__global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
+  extern __shared__ __align__(16) float sm[];
+  // the lane set's state, written by thread 0 on computed steps only: the
+  // step at which a lane computes next, its window fill and its last
+  // computed step
+  __shared__ int resume_s[kMaxLanes], filled_s[kMaxLanes], last_s[kMaxLanes];
+  __shared__ float thr_s[kMaxLanes];  // the lanes' thresholds
+  const Layout L = layout(a.K, a.bm, a.h, a.spc, a.resident, a.nl);
+  double* window = reinterpret_cast<double*>(sm);  // [lane][h]
+  float* xs = sm + L.xs;
+  float* ws = sm + L.ws;
+  float* memo = sm + L.memo;
+  float* red = xs;  // see Layout
+  const int tid = threadIdx.x;
+  const int kg = tid >> 2, rh = tid & 1, ch = (tid >> 1) & 1;
+  const int team = blockIdx.x / a.g, rank = blockIdx.x % a.g;
+  const int num_i = a.M / a.bm, num_j = a.N / a.bn, nkc = (a.K + kKc - 1) / kKc;
+  const int k_pad = nkc * kKc, n_sub = a.g * a.spc;
+
+  for (int unit = team; unit < a.n_units; unit += a.n_teams) {
+    // a unit: column block j of lane set `set` (lanes l0 .. l0 + nl - 1;
+    // one lane when an operand is stacked)
+    const int set = unit / num_j, j = unit % num_j;
+    const int l0 = set * a.nl, nl = kSet ? min(a.nl, a.L - l0) : 1;
+    const unsigned all = nl == 32 ? ~0u : (1u << nl) - 1u;  // nl <= 32
+    const float* xl = a.x + l0 * a.x_lane;
+    const float* wl = a.w + l0 * a.w_lane;
+    const int c_base = j * a.bn + rank * a.spc * a.cols;
+    auto y_of = [&](int l) { return a.y + (size_t)(l0 + l) * a.M * a.N; };
+    auto mask_at = [&](int l, int i) -> int& {
+      return a.mask[((size_t)(l0 + l) * num_i + i) * num_j + j];
+    };
+    // the W slices [s][w_row(k)][16], zero past K and past cols
+    auto load_w = [&](float* dst, int s, int k0, int nk) {
+      for (int f = tid; f < nk * 4; f += kThreads) {
+        const int k = k0 + (f >> 2), c = (f & 3) * 4;
+        const bool ok = k < a.K && c < a.cols;
+        cp_async16(dst + (size_t)(w_row(k) - k0) * kCols + c,
+                   ok ? wl + (size_t)k * a.N + c_base + s * a.cols + c
+                      : a.w, ok);
+      }
+    };
+    if (a.resident) {
+      for (int s = 0; s < a.spc; ++s)
+        load_w(ws + (size_t)s * k_pad * kCols, s, 0, k_pad);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    // The CTA's slices of the product of row block i2 into the y of every
+    // lane in `comp` (and the memo of a one-lane set); thread 0 writes each
+    // slice's float64 sum to parts[slice].
+    auto product = [&](int i2, double* parts, unsigned comp) {
+      for (int s = 0; s < a.spc; ++s) {
+        double my = 0.0;
+        for (int r0 = 0; r0 < a.bm; r0 += kRows) {
+          const float* x0 = xl + ((size_t)i2 * a.bm + r0) * a.K;
+          const int rn = min(kRows, a.bm - r0);
+          auto stage = [&](int kc, int buf) {
+            const int k0 = kc * kKc;
+            float* xb = xs + buf * kRows * kXStride;
+            for (int f = tid; f < kRows * kKc / 4; f += kThreads) {
+              const int r = f / (kKc / 4), k = (f % (kKc / 4)) * 4;
+              const bool ok = r < rn && k0 + k < a.K;
+              cp_async16(xb + r * kXStride + k,
+                         ok ? x0 + (size_t)r * a.K + k0 + k : a.x, ok);
+            }
+            if (!a.resident) load_w(ws + buf * kKc * kCols, s, k0, kKc);
+          };
+          float acc[8][8] = {};
+          for (int st = 0; st < kStages - 1; ++st) {
+            if (st < nkc) stage(st, st);
+            cp_async_commit();
+          }
+          for (int kc = 0; kc < nkc; ++kc) {
+            cp_async_wait<kStages - 2>();
+            __syncthreads();  // chunk kc has landed; kc - 1 is consumed
+            if (kc + kStages - 1 < nkc)
+              stage(kc + kStages - 1, (kc + kStages - 1) % kStages);
+            cp_async_commit();
+            const float* xb =
+                xs + (kc % kStages) * kRows * kXStride + 4 * kg;
+            const float* wb =
+                (a.resident ? ws + ((size_t)s * k_pad + kc * kKc) * kCols
+                            : ws + (kc % kStages) * kKc * kCols) +
+                kg * kCols + 8 * ch;
+            float4 xv[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              xv[r] = *reinterpret_cast<const float4*>(
+                  xb + (rh + 2 * r) * kXStride);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float4 b0 = *reinterpret_cast<const float4*>(
+                  wb + u * kGroups * kCols);
+              const float4 b1 = *reinterpret_cast<const float4*>(
+                  wb + u * kGroups * kCols + 4);
+              const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                                  b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+              for (int r = 0; r < 8; ++r) {
+                const float xr = u == 0   ? xv[r].x
+                                 : u == 1 ? xv[r].y
+                                 : u == 2 ? xv[r].z
+                                          : xv[r].w;
+#pragma unroll
+                for (int c = 0; c < 8; ++c)
+                  acc[r][c] = fmaf(xr, b[c], acc[r][c]);
+              }
+            }
+          }
+          cp_async_wait<0>();
+          __syncthreads();  // every thread is done with the ring
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            float* dst = red + (kg * kRows + rh + 2 * r) * kCols + 8 * ch;
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+            *reinterpret_cast<float4*>(dst + 4) =
+                make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+          }
+          __syncthreads();
+          if (tid < kRows * kCols) {
+            const int r = tid / kCols, c = tid % kCols;
+            if (r < rn && c < a.cols) {
+              float v = 0.f;
+              for (int g = 0; g < kGroups; ++g)
+                v += red[(g * kRows + r) * kCols + c];
+              const size_t off = ((size_t)i2 * a.bm + r0 + r) * a.N +
+                                 c_base + s * a.cols + c;
+              for (unsigned bits = comp; bits; bits &= bits - 1)
+                y_of(__ffs(bits) - 1)[off] = v;
+              if (!kSet) memo[((size_t)s * a.bm + r0 + r) * kCols + c] = v;
+              my += (double)v;
+            }
+          }
+          __syncthreads();  // red is free
+        }
+        const double tot = repro::block_sum<kWarps>(my);
+        if (tid == 0) parts[rank * a.spc + s] = tot;
+      }
+    };
+    for (int t = tid; t < nl * a.h; t += kThreads) window[t] = 0.0;
+    if (tid < nl) {
+      resume_s[tid] = 0;
+      filled_s[tid] = 0;
+      last_s[tid] = -1;
+      thr_s[tid] = a.thresh[l0 + tid];
+    }
+    int steps = 0;  // computed steps, the same in every thread
+    __syncthreads();
+    for (int i = 0; i < num_i; ++i) {
+      // the lanes that compute step i, the same in every thread; the state
+      // changes only on a computed step, past its barriers, so a step that
+      // every lane approximates passes no barrier
+      unsigned comp = 0;
+      for (int l = 0; l < nl; ++l) comp |= (unsigned)(resume_s[l] <= i) << l;
+      // the lanes that approximate copy their memo, no product: one lane
+      // from its memo in shared memory, a lane set from the lane's last
+      // computed tile in its own y (written by this CTA, so visible past
+      // the barriers since)
+      for (unsigned bits = all & ~comp; bits; bits &= bits - 1) {
+        const int l = __ffs(bits) - 1;
+        float* yl = y_of(l);
+        float* y_i = yl + (size_t)i * a.bm * a.N + c_base;
+        const float* src = yl + (size_t)last_s[l] * a.bm * a.N + c_base;
+        for (int e = tid; e < a.spc * a.bm * a.cols; e += kThreads) {
+          const int c = e % a.cols, r = (e / a.cols) % a.bm,
+                    s = e / (a.cols * a.bm);
+          y_i[(size_t)r * a.N + s * a.cols + c] =
+              kSet ? src[(size_t)r * a.N + s * a.cols + c]
+                   : memo[((size_t)s * a.bm + r) * kCols + c];
+        }
+        if (tid == 0 && rank == 0) mask_at(l, i) = 1;
+      }
+      if (comp) {
+        // computed: the product of tile (i, j) once for every computing
+        // lane, then the team barrier
+        double* parts =
+            a.partials + ((size_t)(steps & 1) * a.n_units + unit) * n_sub;
+        product(i, parts, comp);
+        ++steps;
+        if (tid == 0) {
+          __threadfence();
+          atomicAdd(a.arrive + unit, 1u);
+          const unsigned target = (unsigned)steps * a.g;
+          while (*reinterpret_cast<volatile unsigned*>(a.arrive + unit) <
+                 target)
+            __nanosleep(32);
+          __threadfence();
+        }
+        __syncthreads();
+        // the unit's slice sums in slice order, the same in every CTA
+        double v = 0.0;
+        for (int t = tid; t < n_sub; t += kThreads) v += __ldcg(parts + t);
+        const double sum = repro::block_sum<kWarps>(v);
+        if (tid == 0) {  // the same state update in every CTA of the team
+          const float mean = (float)(sum / ((double)a.bm * a.bn));
+          for (unsigned bits = comp; bits; bits &= bits - 1) {
+            const int l = __ffs(bits) - 1;
+            double* win = window + l * a.h;
+            for (int t = 0; t + 1 < a.h; ++t) win[t] = win[t + 1];
+            win[a.h - 1] = (double)mean;
+            filled_s[l] = min(filled_s[l] + 1, a.h);
+            int next = 0;
+            if (filled_s[l] >= a.h) {
+              double mu = 0.0;
+              for (int t = 0; t < a.h; ++t) mu += win[t];
+              mu /= a.h;
+              double var = 0.0;
+              for (int t = 0; t < a.h; ++t) {
+                const double d = win[t] - mu;
+                var += d * d;
+              }
+              const double sigma = sqrt(var / a.h);
+              if (sigma / fmax(fabs(mu), 1e-12) < (double)thr_s[l])
+                next = a.p;
+            }
+            resume_s[l] = i + 1 + next;
+            last_s[l] = i;
+            if (rank == 0) mask_at(l, i) = 0;
+          }
+        }
+        __syncthreads();  // the lane state is settled for step i + 1
+      }
+    }
+    if (tid == 0 && rank == 0) atomicAdd(a.work, (unsigned long long)steps);
+    __syncthreads();  // the memo and W slices are free for the next round
+  }
+}
+
 }  // namespace
 
 // x (M, K), w (K, N) float32 row-major, 16-byte aligned, K and N multiples
-// of 4; y (M, N); mask (M/bm, N/bn) int32. cols (<= 16, a multiple of 4)
-// divides bn. Scratch from the caller: partials (2 * N / cols) float64,
-// arrive (N / bn) uint32. thresh is one float32 on the device; work one
-// uint64 that the kernel adds to. One memset and one cooperative launch;
-// returns the first cudaError_t (cudaErrorCooperativeLaunchTooLarge where
-// the teams cannot be co-resident).
+// of 4, each either shared by the L lanes or stacked per lane (x_stacked /
+// w_stacked: (L, M, K) / (L, K, N)); y (L, M, N); mask (L, M/bm, N/bn)
+// int32. cols (<= 16, a multiple of 4) divides bn. Scratch from the caller:
+// partials (2 * L * N / cols) float64, arrive (L * N / bn) uint32. thresh
+// is L float32 on the device; work one uint64 that the kernel adds to. One
+// memset and one cooperative launch; returns the first cudaError_t
+// (cudaErrorCooperativeLaunchTooLarge where no team can be co-resident).
 extern "C" int taf_matmul_f32(const float* x, const float* w, float* y,
                               int* mask, double* partials, unsigned* arrive,
                               const float* thresh, unsigned long long* work,
                               int M, int K, int N, int bm, int bn, int cols,
-                              int h, int p, void* stream) {
+                              int h, int p, int L, int x_stacked,
+                              int w_stacked, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int dev = 0, n_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  // lanes that share x and w share each computed product: one lane set of
+  // up to kMaxLanes; a stacked operand gives each lane its own units
+  const int nl = x_stacked || w_stacked ? 1 : std::min(L, kMaxLanes);
   const int n_sub = bn / cols, num_j = N / bn;
-  // the fewest slices per CTA that let a team be co-resident; W resident
-  // in shared memory where it fits
+  const int n_units = (L + nl - 1) / nl * num_j;
   Args a{x, w, y, mask, partials, arrive, thresh, work, M, K, N, bm, bn,
-         cols, h, p, 0, 0, 0, false};
+         cols, h, p, 0, 0, 0, n_units, L, nl,
+         x_stacked ? (size_t)M * K : 0, w_stacked ? (size_t)K * N : 0,
+         false};
+  void (*kernel)(Args) = L == 1   ? taf_persistent
+                         : nl > 1 ? taf_lanes<true>
+                                  : taf_lanes<false>;
+  // Slices per CTA: one column block a unit (a single call, or one lane
+  // set) takes the fewest that let a team be co-resident (its teams then
+  // have the most CTAs); more units take the count that minimizes rounds x
+  // (1 + spc), a computed step costing about as much fixed work (the
+  // team's exchange) as one slice's product.
   size_t smem = 0;
   int resident_ctas = 0;
-  for (int spc = 1; spc <= n_sub && !a.spc; ++spc) {
+  long best = -1;
+  for (int spc = 1; spc <= n_sub; ++spc) {
     if (n_sub % spc) continue;
-    Layout l = layout(K, bm, h, spc, true);
+    Layout l = layout(K, bm, h, spc, true, nl);
     if ((size_t)l.total * 4 > (size_t)repro::kMaxSmem)
-      l = layout(K, bm, h, spc, false);
+      l = layout(K, bm, h, spc, false, nl);
     if ((size_t)l.total * 4 > (size_t)repro::kMaxSmem) break;
-    smem = (size_t)l.total * 4;
-    cudaFuncSetAttribute(taf_persistent,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+    const size_t bytes = (size_t)l.total * 4;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
     int occ = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, taf_persistent,
-                                                  kThreads, smem);
-    resident_ctas = occ * n_sm;
-    if (n_sub / spc <= resident_ctas) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads,
+                                                  bytes);
+    const int g = n_sub / spc;
+    if (g > occ * n_sm) continue;
+    const int teams = std::min(n_units, occ * n_sm / g);
+    const long cost = (long)((n_units + teams - 1) / teams) * (1 + spc);
+    if (best < 0 || cost < best) {
+      best = cost;
       a.spc = spc;
       a.resident = l.resident;
+      smem = bytes;
+      resident_ctas = occ * n_sm;
     }
+    if (n_units == num_j) break;
   }
   if (!a.spc) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
   a.g = n_sub / a.spc;
-  a.n_teams = std::min(num_j, resident_ctas / a.g);
-  cudaMemsetAsync(arrive, 0, sizeof(unsigned) * num_j, st);
+  a.n_teams = std::min(n_units, resident_ctas / a.g);
+  cudaMemsetAsync(arrive, 0, sizeof(unsigned) * n_units, st);
   void* args[] = {&a};
   return (int)cudaLaunchCooperativeKernel(
-      (const void*)taf_persistent, dim3(a.n_teams * a.g), dim3(kThreads),
-      args, smem, st);
+      (const void*)kernel, dim3(a.n_teams * a.g), dim3(kThreads), args, smem,
+      st);
 }

@@ -15,8 +15,16 @@ launches compute the FFN over the computed rows only; `iact_fill` copies
 y[src[r]] into the approximated rows. See the source note in
 `csrc/iact_memo.cu`.
 
+Lanes: an (L,) threshold tensor runs L thresholds in one call (the JAX
+package's `jax.vmap` of the kernel over a knob stack): one `iact_schedule`
+cluster of 8 CTAs per lane, side by side, then the two GEMM launches and
+`iact_fill`. Lanes that share x, w1 and w2 (the app's group) compute each
+block's FFN rows once for every lane that computes it (`iact_union` lists
+the union first: five launches); with a stacked operand the GEMMs take the
+lane in grid z (four). y is (L, N, d_out), the mask (L, N/block_rows).
+
 Plain versions: `ref.iact_rowfn_ref` (the sequential table, taken for CPU
-tensors), `schedule_plain` (of `iact_schedule`) and `iact_rowfn_plain`
+tensors; `ref.iact_rowfn_lanes_ref` for a lane stack), `schedule_plain` (of `iact_schedule`) and `iact_rowfn_plain`
 (schedule, FFN on the computed rows, fill). The threshold reaches the
 kernel as a float32 device tensor.
 """
@@ -28,14 +36,19 @@ import torch
 
 from . import _build
 from .ref import gelu_tanh
+from .ref import iact_rowfn_lanes_ref as plain_lanes
 from .ref import iact_rowfn_ref as plain
+from .ref import lane_count
 
 SOURCE = "src/repro_torch/kernels/csrc/iact_memo.cu"
 REPLACES = "src/repro/kernels/iact_memo.py:103"
 COUNTER = _build.Counter("iact_rowfn")
 CUDA_KERNELS = ("iact_schedule", "iact_ffn1", "iact_ffn2", "iact_fill")
+# a lane stack that shares every operand also lists the union of its lanes'
+# computed blocks first
+LANE_CUDA_KERNELS = CUDA_KERNELS + ("iact_union",)
 
-_ROWFN_ARGTYPES = [_build.P] * 11 + [_build.I] * 6 + [_build.P]
+_ROWFN_ARGTYPES = [_build.P] * 11 + [_build.I] * 10 + [_build.P] * 3
 _SCHEDULE_ARGTYPES = [_build.P] * 7 + [_build.I] * 4 + [_build.P]
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _BIG = 3.4e38  # the score of an empty slot
@@ -75,9 +88,9 @@ def launchable(shapes: Sequence[Sequence[int]], config: Dict[str, int],
 
 
 def _check(x, w1, w2, block_rows, table_size):
-    n, d_in = x.shape
-    d_h = w1.shape[1]
-    if w1.shape[0] != d_in or w2.shape[0] != d_h:
+    n, d_in = x.shape[-2:]
+    d_h = w1.shape[-1]
+    if w1.shape[-2] != d_in or w2.shape[-2] != d_h:
         raise ValueError(
             f"iact_rowfn layer width mismatch: x is (N={n}, d_in={d_in}) so "
             f"w1 must be (d_in, d_h) and w2 (d_h, d_out); got "
@@ -191,38 +204,47 @@ def schedule(x: torch.Tensor, block_rows: int, table_size: int, threshold
 def iact_rowfn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
                block_rows: int, table_size: int = 4, threshold=0.5,
                out_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (N, d_out), block_approx_mask (N/block_rows,) bool).
+    """Returns (y (N, d_out), block_approx_mask (N/block_rows,) bool); with
+    an (L,) `threshold`, (y (L, N, d_out), mask (L, N/block_rows)).
 
     A CPU `x` takes the plain version; a CUDA `x` launches the kernels."""
     _check(x, w1, w2, block_rows, table_size)
+    lanes = lane_count(threshold, (x, 2), (w1, 2), (w2, 2))
     if x.device.type != "cuda":
-        return plain(x, w1, w2, block_rows=block_rows, table_size=table_size,
-                     threshold=threshold, out_dtype=out_dtype)
+        fn = plain_lanes if lanes else plain
+        return fn(x, w1, w2, block_rows=block_rows, table_size=table_size,
+                  threshold=threshold, out_dtype=out_dtype)
     dev = x.device
     if w1.device != dev or w2.device != dev:
         raise ValueError("iact_rowfn: x, w1 and w2 must share one device")
-    why = launchable((x.shape, w1.shape, w2.shape),
+    n, d_in = x.shape[-2:]
+    d_h, d_out = w1.shape[-1], w2.shape[-1]
+    why = launchable(((n, d_in), (d_in, d_h), (d_h, d_out)),
                      dict(block_rows=block_rows), table_size)
     if why:
         raise ValueError(why)
-    n, d_in = x.shape
-    d_h, d_out = w1.shape[1], w2.shape[1]
+    n_l = max(lanes, 1)
     xf, w1f, w2f = (_build.operand(t) for t in (x, w1, w2))
     thr = torch.as_tensor(threshold, dtype=torch.float32,
-                          device=dev).reshape(1)
+                          device=dev).reshape(n_l).contiguous()
     i32 = dict(dtype=torch.int32, device=dev)
-    y = torch.empty((n, d_out), dtype=torch.float32, device=dev)
-    mask = torch.empty((n // block_rows,), **i32)
-    lst = torch.empty((n // block_rows,), **i32)
-    n_comp = torch.empty((1,), **i32)
-    src = torch.empty((n,), **i32)
-    h = torch.empty((n, d_h), dtype=torch.float32, device=dev)
+    y = torch.empty((n_l, n, d_out), dtype=torch.float32, device=dev)
+    mask = torch.empty((n_l, n // block_rows), **i32)
+    lst = torch.empty((n_l, n // block_rows), **i32)
+    n_comp = torch.empty((n_l,), **i32)
+    src = torch.empty((n_l, n), **i32)
+    h = torch.empty((n_l, n, d_h), dtype=torch.float32, device=dev)
+    lst_u = torch.empty((n // block_rows,), **i32)
+    n_u = torch.empty((1,), **i32)
     work = COUNTER.work_buffer(dev)
     fn = _build.function("iact_rowfn_f32", _ROWFN_ARGTYPES)
     p = _build.ptr
     err = fn(p(xf), p(w1f), p(w2f), p(y), p(mask), p(lst), p(n_comp),
              p(src), p(h), p(thr), p(work), n, d_in, d_h, d_out, block_rows,
-             table_size, _build.stream(dev))
-    COUNTER.launches += 1
+             table_size, n_l, int(x.dim() == 3), int(w1.dim() == 3),
+             int(w2.dim() == 3), p(lst_u), p(n_u), _build.stream(dev))
+    COUNTER.launched(lanes)
     _build.check("iact_rowfn", err)
+    if not lanes:
+        y, mask = y[0], mask[0]
     return y.to(out_dtype), mask.bool()

@@ -10,7 +10,11 @@ Same signatures as the JAX package's wrappers:
   * quality knobs (`rsd_threshold`, `threshold`, `fraction`) reach the
     kernels as float32 device tensors, never as compile-time constants;
   * `pipeline=` is accepted so the signatures match: every kernel here has
-    one launch path, and both values run it.
+    one launch path, and both values run it;
+  * lanes: an (L,) knob tensor runs L knobs in one wrapper call (one launch
+    chain), the counterpart of the JAX package's `jax.vmap` of a kernel over
+    a knob stack; operands are shared or stacked with a leading L, and the
+    outputs gain a leading L. `launch_counts` counts one call per group.
 
 A CPU tensor goes to the kernel's plain PyTorch version (`ref.py`); a CUDA
 tensor goes to the kernel, and any failure raises. Each kernel module keeps
@@ -34,13 +38,22 @@ KERNELS = {"taf_matmul": _taf_mod, "iact_rowfn": iact_memo,
            "perforated_attention": _attn_mod}
 
 
+# dimensions of each kernel's operands in a single call (one more when
+# stacked over lanes)
+_NDIM = {"taf_matmul": 2, "iact_rowfn": 2, "perforated_matmul": 2,
+         "perforated_attention": 4}
+
+
 def resolve_blocks(kernel: str, arrays: Sequence[torch.Tensor], dtype,
                    **blocks: Optional[int]) -> Dict[str, int]:
     """Fill None block args from the tuning cache (an exact-shape hit for
-    the arrays' device) or the fallbacks. Explicit ints pass through."""
+    the arrays' device, at one lane's shapes) or the fallbacks. Explicit
+    ints pass through."""
     if all(v is not None for v in blocks.values()):
         return {k: int(v) for k, v in blocks.items()}
-    shapes = tuning.operand_shapes(arrays)
+    nd = _NDIM[kernel]
+    shapes = tuning.operand_shapes([a[0] if a.dim() > nd else a
+                                    for a in arrays])
     tuned = tuning.tuned_config(kernel, shapes,
                                 dtype=tuning.dtype_name(dtype),
                                 device=arrays[0].device) or {}
@@ -51,6 +64,12 @@ def resolve_blocks(kernel: str, arrays: Sequence[torch.Tensor], dtype,
 
 def launch_counts() -> Dict[str, int]:
     return {name: mod.COUNTER.launches for name, mod in KERNELS.items()}
+
+
+def lane_counts() -> Dict[str, int]:
+    """Wrapper calls that ran a lane stack (one call for a group's L
+    knobs), a part of `launch_counts`."""
+    return {name: mod.COUNTER.lane_calls for name, mod in KERNELS.items()}
 
 
 def work_counts() -> Dict[str, int]:

@@ -17,11 +17,19 @@ Two perforation modes share one kernel:
     gates each one -- any fraction runs the same launch and nothing is read
     back to the host.
 
+Lanes (masked mode only): an (L,) fraction tensor runs L fractions in one
+launch (the JAX package's `jax.vmap` over a knob stack), the lane in grid
+z beside the batch, each lane's liveness vector built on the device from
+its fraction. q, k and v are each shared ((B, H, S, D)) or stacked per
+lane; the output is (L, B, Hq, Sq, D). Structural perforation has no knob
+and keeps its single form.
+
 The kernel runs on the tensor cores: 3xTF32 for float32 (float32
 accuracy), bf16 in one pass for bfloat16. `launchable` says which head
 dims and blocks it takes.
 
-Plain version: `ref.attention_ref`, taken for CPU tensors.
+Plain version: `ref.attention_ref` (`ref.attention_lanes_ref` for a lane
+stack), taken for CPU tensors.
 """
 from __future__ import annotations
 
@@ -34,15 +42,18 @@ from . import _build
 from ..core.perforation import (FRACTION_KINDS, kept_indices,
                                 traced_execute_mask)
 from ..core.types import PerforationParams
+from .ref import attention_lanes_ref as plain_lanes
 from .ref import attention_ref as plain
+from .ref import lane_count
 
 SOURCE = "src/repro_torch/kernels/csrc/perforated_attention.cu"
 REPLACES = "src/repro/kernels/perforated_attention.py:110"
 COUNTER = _build.Counter("perforated_attention")
 CUDA_KERNELS = ("attn_kernel",)  # the CUDA kernel one call launches
+LANE_CUDA_KERNELS = CUDA_KERNELS  # a lane stack: the lane in grid z
 
-_ARGTYPES = [_build.P] * 7 + [_build.I] * 9 + [_build.F, _build.I,
-                                                _build.P]
+_ARGTYPES = ([_build.P] * 7 + [_build.I] * 9 + [_build.F]
+             + [_build.I] * 4 + [_build.P])
 HEAD_DIMS = (16, 32, 64, 128)   # D the kernel is instantiated for
 BLOCK_Q = (16, 32, 64, 128)     # 16 query rows a warp, at most 8 warps
 _CHUNK = 32   # keys of one chunk: block_kv must be a multiple
@@ -62,9 +73,9 @@ def smem_bytes(d: int, n_blocks: int, itemsize: int = 4) -> int:
 
 
 def _check(q, k, v, block_q, block_kv, perfo, fraction):
-    b, hq, sq, d = q.shape
-    _, hkv, skv, dk = k.shape
-    if dk != d or v.shape != k.shape or k.shape[0] != b or hq % hkv:
+    b, hq, sq, d = q.shape[-4:]
+    _, hkv, skv, dk = k.shape[-4:]
+    if dk != d or v.shape != k.shape or k.shape[-4] != b or hq % hkv:
         raise ValueError(
             f"perforated_attention operand mismatch: q is "
             f"(B, Hq, Sq, D)={tuple(q.shape)} so k and v must share "
@@ -110,7 +121,7 @@ def _check_kernel_geometry(q, k, v, block_q, block_kv):
         raise ValueError(
             f"perforated_attention kernel takes float32 or bfloat16 q/k/v "
             f"of one type; got {q.dtype}, {k.dtype}, {v.dtype}")
-    why = launchable((q.shape, k.shape),
+    why = launchable((q.shape[-4:], k.shape[-4:]),
                      dict(block_q=block_q, block_kv=block_kv))
     if why:
         raise ValueError(why)
@@ -127,11 +138,14 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hq % Hkv == 0.
 
     Returns (B, Hq, Sq, D) in q.dtype. Queries sit at the END of the KV
-    timeline (offset = Skv - Sq). `fraction` selects the masked mode.
+    timeline (offset = Skv - Sq). `fraction` selects the masked mode; an
+    (L,) `fraction` runs L lanes (q, k, v shared or stacked with a leading
+    L) and returns (L, B, Hq, Sq, D).
     """
     _check(q, k, v, block_q, block_kv, perfo, fraction)
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    lanes = lane_count(fraction, (q, 4), (k, 4), (v, 4))
+    b, hq, sq, d = q.shape[-4:]
+    hkv, skv = k.shape[-3], k.shape[-2]
     nkv = skv // block_kv
     kept_np = None
     if fraction is None:
@@ -140,8 +154,9 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if len(kept_np) == 0:
             raise ValueError("perforation dropped every KV block")
     if q.device.type != "cuda":
-        return plain(q, k, v, causal=causal, block_kv=block_kv, perfo=perfo,
-                     fraction=fraction, scale=scale)
+        fn = plain_lanes if lanes else plain
+        return fn(q, k, v, causal=causal, block_kv=block_kv, perfo=perfo,
+                  fraction=fraction, scale=scale)
     _check_kernel_geometry(q, k, v, block_q, block_kv)
     dev = q.device
     if fraction is not None:
@@ -150,21 +165,25 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 if isinstance(fraction, torch.Tensor) else
                 torch.full((), float(fraction), dtype=torch.float32,
                            device=dev))
-        live = traced_execute_mask(nkv, perfo, frac).to(torch.int32)
+        # (nkv,), or (L, nkv): one liveness vector per lane
+        live = traced_execute_mask(nkv, perfo, frac[..., None]
+                                   if lanes else frac).to(torch.int32)
     else:
         kept, live = _enumeration(nkv, perfo, kept_np, dev)
     scale = scale if scale is not None else float(1.0 / np.sqrt(d))
     qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
-    o = torch.empty_like(qc)
+    n_l = max(lanes, 1)
+    o = torch.empty((n_l, b, hq, sq, d), dtype=q.dtype, device=dev)
     work = COUNTER.work_buffer(dev)
     fn = _build.function(_ENTRIES[q.dtype], _ARGTYPES)
     p = _build.ptr
-    err = fn(p(qc), p(kc), p(vc), p(o), p(kept), p(live), p(work), b, hq,
-             hkv, sq, skv, d, block_q, block_kv, int(kept.shape[0]),
-             float(scale), int(causal), _build.stream(dev))
-    COUNTER.launches += 1
+    err = fn(p(qc), p(kc), p(vc), p(o), p(kept), p(live),
+             p(work), b, hq, hkv, sq, skv, d, block_q, block_kv,
+             int(kept.shape[0]), float(scale), int(causal), n_l,
+             int(q.dim() == 5), int(k.dim() == 5), _build.stream(dev))
+    COUNTER.launched(lanes)
     _build.check("perforated_attention", err)
-    return o
+    return o if lanes else o[0]
 
 
 # the enumerated KV blocks and their all-ones liveness on the device, built

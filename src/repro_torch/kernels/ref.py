@@ -35,6 +35,36 @@ def gelu_tanh(h: torch.Tensor) -> torch.Tensor:
     return F.gelu(h, approximate="tanh")
 
 
+def lane_count(knob, *operands: Tuple[torch.Tensor, int]) -> int:
+    """L of a lane stack: the length of a 1-d `knob` (0 for a 0-d knob,
+    the single-call path). Each (tensor, ndim) operand has `ndim`
+    dimensions when shared and one more, of length L, when stacked; a
+    stacked operand needs a 1-d knob of its length."""
+    t = knob if isinstance(knob, torch.Tensor) else None
+    lanes = 0 if t is None or t.dim() == 0 else int(t.shape[0])
+    if t is not None and t.dim() > 1:
+        raise ValueError(f"a knob is 0-d or (L,), got {tuple(t.shape)}")
+    for op, nd in operands:
+        if op.dim() == nd + 1 and op.shape[0] != lanes:
+            raise ValueError(
+                f"an operand stacked over {op.shape[0]} lanes needs an "
+                f"(L,) knob of that length, got {lanes or 'a 0-d knob'}")
+        if op.dim() not in (nd, nd + 1):
+            raise ValueError(f"operand of shape {tuple(op.shape)}: expected "
+                             f"{nd} dimensions, or {nd + 1} stacked")
+    return lanes
+
+
+def lane(t: torch.Tensor, i: int, ndim: int) -> torch.Tensor:
+    """Lane `i`'s operand: `t[i]` when `t` is stacked (`ndim` + 1
+    dimensions), else `t` itself (shared by every lane)."""
+    return t[i] if t.dim() == ndim + 1 else t
+
+
+def _stack_lanes(outs):
+    return tuple(torch.stack(z) for z in zip(*outs))
+
+
 def matmul_ref(x: torch.Tensor, w: torch.Tensor,
                out_dtype=torch.float32) -> torch.Tensor:
     return (x.float() @ w.float()).to(out_dtype)
@@ -92,6 +122,19 @@ def taf_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
                 if sigma / max(abs(mu), 1e-12) < thr:
                     remaining = prediction_size
     return y.to(out_dtype), torch.as_tensor(approx, device=x.device)
+
+
+def taf_matmul_lanes_ref(x: torch.Tensor, w: torch.Tensor, *,
+                         rsd_threshold, **kw
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`taf_matmul_ref` over an (L,) threshold stack, lane by lane: x and w
+    shared or stacked per lane. Returns (y (L, M, N), mask (L, M/bm,
+    N/bn))."""
+    th = torch.as_tensor(rsd_threshold, dtype=torch.float32)
+    return _stack_lanes(
+        taf_matmul_ref(lane(x, i, 2), lane(w, i, 2), rsd_threshold=th[i],
+                       **kw)
+        for i in range(th.shape[0]))
 
 
 # ----------------------------------------------------------------------------
@@ -155,6 +198,19 @@ def iact_rowfn_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
         any_valid = True
         cursor = (cursor + 1) % table_size
     return y.to(out_dtype), torch.as_tensor(approx, device=dev)
+
+
+def iact_rowfn_lanes_ref(x: torch.Tensor, w1: torch.Tensor,
+                         w2: torch.Tensor, *, threshold, **kw
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`iact_rowfn_ref` over an (L,) threshold stack, lane by lane: x, w1
+    and w2 shared or stacked per lane. Returns (y (L, N, d_out), mask (L,
+    N/block_rows))."""
+    th = torch.as_tensor(threshold, dtype=torch.float32)
+    return _stack_lanes(
+        iact_rowfn_ref(lane(x, i, 2), lane(w1, i, 2), lane(w2, i, 2),
+                       threshold=th[i], **kw)
+        for i in range(th.shape[0]))
 
 
 # ----------------------------------------------------------------------------
@@ -295,3 +351,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
     out = probs @ vf
     return out.to(out_dtype or q.dtype)
+
+
+def attention_lanes_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, fraction, **kw) -> torch.Tensor:
+    """`attention_ref` in masked mode over an (L,) fraction stack, lane by
+    lane: q, k and v shared ((B, H, S, D)) or stacked per lane. Returns
+    (L, B, Hq, Sq, D)."""
+    fr = torch.as_tensor(fraction, dtype=torch.float32)
+    return torch.stack([
+        attention_ref(lane(q, i, 4), lane(k, i, 4), lane(v, i, 4),
+                      fraction=fr[i].to(q.device), **kw)
+        for i in range(fr.shape[0])])

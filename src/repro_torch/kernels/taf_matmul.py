@@ -14,9 +14,19 @@ after each computed tile to make the same state update, and copies its memo
 for the predicted tiles without a barrier. See the source note in
 `csrc/taf_matmul.cu` for the design and what bounds it.
 
-Plain version: `ref.taf_matmul_ref`, taken for CPU tensors. The threshold
-reaches the kernel as a float32 device tensor, never a compile-time
-constant.
+Lanes: an (L,) threshold tensor runs L thresholds in one call (the JAX
+package's `jax.vmap` of the kernel over a knob stack). x and w are each
+shared ((M, K), (K, N)) or stacked per lane ((L, M, K), (L, K, N)); y is
+(L, M, N) and the mask (L, M/bm, N/bn). Lanes that share x and w share
+each computed product (a step is computed once if any lane computes it);
+with a stacked operand the teams take (lane, column block) units in
+rounds. One launch (`taf_lanes`; a single call runs `taf_persistent`)
+serves every lane, and each lane's mask equals a single
+call's at its threshold. The device tally counts products computed.
+
+Plain version: `ref.taf_matmul_ref` (`ref.taf_matmul_lanes_ref` for a
+lane stack), taken for CPU tensors. The threshold reaches the kernel as a
+float32 device tensor, never a compile-time constant.
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from .ref import lane_count
+from .ref import taf_matmul_lanes_ref as plain_lanes
 from .ref import taf_matmul_ref as plain
 
 SOURCE = "src/repro_torch/kernels/csrc/taf_matmul.cu"
@@ -32,8 +44,9 @@ REPLACES = "src/repro/kernels/taf_matmul.py:86"
 COUNTER = _build.Counter("taf_matmul")
 
 CUDA_KERNELS = ("taf_persistent",)
+LANE_CUDA_KERNELS = ("taf_lanes",)  # what a call with L > 1 lanes runs
 
-_ARGTYPES = [_build.P] * 8 + [_build.I] * 8 + [_build.P]
+_ARGTYPES = [_build.P] * 8 + [_build.I] * 11 + [_build.P]
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _N_SM = 132          # SMs of an H100 SXM: co-resident CTAs at one an SM
 # the kernel's dynamic shared memory outside the W slices and memo (bytes):
@@ -82,8 +95,8 @@ def launchable(shapes: Sequence[Sequence[int]],
 
 
 def _check(x, w, block_m, block_n, history_size, prediction_size):
-    m, k = x.shape
-    k2, n = w.shape
+    m, k = x.shape[-2:]
+    k2, n = w.shape[-2:]
     if k != k2:
         raise ValueError(
             f"taf_matmul contraction mismatch: x has K={k} columns but w "
@@ -100,42 +113,48 @@ def taf_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
                block_n: int, history_size: int = 3, prediction_size: int = 8,
                rsd_threshold=0.5, out_dtype=torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (M, N), approx_mask (M/block_m, N/block_n) bool).
+    """Returns (y (M, N), approx_mask (M/block_m, N/block_n) bool); with an
+    (L,) `rsd_threshold`, (y (L, M, N), approx_mask (L, M/bm, N/bn)).
 
     A CPU `x` takes the plain version; a CUDA `x` launches the kernel (its
     operands are cast to float32 first, as the Pallas kernel casts them)."""
     _check(x, w, block_m, block_n, history_size, prediction_size)
+    lanes = lane_count(rsd_threshold, (x, 2), (w, 2))
     if x.device.type != "cuda":
-        return plain(x, w, block_m=block_m, block_n=block_n,
-                     history_size=history_size,
-                     prediction_size=prediction_size,
-                     rsd_threshold=rsd_threshold, out_dtype=out_dtype)
+        fn = plain_lanes if lanes else plain
+        return fn(x, w, block_m=block_m, block_n=block_n,
+                  history_size=history_size, prediction_size=prediction_size,
+                  rsd_threshold=rsd_threshold, out_dtype=out_dtype)
     if w.device != x.device:
         raise ValueError(f"taf_matmul: w is on {w.device}, x on {x.device}")
-    why = launchable((x.shape, w.shape),
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    why = launchable(((m, k), (k, n)),
                      dict(block_m=block_m, block_n=block_n))
     if why:
         raise ValueError(why)
     dev = x.device
-    m, k = x.shape
-    n = w.shape[1]
     cols = column_slice(block_n)
     num_i, num_j = m // block_m, n // block_n
+    n_l = max(lanes, 1)
     xf = _build.operand(x)
     wf = _build.operand(w)
     thr = torch.as_tensor(rsd_threshold, dtype=torch.float32,
-                          device=dev).reshape(1)
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
-    mask = torch.empty((num_i, num_j), dtype=torch.int32, device=dev)
-    partials = torch.empty((2 * (n // cols),), dtype=torch.float64,
+                          device=dev).reshape(n_l).contiguous()
+    y = torch.empty((n_l, m, n), dtype=torch.float32, device=dev)
+    mask = torch.empty((n_l, num_i, num_j), dtype=torch.int32, device=dev)
+    partials = torch.empty((2 * n_l * (n // cols),), dtype=torch.float64,
                            device=dev)
-    arrive = torch.empty((num_j,), dtype=torch.int32, device=dev)
+    arrive = torch.empty((n_l * num_j,), dtype=torch.int32, device=dev)
     work = COUNTER.work_buffer(dev)
     fn = _build.function("taf_matmul_f32", _ARGTYPES)
     p = _build.ptr
     err = fn(p(xf), p(wf), p(y), p(mask), p(partials), p(arrive), p(thr),
              p(work), m, k, n, block_m, block_n, cols, history_size,
-             prediction_size, _build.stream(dev))
-    COUNTER.launches += 1
+             prediction_size, n_l, int(x.dim() == 3), int(w.dim() == 3),
+             _build.stream(dev))
+    COUNTER.launched(lanes)
     _build.check("taf_matmul", err)
+    if not lanes:
+        y, mask = y[0], mask[0]
     return y.to(out_dtype), mask.bool()

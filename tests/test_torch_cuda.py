@@ -560,3 +560,173 @@ class TestSixthSliceOnCard:
         assert out["taf_fraction"] == cpu["taf_fraction"]
         assert out["best"]["spec"] == cpu["best"]["spec"]
         assert "taf_matmul kernel == oracle: True" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+class TestLanesOnCard:
+    """The lane-grid form of K1-K3: one wrapper call for L knobs, each lane
+    against its plain version, masks equal, at the main path's full width
+    (Qwen3-1.7B: seq 4096, d 2048, 16 heads of 128, d_h 6144)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no "
+                        "interpret mode)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _stack(lanes, values):
+        return torch.tensor(values[:lanes], dtype=torch.float32,
+                            device="cuda")
+
+    @pytest.mark.parametrize("lanes", [1, 3, 4])
+    def test_taf_lanes_at_full_width(self, lanes):
+        rng = np.random.RandomState(20 + lanes)
+        x = torch.from_numpy(_stableish(rng, 4096, 2048, 0.05)).cuda()
+        w = torch.from_numpy((rng.randn(2048, 2048) / np.sqrt(2048))
+                             .astype(np.float32)).cuda()
+        th = self._stack(lanes, [0.02, 0.0005, 0.2, 0.002])
+        kw = dict(block_m=16, block_n=2048, history_size=2,
+                  prediction_size=4)
+        before = taf_matmul.COUNTER.launches
+        work = taf_matmul.COUNTER.work()
+        y, m = ops.taf_matmul(x, w, rsd_threshold=th, **kw)
+        computed = taf_matmul.COUNTER.work() - work
+        assert taf_matmul.COUNTER.launches == before + 1
+        yr, mr = ref.taf_matmul_lanes_ref(x, w, rsd_threshold=th, **kw)
+        assert tuple(m.shape) == (lanes, 256, 1)
+        # lanes that share x and w share each computed product
+        assert computed == int((~m).any(0).sum())
+        assert torch.equal(m, mr)
+        assert float((y - yr).abs().max()) <= TAF_ATOL
+        for lane in range(lanes):
+            y1, m1 = ops.taf_matmul(x, w, rsd_threshold=th[lane], **kw)
+            assert torch.equal(m1, m[lane]) and torch.equal(y1, y[lane])
+
+    def test_taf_lane_set_over_many_column_blocks(self):
+        rng = np.random.RandomState(32)
+        x = torch.from_numpy(_stableish(rng, 1024, 512, 0.05)).cuda()
+        w = torch.from_numpy(rng.randn(512, 2048).astype(np.float32)).cuda()
+        th = self._stack(4, [0.001, 0.02, 0.1, 1.0])
+        kw = dict(block_m=32, block_n=64, history_size=3, prediction_size=2)
+        y, m = ops.taf_matmul(x, w, rsd_threshold=th, **kw)
+        yr, mr = ref.taf_matmul_lanes_ref(x, w, rsd_threshold=th, **kw)
+        assert torch.equal(m, mr) and bool(m.any()) and not bool(m.all())
+        assert float((y - yr).abs().max()) <= TAF_ATOL
+
+    def test_taf_lanes_take_units_in_rounds(self):
+        """L = 4 lanes of 128 column blocks each: 512 (lane, column block)
+        units for at most 132 co-resident teams of one CTA."""
+        rng = np.random.RandomState(31)
+        x = torch.from_numpy(np.stack([_stableish(rng, 1024, 256, 0.05)
+                                       for _ in range(4)])).cuda()
+        w = torch.from_numpy(rng.randn(256, 2048).astype(np.float32)).cuda()
+        th = self._stack(4, [0.01, 0.05, 0.2, 1.0])
+        kw = dict(block_m=16, block_n=16, history_size=2, prediction_size=4)
+        work = taf_matmul.COUNTER.work()
+        y, m = ops.taf_matmul(x, w, rsd_threshold=th, **kw)
+        computed = taf_matmul.COUNTER.work() - work
+        yr, mr = ref.taf_matmul_lanes_ref(x, w, rsd_threshold=th, **kw)
+        assert torch.equal(m, mr) and bool(m.any()) and not bool(m.all())
+        assert computed == int((~m).sum())
+        assert float((y - yr).abs().max()) <= TAF_ATOL
+
+    @pytest.mark.parametrize("lanes", [1, 3, 4])
+    def test_iact_lanes_at_full_width(self, lanes):
+        x = torch.from_numpy(_iact_rows(4096, 2048, 16, "pairs", 7)).cuda()
+        rng = np.random.RandomState(8)
+        w1 = torch.from_numpy((rng.randn(2048, 6144) / np.sqrt(2048))
+                              .astype(np.float32)).cuda()
+        w2 = torch.from_numpy((rng.randn(6144, 2048) / np.sqrt(6144))
+                              .astype(np.float32)).cuda()
+        th = self._stack(lanes, [0.5, 1e-9, 0.05, 5.0])
+        kw = dict(block_rows=16, table_size=2)
+        before = iact_memo.COUNTER.launches
+        work = iact_memo.COUNTER.work()
+        y, m = ops.iact_rowfn(x, w1, w2, threshold=th, **kw)
+        computed = iact_memo.COUNTER.work() - work
+        assert iact_memo.COUNTER.launches == before + 1
+        yr, mr = ref.iact_rowfn_lanes_ref(x, w1, w2, threshold=th, **kw)
+        assert tuple(m.shape) == (lanes, 256)
+        assert torch.equal(m, mr) and computed == int((~m).sum())
+        assert float((y - yr).abs().max()) <= IACT_ATOL
+        for lane in range(lanes):
+            y1, m1 = ops.iact_rowfn(x, w1, w2, threshold=th[lane], **kw)
+            assert torch.equal(m1, m[lane]) and torch.equal(y1, y[lane])
+
+    def test_iact_lanes_with_stacked_rows(self):
+        """Each lane its own rows: masks equal to the sequential table's,
+        values to the kernel's composition in plain PyTorch (the same
+        float64 distance sums, so the same nearest slot where rows "alike"
+        are all nearly equidistant)."""
+        xs = torch.stack([torch.from_numpy(_iact_rows(512, 256, 16, kind, s))
+                          for kind, s in (("pairs", 1), ("alike", 2),
+                                          ("pairs", 3))]).cuda()
+        rng = np.random.RandomState(4)
+        w1 = torch.from_numpy((rng.randn(256, 512) / 16.0)
+                              .astype(np.float32)).cuda()
+        w2 = torch.from_numpy((rng.randn(512, 128) / np.sqrt(512))
+                              .astype(np.float32)).cuda()
+        th = self._stack(3, [0.5, 0.5, 1e-9])
+        kw = dict(block_rows=16, table_size=4)
+        y, m = ops.iact_rowfn(xs, w1, w2, threshold=th, **kw)
+        _, mr = ref.iact_rowfn_lanes_ref(xs, w1, w2, threshold=th, **kw)
+        assert torch.equal(m, mr) and bool(m.any())
+        for lane in range(3):
+            yp, mp = iact_memo.iact_rowfn_plain(xs[lane], w1, w2,
+                                                threshold=th[lane], **kw)
+            assert torch.equal(mp, m[lane])
+            assert float((y[lane] - yp).abs().max()) <= IACT_ATOL
+
+    @pytest.mark.parametrize("lanes", [1, 3, 4])
+    def test_attention_lanes_at_full_width(self, lanes):
+        q = torch.from_numpy(np.random.RandomState(5).randn(
+            1, 16, 4096, 128).astype(np.float32)).cuda()
+        p = ttypes.PerforationParams(kind=ttypes.PerforationKind.FINI)
+        fr = self._stack(lanes, [0.5, 0.0, 0.25, 0.75])
+        kw = dict(block_q=32, block_kv=32, perfo=p)
+        before = perforated_attention.COUNTER.launches
+        o = ops.perforated_attention(q, q, q, fraction=fr, **kw)
+        assert perforated_attention.COUNTER.launches == before + 1
+        assert tuple(o.shape) == (lanes, 1, 16, 4096, 128)
+        for lane in range(lanes):
+            orf = ref.attention_ref(q, q, q, block_kv=32, perfo=p,
+                                    fraction=fr[lane])
+            assert float((o[lane] - orf).abs().max()) <= \
+                ATTN_ATOL[torch.float32]
+            o1 = ops.perforated_attention(q, q, q, fraction=fr[lane], **kw)
+            assert torch.equal(o1, o[lane])
+
+    def test_attention_lanes_with_stacked_operands(self):
+        rng = np.random.RandomState(6)
+        q, k, v = (torch.from_numpy(rng.randn(3, 2, 4, 256, 64)
+                                    .astype(np.float32)).cuda()
+                   for _ in range(3))
+        p = ttypes.PerforationParams(kind=ttypes.PerforationKind.RANDOM)
+        fr = self._stack(3, [0.1, 0.5, 0.9])
+        o = ops.perforated_attention(q, k[:, :, :2].contiguous(),
+                                     v[:, :, :2].contiguous(), block_q=64,
+                                     block_kv=64, perfo=p, fraction=fr)
+        orf = ref.attention_lanes_ref(q, k[:, :, :2], v[:, :, :2],
+                                      block_kv=64, perfo=p, fraction=fr)
+        assert float((o - orf).abs().max()) <= ATTN_ATOL[torch.float32]
+
+    def test_ffn_group_is_one_call_per_kernel(self):
+        from repro_torch.apps import approx_ffn
+        from repro_torch.benchmarks.approx_ffn_sweep import grid
+        from repro_torch.core import batching
+        app = approx_ffn.make_app(device="cuda")
+        specs = grid()
+        groups, _ = batching.group_specs(specs)
+        ops.reset_counts()
+        app.run_batch(specs)
+        # each group: a warm-up call and a timed call, one launch chain each
+        n = {t: 2 * sum(1 for k in groups if k[0] == t)
+             for t in ttypes.Technique}
+        got = ops.launch_counts()
+        assert got["taf_matmul"] == n[ttypes.Technique.TAF]
+        assert got["iact_rowfn"] == n[ttypes.Technique.IACT]
+        # + 2 serial runs (warm-up, timed) of each skip-driven spec: none in
+        # this grid
+        assert got["perforated_attention"] == n[ttypes.Technique.PERFORATION]
