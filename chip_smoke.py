@@ -97,6 +97,28 @@ failure could still exit 0):
      committed H100 BENCH_costmodel.json (the ffn band recovering the
      committed front within 0.90, the app models' counts and Spearman
      correlations as committed).
+  11. the serving slice at Qwen3-1.7B's full width (28 layers, d_model
+     2048, 16 / 8 heads of 128, d_ff 6144, vocab 151936; weights from seed
+     0): (a) prefill of 4 prompts of 128 tokens then 3 decode steps in
+     float32 compute, each step's logits against the teacher-forced
+     `hidden` within 0.02 relative (the JAX test's bound); (b)
+     `repro_torch.launch.serve` in bf16, precise and with decode TAF (2, 4,
+     t), batch 4, prompt 128, gen 32: prefill ms, decode tokens/s, skipped
+     layer-steps (t: the smallest threshold of the qos drill's grid under
+     which a precise run's per-layer RSD values fall in a tenth of the
+     layer-steps, else taken from those values; at least one layer-step
+     must skip); one decode step profiled in a fresh process
+     (`benchmarks.serve_profile`: CUDA kernels, products, device, host and
+     wall ms, idle share) without TAF, with TAF computing every layer and
+     with every layer skipped, the last at 28 layers and at 2 -- a skipped
+     layer must launch exactly one kernel, its delta's add; (c) a `ServingEngine` of 8 slots draining 16 requests
+     (prompt 128, 8-32 new tokens, max_len 256) precise and under a
+     `QosEngine` whose ladder comes from `make_decode_app` + `harness.sweep`
+     at this width (tokens/s, TTFT and latency p50 / p99, knob moves,
+     canary ticks, skip fraction), and with the knob pinned precise every
+     canary error exactly 0.0; (d) the benchmark runner's `qos` and `obs` modules
+     and the regression gate against the committed H100 BENCH_qos.json
+     and BENCH_obs.json.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -581,7 +603,8 @@ def phase_runner(dev, card):
         log(f"  {name},{value},{derived}")
 
     keys = [k for k in bench_run.MODULES
-            if k not in ("ffn", "kernel", "costmodel")]  # phase 10: costmodel
+            if k not in ("ffn", "kernel", "costmodel", "qos", "obs")]
+    # (phase 10 runs costmodel, phase 11 qos and obs)
     results, errors = bench_run.run_modules(keys, rep, device=dev, full=True,
                                             artifacts_dir=BENCH_DIR)
     check(not errors, f"runner modules raised: {errors}")
@@ -831,6 +854,284 @@ def phase_lanes(dev, s, loose, card, serial_launches, lane_cuda, ms, note):
     return (dict(lanes=lane_report, batched_sweep=dict(
         summary=summary, launches=launches, lane_launches=lane_launches),
         costmodel=cm, ffn_predict=fp), rows, lane_launches, fails)
+
+
+# phase 11: the serving slice at Qwen3-1.7B's full width
+SERVE_DIR = os.path.join(HERE, "chiprun_out", "bench_serve")
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_LEN = 8, 16, 256
+QOS_TARGETS = {"default": 0.10, "batch": 1.0}   # the qos drill's classes
+
+
+def probe_threshold(model, params, dev, thresholds):
+    """A decode-TAF threshold that skips layer-steps at this width: the
+    smallest of `thresholds` under which a precise run's per-layer RSD
+    values fall in at least a tenth of the layer-steps, else the largest
+    under which any falls, else (no threshold of the grid would skip
+    anything on these random weights) the 25th percentile of the RSD
+    values themselves. Returns (threshold, where it came from, the RSD
+    values' quartiles)."""
+    import numpy as np
+    import torch
+    from repro_torch.qos import set_decode_threshold
+    rng = np.random.RandomState(1)
+    prompts = rng.randint(0, model.cfg.vocab_size,
+                          (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    logits, cache = model.prefill(params, {
+        "tokens": prompts, "max_len": SERVE_PROMPT + SERVE_GEN})
+    set_decode_threshold(cache, 0.0)
+    tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    rsds = []
+    for t in range(SERVE_GEN - 1):
+        logits, cache = model.decode_step(params, cache, tokens,
+                                          SERVE_PROMPT + t)
+        tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        win = cache["taf"]["window"].double()
+        if int(cache["taf"]["filled"].min()) >= win.shape[1]:
+            mu = win.mean(dim=1)
+            sd = win.std(dim=1, unbiased=False)
+            rsds += (sd / mu.abs().clamp(min=1e-12)).tolist()
+    rsds = np.asarray(rsds)
+    quart = [float(q) for q in np.percentile(rsds, (25, 50, 75))]
+    frac = {th: float((rsds < th).mean()) for th in thresholds}
+    enough = [th for th in thresholds if frac[th] >= 0.1]
+    some = [th for th in thresholds if frac[th] > 0]
+    if enough:
+        return min(enough), f"grid (stable share {frac})", quart
+    if some:
+        return max(some), f"grid (stable share {frac})", quart
+    return quart[0], f"the data: no grid threshold skips ({frac})", quart
+
+
+def engine_requests(vocab):
+    """ENGINE_REQUESTS seeded requests: prompts of SERVE_PROMPT tokens, 8 to
+    32 new tokens, the first half in the tight "default" class."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(0)
+    return [Request(uid=i, prompt=rng.randint(0, vocab, SERVE_PROMPT)
+                    .astype(np.int32),
+                    max_new_tokens=int(rng.randint(8, 33)),
+                    qos_class="default" if i < ENGINE_REQUESTS // 2
+                    else "batch")
+            for i in range(ENGINE_REQUESTS)]
+
+
+def drain(engine, reqs):
+    import torch
+    engine.warmup()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    stats = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens_per_s=stats.tokens_out / wall, wall_s=wall,
+                ticks=stats.ticks, tokens_out=stats.tokens_out,
+                finished=stats.finished, latency=stats.latency_summary(),
+                taf_skip_fraction=stats.taf_skip_fraction,
+                knob_moves=stats.knob_moves,
+                canary_ticks=stats.canary_ticks), stats
+
+
+def phase_serving(dev, card):
+    """Phase 11: the port's serving path at Qwen3-1.7B's full width (28
+    layers, seed 0). Returns the report and the regression gate's
+    failures (the caller fails on them after writing the report)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import qos
+    from repro_torch.benchmarks import qos_serving
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.configs import get_config
+    from repro_torch.core import harness
+    from repro_torch.core.types import ApproxSpec, Level, TAFParams, Technique
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.serving import ServingEngine
+
+    full = get_config("qwen3-1.7b")
+    out = {"config": dict(name=full.name, n_layers=full.n_layers,
+                          d_model=full.d_model, n_heads=full.n_heads,
+                          n_kv_heads=full.n_kv_heads, d_ff=full.d_ff,
+                          vocab=full.vocab_size,
+                          params=full.param_count())}
+
+    # (a) decode equals teacher-forced forward, float32 compute
+    m32 = build(dataclasses.replace(full, compute_dtype="float32"), dev)
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(0))
+    toks = np.random.RandomState(0).randint(
+        0, full.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 4)).astype(np.int32)
+    _, cache = m32.prefill(p32, {"tokens": toks[:, :SERVE_PROMPT],
+                                 "max_len": SERVE_PROMPT + 4})
+    errs = []
+    for t in range(3):
+        pos = SERVE_PROMPT + t
+        logits, cache = m32.decode_step(
+            p32, cache, torch.as_tensor(toks[:, pos], device=dev), pos)
+        h = m32.hidden(p32, {"tokens": toks[:, :pos + 2]})
+        ref = h[:, pos] @ p32["head"]
+        errs.append(float((logits - ref).abs().max())
+                    / (float(ref.abs().max()) + 1e-6))
+    log(f"  decode vs forward (float32, {full.n_layers} layers): max "
+        f"relative error {max(errs):.3g} (limit 0.02)")
+    check(max(errs) < 0.02, f"decode departs from forward: {errs}")
+    out["decode_vs_forward"] = errs
+    del m32, p32, cache, h, ref
+    torch.cuda.empty_cache()
+
+    # (b) launch.serve, precise and with decode TAF, bf16 compute
+    model = build(full, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def taf_cfg(th):
+        return dataclasses.replace(full, approx_decode=ApproxSpec(
+            Technique.TAF, Level.BLOCK, taf=TAFParams(2, 4, float(th))))
+
+    th, origin, quart = probe_threshold(build(taf_cfg(0.0), dev), params,
+                                        dev, qos_serving._THRESHOLDS)
+    log(f"  TAF threshold {th:.4g} taken from {origin}; RSD quartiles of a "
+        f"precise run {quart}")
+    runs = {}
+    for label, cfg in (("precise", full), ("taf", taf_cfg(th))):
+        r = serve.run(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      gen=SERVE_GEN, device=dev, params=params)
+        check(bool(np.isfinite(r["tokens"]).all())
+              and r["tokens"].shape == (SERVE_BATCH, SERVE_GEN),
+              f"launch.serve {label}: tokens of the wrong shape")
+        runs[label] = dict(prefill_ms=r["prefill_s"] * 1e3,
+                           decode_tokens_per_s=r["tokens_per_s"],
+                           skip_fraction=r["taf_skipped"]
+                           / max(r["taf_total"], 1),
+                           skipped=r["taf_skipped"], total=r["taf_total"])
+        log(f"  launch.serve {label}: prefill {runs[label]['prefill_ms']:.3f}"
+            f" ms, decode {r['tokens_per_s']:.1f} tokens/s, skipped "
+            f"{r['taf_skipped']}/{r['taf_total']} layer-steps")
+    check(runs["taf"]["skipped"] > 0,
+          f"TAF at threshold {th} skipped no layer-step")
+    out["serve"] = dict(runs, threshold=th, threshold_origin=origin,
+                        rsd_quartiles=quart)
+
+    # one decode step's CUDA kernels, precise and fully skipped, in a
+    # fresh process (torch.profiler records no CUDA kernel after phase 8)
+    prof_path = os.path.join(os.path.dirname(REPORT), "serve_profile.json")
+    subprocess.run([sys.executable, "-m",
+                    "repro_torch.benchmarks.serve_profile",
+                    "--arch", full.name, "--batch", str(SERVE_BATCH),
+                    "--prompt-len", str(SERVE_PROMPT), "--out", prof_path],
+                   check=True, timeout=600, cwd=HERE,
+                   env=dict(os.environ, PYTHONPATH=SRC),
+                   stdout=subprocess.DEVNULL)
+    with open(prof_path) as f:
+        prof = json.load(f)
+    n, n_short = prof["n_layers"], prof["short_layers"]
+    for label in ("plain", "precise", "skipped", "skipped_short"):
+        row = prof[label]
+        log(f"  decode step {label}: {row['kernels']} CUDA kernels "
+            f"({row['gemm_kernels']} products), device "
+            f"{row['device_ms']:.3f} ms, host {row['host_ms']:.3f} ms, "
+            f"wall {row['wall_ms']:.3f} ms, idle {row['idle']:.3f}")
+    # a skipped layer runs exactly one kernel, the residual add of its
+    # memoized delta: the skipped step's count is the step's fixed kernels
+    # (embedding, detector step, final norm, the head's one product) plus
+    # one a layer, at both layer counts
+    fixed = prof["skipped_short"]["kernels"] - n_short
+    log(f"  skipped step: {fixed} fixed kernels + 1 a layer "
+        f"({prof['skipped']['kernels']} at {n} layers, "
+        f"{prof['skipped_short']['kernels']} at {n_short})")
+    check(prof["precise"]["gemm_kernels"] >= 7 * n
+          and prof["skipped"]["gemm_kernels"] <= 1
+          and prof["skipped_short"]["gemm_kernels"] <= 1
+          and prof["skipped"]["kernels"] == n + fixed
+          and fixed < prof["plain"]["kernels"] / n,
+          f"a skipped layer launched more than its delta's add: {prof}")
+    out["step_profile"] = {k: {kk: vv for kk, vv in v.items()
+                               if kk != "kernel_names"}
+                           if isinstance(v, dict) else v
+                           for k, v in prof.items()}
+    out["step_profile"]["skipped_kernel_names"] = \
+        prof["skipped"]["kernel_names"]
+
+    # (c) continuous batching: precise, then under a QosEngine whose
+    # ladder comes from the calibration sweep at this width
+    grid = sorted(set(qos_serving._THRESHOLDS) | {th})
+    app = qos.make_decode_app(taf_cfg(th), gen=12, metric="mcr",
+                              device=dev, params=params)
+    recs = harness.sweep(app, qos.threshold_grid(taf_cfg(th), grid),
+                         repeats=1)
+    policy = qos.QosPolicy.from_records(recs, metric="mcr",
+                                        use_modeled=True)
+    log(f"  ladder: " + "; ".join(
+        f"th={e.spec.get('thresh')} err={e.error:.3f} "
+        f"modeled={e.modeled_speedup:.3f}" for e in policy.entries))
+    engines = {}
+    for label in ("precise", "qos"):
+        if label == "precise":
+            eng = ServingEngine(model, params, slots=ENGINE_SLOTS,
+                                max_len=ENGINE_MAX_LEN,
+                                prompt_len=SERVE_PROMPT)
+        else:
+            q = qos.QosEngine(policy, QOS_TARGETS, sample_fraction=0.25,
+                              window=8, config=qos.ControllerConfig(
+                                  min_samples=2, hold_ticks=2,
+                                  fallback_hold=4))
+            eng = ServingEngine(build(taf_cfg(th), dev), params,
+                                slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                                prompt_len=SERVE_PROMPT, qos=q)
+        row, stats = drain(eng, engine_requests(full.vocab_size))
+        check(stats.finished == ENGINE_REQUESTS,
+              f"engine {label} did not drain")
+        if label == "qos":
+            row["measured_error"] = q.summary()["genuine_mean_error"]
+            row["knob_actuations"] = [(m.tick, m.value, m.reason)
+                                      for m in eng.knob_events]
+        engines[label] = row
+        lat = row["latency"]
+        log(f"  engine {label}: {row['tokens_per_s']:.1f} tokens/s, TTFT "
+            f"p50/p99 {lat['ttft_p50_s']:.3f}/{lat['ttft_p99_s']:.3f} s, "
+            f"latency p50/p99 {lat['latency_p50_s']:.3f}/"
+            f"{lat['latency_p99_s']:.3f} s, knob moves {row['knob_moves']},"
+            f" canary ticks {row['canary_ticks']}, skip fraction "
+            f"{row['taf_skip_fraction']:.4f}")
+    # with the knob pinned precise, every canary error is exactly 0.0
+    pinned = qos.QosEngine(policy, 1e-9, sample_fraction=1.0, window=8)
+    eng = ServingEngine(build(taf_cfg(th), dev), params, slots=ENGINE_SLOTS,
+                        max_len=ENGINE_MAX_LEN, prompt_len=SERVE_PROMPT,
+                        qos=pinned)
+    reqs = engine_requests(full.vocab_size)[:4]
+    for r in reqs:
+        r.max_new_tokens = 8
+    _, stats = drain(eng, reqs)
+    ms = pinned.monitor.stats()
+    log(f"  pinned precise: {stats.canary_ticks} canary ticks, mean error "
+        f"{ms.mean_error!r}, skipped {stats.taf_skipped}")
+    check(stats.canary_ticks == stats.ticks > 0 and ms.mean_error == 0.0
+          and ms.samples == stats.canary_ticks and stats.taf_skipped == 0,
+          "a precise canary departed from the served step")
+    engines["pinned_precise"] = dict(canary_ticks=stats.canary_ticks,
+                                     mean_error=ms.mean_error)
+    out["engine"] = engines
+    del model, params, eng
+    torch.cuda.empty_cache()
+
+    # (d) the benchmark runner's qos and obs modules and the regression gate
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    results, errors = bench_run.run_modules(
+        ["qos", "obs"], lambda n_, v_, d_="": log(f"  {n_},{v_},{d_}"),
+        device=dev, artifacts_dir=SERVE_DIR)
+    check(not errors, f"runner modules raised: {errors}")
+    stamp_card(SERVE_DIR, card)
+    fails = [f for name in ("BENCH_qos.json", "BENCH_obs.json")
+             for f in bench_run.check_regression(
+                 SERVE_DIR, os.path.join(bench_run.BASELINES, name))]
+    for f in fails:
+        log(f"  regression FAIL {f}")
+    if not fails:
+        log(f"  regression gate OK: {os.path.relpath(SERVE_DIR, HERE)}")
+    out["runner"] = {k: {kk: vv for kk, vv in v.items() if kk != "obs"}
+                     for k, v in results.items()}
+    return out, fails
 
 
 def main():
@@ -1348,6 +1649,14 @@ def main():
         dev, full_inputs, loose, card, sweep_launches, lane_cuda, ms, note)
     report["phases"]["lanes_s"] = time.perf_counter() - t0
 
+    # -- 11. the serving slice at full width ---------------------------------
+    log("phase 11: Qwen3-1.7B at full width: decode vs forward, "
+        "launch.serve precise and with decode TAF, continuous batching "
+        "precise and under QoS, the qos / obs runner modules and their gate")
+    t0 = time.perf_counter()
+    report["serving"], serve_fails = phase_serving(dev, card)
+    report["phases"]["serving_s"] = time.perf_counter() - t0
+
     kernels = []
     for r in rows:
         t_ops = r["ops"] / PEAK_F32_FLOPS * 1e3
@@ -1398,7 +1707,7 @@ def main():
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1, default=str)
     log(f"phases (s): {json.dumps(report['phases'])}")
-    gate = report["figures"]["gate_failures"] + predict_fails
+    gate = report["figures"]["gate_failures"] + predict_fails + serve_fails
     check(not gate, f"regression gate: {len(gate)} check(s) failed")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,9 @@ cuda); a module must be able to measure that path -- see
 writes ``BENCH_ffn.json``; `kernel` writes ``BENCH_kernel.json``,
 ``kernel_micro.json`` and the autotuner's ``tuning_cache.json``;
 `costmodel` validates the app cost model against measured sweeps and
-writes ``BENCH_costmodel.json``). ``--predict`` switches predict-aware
+writes ``BENCH_costmodel.json``; `qos` runs the QoS serving drill and
+writes ``BENCH_qos.json``; `obs` measures the obs layer's overhead on a
+serving loop and writes ``BENCH_obs.json``). ``--predict`` switches predict-aware
 modules (`ffn`) into cost-model pruned mode: only the predicted front band
 of the grid is measured, and ``BENCH_ffn_predict.json`` is written instead
 of the full-grid ``BENCH_ffn.json``.
@@ -36,8 +38,8 @@ tolerance; ratios taken from walls only have to stay above
 gate catches order-of-magnitude regressions, not jitter between hosts).
 
 A module that raises prints an ``ERROR`` row, the other modules still run,
-and the process then exits 1. The JAX runner's `qos`, `lint`, `roofline`
-and `obs` are not ported yet; naming one is an error that says so.
+and the process then exits 1. The JAX runner's `lint` and `roofline` are
+not ported yet; naming one is an error that says so.
 """
 from __future__ import annotations
 
@@ -54,9 +56,10 @@ from ..core import substrate as substrate_mod
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from . import (approx_ffn_sweep, costmodel, fig3_table_memory,
-               fig6_best_speedup, fig7_cg_sweep, fig8c_items_per_thread, fig10c_rsd_behavior,
-               fig11c_hierarchy, fig12c_kmeans_convergence, kernel_micro,
-               pareto_refine)
+               fig6_best_speedup, fig7_cg_sweep, fig8c_items_per_thread,
+               fig10c_rsd_behavior, fig11c_hierarchy,
+               fig12c_kmeans_convergence, kernel_micro, obs_overhead,
+               pareto_refine, qos_serving)
 
 MODULES = {
     "fig3": fig3_table_memory,
@@ -70,13 +73,13 @@ MODULES = {
     "ffn": approx_ffn_sweep,
     "pareto": pareto_refine,
     "costmodel": costmodel,
+    "qos": qos_serving,
+    "obs": obs_overhead,
 }
 
 # keys of the JAX runner that the port does not have yet, and the ROADMAP
 # Queue 1 item that ports each
 NOT_PORTED = {
-    "qos": "Queue 1 item 4 (serving and QoS)",
-    "obs": "Queue 1 item 4 (serving and QoS: obs_overhead)",
     "roofline": "Queue 1 item 6 (the XLA-only tools)",
     "lint": "Queue 1 item 7 (analysis lint)",
 }
@@ -171,6 +174,14 @@ BASELINES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #               rounding across hosts: |new - base| <= atol + rtol * |base|;
 #   atleast  -- ratios taken from walls: new >= (1 - noise) * base.
 _BASELINE_CHECKS = {
+    # the QoS drill (the JAX rules): configuration exact; measured canary
+    # error, fallback rate and skip fraction close; throughputs from walls
+    "BENCH_qos.json": {
+        "exact": ("metric", "devices", "shards", "slots", "requests"),
+        "close": ("measured_error", "fallback_rate",
+                  "approx.taf_skip_fraction"),
+        "atleast": ("precise.tokens_per_s", "approx.tokens_per_s"),
+    },
     "BENCH_ffn.json": {
         "exact": ("substrate", "n_records", "parity.taf", "parity.iact",
                   "parity.perfo"),
@@ -218,6 +229,17 @@ _BASELINE_CHECKS = {
                   "apps.lavamd.spearman", "apps.minife_cg.spearman",
                   "ffn.spearman", "ffn.front_recovery.ratio"),
         "atleast": (),
+    },
+    # the obs layer's overhead contract (the JAX rules): the 0.95 floor as
+    # the boolean `ratio_ok`, exact; JAX's `extra_compiles_*` become the
+    # steps built and the device reads added with tracing off and on,
+    # each exactly 0.
+    "BENCH_obs.json": {
+        "exact": ("metric", "ratio_ok", "extra_step_builds_disabled",
+                  "extra_step_builds_enabled", "extra_host_reads_disabled",
+                  "extra_host_reads_enabled"),
+        "close": (),
+        "atleast": ("disabled_ticks_per_s", "enabled_ticks_per_s"),
     },
 }
 

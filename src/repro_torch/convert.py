@@ -10,6 +10,10 @@ packages compute on identical data.
 `TAFState` / `IACTState`, or any object with the same fields holding arrays
 numpy can read) into the port's state on a device, so both packages can
 carry on from one mid-run state.
+
+`lm_params` turns the JAX LM's parameter tree (`Model.init`, layers stacked
+on a leading axis) into the port's, so both packages compute on identical
+weights.
 """
 from __future__ import annotations
 
@@ -35,6 +39,31 @@ def ffn_arrays(x, wp, w1, w2, *, device=None) -> Tuple[torch.Tensor, ...]:
 
 def _exact(a, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype)
+
+
+def lm_params(jax_params, cfg, *, device=None):
+    """The JAX dense LM's parameter tree (arrays numpy can read, the
+    blocks stacked on a leading layer axis) as the port's parameters on
+    `device` (None means cuda): one dict per layer, each weight held as
+    `models.lm.Model` holds it (matrices and the embedding in the compute
+    dtype, norm scales in the param dtype)."""
+    from .models import lm
+    model = lm.build(cfg, device=device)
+
+    def leaf(path, a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32)).to(model.device)
+        return t.to(model.pdt) if path[-1] == "scale" else model._as_used(t)
+
+    def tree(node, path=(), index=None):
+        if isinstance(node, dict):
+            return {k: tree(v, path + (k,), index) for k, v in node.items()}
+        return leaf(path, node if index is None else np.asarray(node)[index])
+
+    out = {k: tree(v, (k,)) for k, v in jax_params.items()
+           if k != "dense_blocks"}
+    blocks = jax_params["dense_blocks"]
+    out["dense_blocks"] = [tree(blocks, (), l) for l in range(cfg.n_layers)]
+    return out
 
 
 def taf_state(state, *, device=None) -> taf.TAFState:

@@ -54,7 +54,8 @@ def test_gate_passes_on_the_baselines_themselves(dirs):
     base, art = dirs
     assert run.check_regression(art, base) == []
     assert sorted(os.listdir(base)) == ["BENCH_costmodel.json",
-                                        "BENCH_ffn.json", "BENCH_kernel.json"]
+                                        "BENCH_ffn.json", "BENCH_kernel.json",
+                                        "BENCH_obs.json", "BENCH_qos.json"]
 
 
 @pytest.mark.parametrize("artifact,key,value,rule", [
@@ -105,10 +106,10 @@ def test_gate_reports_missing_and_unreadable_artifacts(dirs):
 
 def test_gate_refuses_a_baseline_with_no_rule(dirs, tmp_path):
     base, art = dirs
-    _write(os.path.join(base, "BENCH_qos.json"), {"metric": "qos"})
-    _write(os.path.join(art, "BENCH_qos.json"), {"metric": "qos"})
+    _write(os.path.join(base, "BENCH_lint.json"), {"metric": "lint"})
+    _write(os.path.join(art, "BENCH_lint.json"), {"metric": "lint"})
     fails = run.check_regression(art, base)
-    assert fails == ["BENCH_qos.json: no check rules registered in "
+    assert fails == ["BENCH_lint.json: no check rules registered in "
                      "repro_torch.benchmarks.run._BASELINE_CHECKS"]
     empty = tmp_path / "empty"
     empty.mkdir()
@@ -134,7 +135,8 @@ def test_ffn_gate_agrees_with_the_jax_gate(tmp_path):
 
 
 def test_committed_baselines_name_an_h100_and_hold_the_jax_front():
-    for name in ("BENCH_ffn.json", "BENCH_kernel.json"):
+    for name in ("BENCH_ffn.json", "BENCH_kernel.json", "BENCH_qos.json",
+                 "BENCH_obs.json"):
         with open(os.path.join(run.BASELINES, name)) as f:
             doc = json.load(f)
         assert doc["card"].startswith("NVIDIA H100")
@@ -158,11 +160,11 @@ def test_committed_baselines_name_an_h100_and_hold_the_jax_front():
 
 @pytest.mark.parametrize("only,message", [
     ("fig3,fig99", "unknown module 'fig99'"),
-    ("qos", "module 'qos' is not ported yet (ROADMAP Queue 1 item 4"),
-    ("fig3,obs", "module 'obs' is not ported yet"),
+    ("qos,lint", "module 'lint' is not ported yet (ROADMAP Queue 1 item 7"),
+    ("fig3,roofline", "module 'roofline' is not ported yet"),
     ("lint", "Queue 1 item 7"),
     ("roofline", "Queue 1 item 6"),
-    ("obs", "Queue 1 item 4"),
+    ("obs,qos,fig99", "unknown module 'fig99'"),
 ])
 def test_only_refuses_unknown_and_jax_only_keys(capsys, only, message):
     with pytest.raises(SystemExit) as e:
@@ -224,3 +226,38 @@ def test_runner_runs_and_gates_on_the_cpu(tmp_path, capsys):
     _edit(os.path.join(art, "BENCH_ffn.json"), "parity.taf", False)
     assert run.check_regression(art, base) == [
         "BENCH_ffn.json:parity.taf: expected True, got False"]
+
+
+def test_qos_and_obs_gate_rules_are_the_jax_rules():
+    """`qos` keeps the JAX runner's rules; `obs` keeps them with JAX's
+    `extra_compiles_*` read as steps built and device reads added."""
+    assert run._BASELINE_CHECKS["BENCH_qos.json"] == \
+        jrun._BASELINE_CHECKS["BENCH_qos.json"]
+    jobs, tobs = (jrun._BASELINE_CHECKS["BENCH_obs.json"],
+                  run._BASELINE_CHECKS["BENCH_obs.json"])
+    assert tobs["atleast"] == jobs["atleast"] and tobs["close"] == ()
+    kept = [k for k in jobs["exact"] if not k.startswith("extra_compiles")]
+    assert list(tobs["exact"][:len(kept)]) == kept
+    assert sorted(tobs["exact"][len(kept):]) == sorted(
+        f"extra_{what}_{mode}" for what in ("step_builds", "host_reads")
+        for mode in ("disabled", "enabled"))
+
+
+def test_qos_and_obs_run_and_gate_on_the_cpu(tmp_path, capsys):
+    """`--only qos,obs` on the CPU writes BENCH_qos.json and
+    BENCH_obs.json; gated against themselves they pass, and a planted
+    departure in either fails the gate."""
+    art, base = str(tmp_path / "art"), str(tmp_path / "base")
+    assert run.main(["--device", "cpu", "--only", "qos,obs",
+                     "--artifacts", art]) == 0
+    out = capsys.readouterr().out
+    assert "qos_policy_ladder," in out and "obs_overhead,0,ratio=" in out
+    shutil.copytree(art, base)
+    names = sorted(n for n in os.listdir(base) if n.startswith("BENCH_"))
+    assert names == ["BENCH_obs.json", "BENCH_qos.json"]
+    assert run.check_regression(art, base) == []
+    _edit(os.path.join(art, "BENCH_obs.json"), "extra_host_reads_enabled", 1)
+    _edit(os.path.join(art, "BENCH_qos.json"), "slots", 8)
+    assert run.check_regression(art, base) == [
+        "BENCH_obs.json:extra_host_reads_enabled: expected 0, got 1",
+        "BENCH_qos.json:slots: expected 4, got 8"]

@@ -730,3 +730,91 @@ class TestLanesOnCard:
         # + 2 serial runs (warm-up, timed) of each skip-driven spec: none in
         # this grid
         assert got["perforated_attention"] == n[ttypes.Technique.PERFORATION]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+class TestServingOnCard:
+    """The dense LM, decode-time TAF and the serving engine on the card
+    against the port on the CPU, on the same weights (the CPU init moved to
+    the card)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _models(cdt="float32", taf=None, arch="qwen3-1.7b"):
+        import dataclasses
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import build
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=cdt)
+        if taf is not None:
+            cfg = dataclasses.replace(cfg, approx_decode=ttypes.ApproxSpec(
+                ttypes.Technique.TAF, ttypes.Level.BLOCK,
+                taf=ttypes.TAFParams(2, 4, taf)))
+        cpu = build(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        return cfg, cpu, params, build(cfg, device="cuda"), \
+            _to(params, torch.device("cuda"))
+
+    @pytest.mark.parametrize("cdt,tol", [("float32", 1e-4),
+                                         ("bfloat16", 0.02)])
+    def test_prefill_and_decode_match_the_cpu(self, cdt, tol):
+        cfg, cpu, p, card, pc = self._models(cdt)
+        toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 20))
+        la, ca = cpu.prefill(p, {"tokens": toks[:, :16], "max_len": 20})
+        lb, cb = card.prefill(pc, {"tokens": toks[:, :16], "max_len": 20})
+        scale = float(la.abs().max())
+        assert float((la - lb.cpu()).abs().max()) / scale < tol
+        for t in range(3):
+            tok = torch.as_tensor(toks[:, 16 + t])
+            la, ca = cpu.decode_step(p, ca, tok, 16 + t)
+            lb, cb = card.decode_step(pc, cb, tok.cuda(), 16 + t)
+            assert float((la - lb.cpu()).abs().max()) / scale < tol
+
+    def test_taf_decisions_match_the_cpu(self):
+        from repro_torch.obs import metrics as obs_metrics
+        cfg, cpu, p, card, pc = self._models(taf=50.0, arch="deepseek-7b")
+        toks = np.random.RandomState(5).randint(0, cfg.vocab_size, (2, 8))
+        _, ca = cpu.prefill(p, {"tokens": toks, "max_len": 24})
+        _, cb = card.prefill(pc, {"tokens": toks, "max_len": 24})
+        tok = torch.as_tensor(toks[:, -1])
+        skipped = 0
+        for t in range(12):
+            la, ca = cpu.decode_step(p, ca, tok, 8 + t)
+            reads = obs_metrics.host_reads()
+            lb, cb = card.decode_step(pc, cb, tok.cuda(), 8 + t)
+            assert obs_metrics.host_reads() - reads == 1
+            assert torch.equal(ca["taf"]["remaining"],
+                               cb["taf"]["remaining"].cpu())
+            skipped += int((ca["taf"]["remaining"] > 0).sum())
+            tok = torch.argmax(la, -1).to(torch.int32)
+        assert skipped > 0
+
+    def test_engine_streams_match_the_cpu(self):
+        from repro_torch.serving import Request, ServingEngine
+        cfg, cpu, p, card, pc = self._models(taf=50.0)
+        outs = []
+        for model, params in ((cpu, p), (card, pc)):
+            eng = ServingEngine(model, params, slots=3, max_len=48,
+                                prompt_len=8)
+            rng = np.random.RandomState(0)
+            reqs = [Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, 8)
+                            .astype(np.int32), max_new_tokens=5 + i)
+                    for i in range(7)]
+            for r in reqs:
+                eng.submit(r)
+            s = eng.run_until_drained()
+            outs.append(([r.output for r in reqs],
+                         (s.ticks, s.tokens_out, s.taf_skipped, s.taf_total)))
+        assert outs[0] == outs[1]

@@ -170,3 +170,37 @@ def test_convert_copies():
     t = convert.to_tensor(a, "cpu")
     a[0, 0] = 99.0
     assert t.dtype == torch.float32 and float(t[0, 0]) == 0.0
+
+
+def test_serving_entry_points_default_to_cuda(no_gpu, capsys):
+    """The serving slice's entry points: `launch.serve`, `build(...)`
+    (and so `.init` and `ServingEngine`), `make_decode_app` and the `qos`
+    / `obs` runner modules run on cuda unless asked for the CPU."""
+    from repro_torch.benchmarks import obs_overhead, qos_serving
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.qos import default_decode_cfg, make_decode_app
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-1.7b", "--smoke", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_decode_app()
+    for mod in (qos_serving, obs_overhead):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main(lambda *a: None)
+    model = build(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert params["embed"].device.type == "cpu"
+    eng = ServingEngine(model, params, slots=2, max_len=16, prompt_len=4)
+    assert eng.tokens.device.type == "cpu"
+    app = make_decode_app(default_decode_cfg(), gen=2, batch=1,
+                          device="cpu")
+    assert app.exact().qoi.shape[0] == 2
+    toks = serve.main(["--arch", "qwen3-1.7b", "--smoke", "--gen", "2",
+                       "--prompt-len", "4", "--device", "cpu"])
+    assert toks.shape == (4, 2)
+    capsys.readouterr()
