@@ -119,6 +119,24 @@ failure could still exit 0):
      canary error exactly 0.0; (d) the benchmark runner's `qos` and `obs` modules
      and the regression gate against the committed H100 BENCH_qos.json
      and BENCH_obs.json.
+  12. the sharded serving data plane at the same full width, on a
+     one-rank NCCL group the phase starts (`runtime.elastic.init_single`):
+     (a) `ServingEngine(devices=1, shards=1)` equals phase 11's unsharded
+     engines on its 16 requests token for token (and knob for knob under
+     QoS); (b) `ServingEngine(devices=1, shards=4, slots=8)` drains the 16
+     requests precise and under phase 11's `QosEngine` with per-shard QoS
+     (tokens/s, TTFT and latency p50 / p99, skip fraction per shard, host
+     reads a tick, which must equal `host_reads_per_tick` exactly); four
+     per-shard knob vectors build no step and read nothing; with the knob
+     pinned precise every canary error is exactly 0.0; the fault drill
+     `inject(10.0, shard=3)` (at a tick where shard 3's classes are a
+     strict subset of the live ones) hits only those classes' evidence,
+     backs them off, and two runs give equal trajectories; one sharded
+     decode step's CUDA kernels (`serve_profile --batch 8 --shards 4` in a
+     fresh process); (c) `run --only qos --devices 1`: mesh (1, 1) and the
+     BENCH_qos.json gate's exact fields against the baseline; (d) `pipeline_apply` with one stage against
+     serial application (1e-5) and the compressed all-reduce on one rank
+     against the dequantized tensor (exact), through NCCL.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -919,7 +937,9 @@ def engine_requests(vocab):
 
 def drain(engine, reqs):
     import torch
+    from repro_torch.obs import metrics as obs_metrics
     engine.warmup()
+    reads = obs_metrics.host_reads()
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
@@ -927,6 +947,7 @@ def drain(engine, reqs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(tokens_per_s=stats.tokens_out / wall, wall_s=wall,
+                host_reads=obs_metrics.host_reads() - reads,
                 ticks=stats.ticks, tokens_out=stats.tokens_out,
                 finished=stats.finished, latency=stats.latency_summary(),
                 taf_skip_fraction=stats.taf_skip_fraction,
@@ -1079,9 +1100,11 @@ def phase_serving(dev, card):
             eng = ServingEngine(build(taf_cfg(th), dev), params,
                                 slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
                                 prompt_len=SERVE_PROMPT, qos=q)
-        row, stats = drain(eng, engine_requests(full.vocab_size))
+        reqs = engine_requests(full.vocab_size)
+        row, stats = drain(eng, reqs)
         check(stats.finished == ENGINE_REQUESTS,
               f"engine {label} did not drain")
+        row["outputs"] = [r.output for r in reqs]
         if label == "qos":
             row["measured_error"] = q.summary()["genuine_mean_error"]
             row["knob_actuations"] = [(m.tick, m.value, m.reason)
@@ -1112,7 +1135,10 @@ def phase_serving(dev, card):
     engines["pinned_precise"] = dict(canary_ticks=stats.canary_ticks,
                                      mean_error=ms.mean_error)
     out["engine"] = engines
-    del model, params, eng
+    # phase 12 serves the same model, ladder and threshold sharded
+    ctx = dict(model=model, params=params, taf_cfg=taf_cfg(th),
+               policy=policy, engines=engines)
+    del eng
     torch.cuda.empty_cache()
 
     # (d) the benchmark runner's qos and obs modules and the regression gate
@@ -1131,6 +1157,276 @@ def phase_serving(dev, card):
         log(f"  regression gate OK: {os.path.relpath(SERVE_DIR, HERE)}")
     out["runner"] = {k: {kk: vv for kk, vv in v.items() if kk != "obs"}
                      for k, v in results.items()}
+    return out, fails, ctx
+
+
+# phase 12: the sharded serving data plane on one NCCL rank
+SHARDS, SHARD_SLOTS = 4, 8
+SHARD_BENCH_DIR = os.path.join(HERE, "chiprun_out", "bench_sharded")
+
+
+def engine_row(label, row, stats):
+    lat = row["latency"]
+    row["shard_skip_fractions"] = stats.shard_skip_fractions
+    log(f"  engine {label}: {row['tokens_per_s']:.1f} tokens/s, TTFT "
+        f"p50/p99 {lat['ttft_p50_s']:.3f}/{lat['ttft_p99_s']:.3f} s, "
+        f"latency p50/p99 {lat['latency_p50_s']:.3f}/"
+        f"{lat['latency_p99_s']:.3f} s, knob moves {row['knob_moves']}, "
+        f"canary ticks {row['canary_ticks']}, skip fraction "
+        f"{row['taf_skip_fraction']:.4f}, per shard "
+        f"{[round(f, 4) for f in stats.shard_skip_fractions]}, host reads "
+        f"a tick {row.get('host_reads_per_tick')}")
+    return row
+
+
+def drill_run(ctx, dev):
+    """The 4-shard QoS engine under the fault drill: inject(10.0, shard=3)
+    at the first tick from 8 on where shard 3's live classes are a strict
+    subset of the live classes. Returns the trajectories, the injected
+    counts of each class's evidence and shard 3's classes then."""
+    from repro_torch import qos
+    from repro_torch.models import build
+    from repro_torch.serving import ServingEngine
+    q = qos.QosEngine(ctx["policy"], QOS_TARGETS, sample_fraction=0.25,
+                      window=8, config=qos.ControllerConfig(
+                          min_samples=2, hold_ticks=2, fallback_hold=4))
+    eng = ServingEngine(build(ctx["taf_cfg"], dev), ctx["params"],
+                        slots=SHARD_SLOTS, max_len=ENGINE_MAX_LEN,
+                        prompt_len=SERVE_PROMPT, qos=q, devices=1,
+                        shards=SHARDS)
+    eng.warmup()
+    for r in engine_requests(ctx["model"].cfg.vocab_size):
+        eng.submit(r)
+    on3, at, before = None, None, {}
+    for tick in range(10_000):
+        # the classes of the last plan, which the drill's inject reads
+        last = q._last_shard_classes
+        mine, live = set(last[3]), {c for sc in last for c in sc}
+        if at is None and tick >= 8 and mine and mine < live:
+            q.inject(10.0, shard=3)
+            on3, at = sorted(mine), tick
+            before = {c: len(ctl.trajectory)
+                      for c, ctl in q.controllers.items()}
+        if eng.tick() == 0 and not eng.queue:
+            break
+    traj = {cls: [(p.step, p.index, p.event) for p in ctl.trajectory]
+            for cls, ctl in q.controllers.items()}
+    hit = {cls: m.injected for cls, m in q.class_monitors.items()}
+    after = {cls: [e for _, _, e in t[before.get(cls, 0):]]
+             for cls, t in traj.items()}
+    return dict(knob_log=eng.knob_log, trajectory=traj, hit=hit, on3=on3,
+                at=at, events_after=after)
+
+
+def phase_sharded(dev, card, ctx):
+    """Phase 12: the sharded serving data plane at Qwen3-1.7B's full width
+    on a one-rank NCCL group the phase starts. Returns the report and the
+    regression gate's failures."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import qos
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import build
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.optim import compress
+    from repro_torch.qos import set_decode_threshold
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.pipeline import pipeline_apply
+    from repro_torch.serving import ServingEngine
+
+    started = elastic.init_single(dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"phase 12 needs a one-rank NCCL group, got "
+          f"{dist.get_backend()} x {dist.get_world_size()}")
+    log(f"  process group: {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}")
+    model, params, policy = ctx["model"], ctx["params"], ctx["policy"]
+    vocab = model.cfg.vocab_size
+    out = {"shards": SHARDS, "slots": SHARD_SLOTS}
+
+    def qos_engine():
+        return qos.QosEngine(policy, QOS_TARGETS, sample_fraction=0.25,
+                             window=8, config=qos.ControllerConfig(
+                                 min_samples=2, hold_ticks=2,
+                                 fallback_hold=4))
+
+    def engine(label, shards, slots):
+        if label == "precise":
+            return ServingEngine(model, params, slots=slots,
+                                 max_len=ENGINE_MAX_LEN,
+                                 prompt_len=SERVE_PROMPT, devices=1,
+                                 shards=shards)
+        return ServingEngine(build(ctx["taf_cfg"], dev), params, slots=slots,
+                             max_len=ENGINE_MAX_LEN, prompt_len=SERVE_PROMPT,
+                             qos=qos_engine(), devices=1, shards=shards)
+
+    # (a) one shard on the one-rank mesh equals phase 11's unsharded
+    # engines token for token (and knob for knob)
+    one = {}
+    for label in ("precise", "qos"):
+        eng = engine(label, 1, ENGINE_SLOTS)
+        reqs = engine_requests(vocab)
+        row, stats = drain(eng, reqs)
+        same = [r.output for r in reqs] == ctx["engines"][label]["outputs"]
+        knobs = [(t, v[0]) for t, v in eng.knob_log] == [
+            (t, v) for t, v, _ in ctx["engines"][label].get(
+                "knob_actuations", [])]
+        log(f"  1 shard {label}: token streams equal to phase 11's "
+            f"unsharded engine: {same}; knob log equal: {knobs}; "
+            f"{row['tokens_per_s']:.1f} tokens/s")
+        check(same and knobs and stats.finished == ENGINE_REQUESTS,
+              f"the 1-shard {label} engine departs from the unsharded one")
+        one[label] = dict(equal=same, knobs_equal=knobs,
+                          tokens_per_s=row["tokens_per_s"])
+    out["one_shard"] = one
+
+    # (b) four shards, precise and under per-shard QoS
+    engines = {}
+    for label in ("precise", "qos"):
+        eng = engine(label, SHARDS, SHARD_SLOTS)
+        row, stats = drain(eng, engine_requests(vocab))
+        check(stats.finished == ENGINE_REQUESTS,
+              f"the {SHARDS}-shard {label} engine did not drain")
+        reads = row["host_reads"] - stats.canary_ticks
+        row["host_reads_per_tick"] = reads / max(stats.ticks, 1)
+        check(reads == eng.host_reads_per_tick * stats.ticks,
+              f"{label}: {reads} host reads in {stats.ticks} ticks, "
+              f"expected {eng.host_reads_per_tick} a tick")
+        if label == "qos":
+            row["measured_error"] = eng.qos.summary()["genuine_mean_error"]
+            row["shard_exposure"] = eng.qos.summary()["shard_exposure"]
+            row["knob_actuations"] = [(m.tick, m.value, m.reason)
+                                      for m in eng.knob_events]
+            check(eng.qos.n_shards == SHARDS, "QoS plane not sharded")
+            # four per-shard knob vectors: no step built, no host read
+            builds, reads0 = steps_mod.builds(), obs_metrics.host_reads()
+            for vec in ((0.3,) * 4, (0.0, 0.3, 0.0, 0.3),
+                        (0.02, 0.04, 0.06, 0.1), (0.0,) * 4):
+                set_decode_threshold(eng.cache, vec)
+            moved = obs_metrics.host_reads() - reads0
+            th = eng.cache["taf"]["threshold"][:, 0].tolist()
+            log(f"  4 knob vectors: steps built {steps_mod.builds() - builds}"
+                f", host reads {moved}, thresholds now {th}")
+            check(steps_mod.builds() == builds and moved == 0
+                  and th == [0.0] * 4,
+                  "a per-shard knob move built a step or read the device")
+        engines[label] = engine_row(f"{SHARDS} shards {label}", row, stats)
+    out["engine"] = engines
+
+    # with the knob pinned precise, every canary error is exactly 0.0
+    pinned = qos.QosEngine(policy, 1e-9, sample_fraction=1.0, window=8)
+    eng = ServingEngine(build(ctx["taf_cfg"], dev), params,
+                        slots=SHARD_SLOTS, max_len=ENGINE_MAX_LEN,
+                        prompt_len=SERVE_PROMPT, qos=pinned, devices=1,
+                        shards=SHARDS)
+    reqs = engine_requests(vocab)[:SHARD_SLOTS]
+    for r in reqs:
+        r.max_new_tokens = 8
+    _, stats = drain(eng, reqs)
+    ms = pinned.monitor.stats()
+    log(f"  pinned precise, {SHARDS} shards: {stats.canary_ticks} canary "
+        f"ticks, {ms.samples} shard canaries, mean error {ms.mean_error!r},"
+        f" skipped {stats.taf_skipped}")
+    check(stats.canary_ticks == stats.ticks > 0 and ms.mean_error == 0.0
+          and ms.samples >= stats.canary_ticks and stats.taf_skipped == 0,
+          "a precise canary departed from the served step (sharded)")
+    out["pinned_precise"] = dict(canary_ticks=stats.canary_ticks,
+                                 samples=ms.samples,
+                                 mean_error=ms.mean_error)
+
+    # the fault drill on shard 3, twice: localized and repeatable
+    runs = [drill_run(ctx, dev) for _ in range(2)]
+    d = runs[0]
+    log(f"  drill: inject(10.0, shard=3) at tick {d['at']}, shard 3 "
+        f"classes {d['on3']}, evidence hit {d['hit']}, runs equal "
+        f"{runs[0] == runs[1]}")
+    check(d["at"] is not None and runs[0] == runs[1]
+          and d["hit"] == {c: int(c in d["on3"]) for c in d["hit"]},
+          f"the per-shard drill is not localized or not repeatable: {d}")
+    check(all("fallback" in d["events_after"][c] for c in d["on3"]),
+          f"the drill did not back off shard 3's classes: {d}")
+    out["drill"] = {k: v for k, v in d.items()
+                    if k not in ("knob_log", "events_after")}
+
+    # one sharded decode step's CUDA kernels, in a fresh process
+    prof_path = os.path.join(os.path.dirname(REPORT),
+                             "serve_profile_sharded.json")
+    subprocess.run([sys.executable, "-m",
+                    "repro_torch.benchmarks.serve_profile",
+                    "--arch", model.cfg.name, "--batch", str(SHARD_SLOTS),
+                    "--prompt-len", str(SERVE_PROMPT), "--shards",
+                    str(SHARDS), "--out", prof_path],
+                   check=True, timeout=600, cwd=HERE,
+                   env=dict(os.environ, PYTHONPATH=SRC),
+                   stdout=subprocess.DEVNULL)
+    with open(prof_path) as f:
+        prof = json.load(f)
+    for label in ("plain", "sharded_plain", "precise", "sharded_precise"):
+        row = prof[label]
+        log(f"  decode step {label} (batch {SHARD_SLOTS}): {row['kernels']} "
+            f"CUDA kernels ({row['gemm_kernels']} products), device "
+            f"{row['device_ms']:.3f} ms, host {row['host_ms']:.3f} ms, wall "
+            f"{row['wall_ms']:.3f} ms, idle {row['idle']:.3f}")
+    # each shard runs its own decode step: about SHARDS x the kernels
+    check(prof["sharded_plain"]["kernels"]
+          > (SHARDS - 1) * prof["plain"]["kernels"],
+          "a sharded step did not run every shard's decode")
+    out["step_profile"] = {k: {kk: vv for kk, vv in v.items()
+                               if kk != "kernel_names"}
+                           if isinstance(v, dict) else v
+                           for k, v in prof.items()}
+
+    # (c) the benchmark runner with --devices 1: its geometry and the exact
+    # fields against the committed baseline. The close fields are not
+    # gated: a sharded engine judges each class on its own evidence
+    # (`QosEngine.enable_sharding`) and, with one shard, the drill's spike
+    # lands on the shared monitor only (as the JAX drill's), so its
+    # fallbacks differ from the unsharded baseline's by design.
+    shutil.rmtree(SHARD_BENCH_DIR, ignore_errors=True)
+    results, errors = bench_run.run_modules(
+        ["qos"], lambda n_, v_, d_="": log(f"  {n_},{v_},{d_}"),
+        device=dev, artifacts_dir=SHARD_BENCH_DIR, devices=1)
+    check(not errors, f"run --only qos --devices 1 raised: {errors}")
+    stamp_card(SHARD_BENCH_DIR, card)
+    doc = results["qos"]
+    with open(os.path.join(bench_run.BASELINES, "BENCH_qos.json")) as f:
+        base = json.load(f)
+    exact = bench_run._BASELINE_CHECKS["BENCH_qos.json"]["exact"]
+    fails = [f"BENCH_qos.json (--devices 1):{k}: {doc[k]!r} vs baseline "
+             f"{base[k]!r}" for k in exact if doc[k] != base[k]]
+    check(doc["mesh_shape"] == [1, 1],
+          f"--devices 1 artifact mesh_shape {doc['mesh_shape']}")
+    for f in fails:
+        log(f"  regression FAIL {f}")
+    if not fails:
+        log(f"  --devices 1 artifact: mesh_shape [1, 1], exact fields "
+            f"{list(exact)} equal the baseline's")
+    out["runner"] = {k: v for k, v in doc.items() if k != "obs"}
+
+    # (d) the collectives through the NCCL group
+    mesh = elastic.make_mesh((1,), ("stage",), device=dev)
+    rng = np.random.RandomState(0)
+    ws = torch.tensor(rng.standard_normal((1, 16, 16)) * 0.3,
+                      dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.standard_normal((8, 16)), dtype=torch.float32,
+                     device=dev)
+    piped = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x, mesh,
+                           axis="stage", n_microbatches=4)
+    err = float((piped - torch.tanh(x @ ws[0])).abs().max())
+    g = torch.tensor(rng.standard_normal((4096,)), dtype=torch.float32,
+                     device=dev)
+    q, scale = compress.quantize_tensor(g)
+    mean = compress.compressed_allreduce(g)
+    exact = bool(torch.equal(mean, compress.dequantize_tensor(q, scale)))
+    log(f"  pipeline_apply, 1 stage on NCCL: max error {err:.3g} (limit "
+        f"1e-5); compressed all-reduce on 1 rank equals the dequantized "
+        f"tensor: {exact}")
+    check(err < 1e-5 and exact, "the collectives disagree on NCCL")
+    out["collectives"] = dict(pipeline_err=err, allreduce_exact=exact)
+    if started:
+        dist.destroy_process_group()
     return out, fails
 
 
@@ -1654,8 +1950,17 @@ def main():
         "launch.serve precise and with decode TAF, continuous batching "
         "precise and under QoS, the qos / obs runner modules and their gate")
     t0 = time.perf_counter()
-    report["serving"], serve_fails = phase_serving(dev, card)
+    report["serving"], serve_fails, serve_ctx = phase_serving(dev, card)
     report["phases"]["serving_s"] = time.perf_counter() - t0
+
+    # -- 12. the sharded serving data plane on one NCCL rank --------------
+    log(f"phase 12: the sharded engine at full width on a one-rank NCCL "
+        f"group: 1 shard against phase 11, {SHARDS} shards precise and "
+        f"under per-shard QoS, the drill, run --devices 1, the collectives")
+    t0 = time.perf_counter()
+    report["sharded"], shard_fails = phase_sharded(dev, card, serve_ctx)
+    del serve_ctx
+    report["phases"]["sharded_s"] = time.perf_counter() - t0
 
     kernels = []
     for r in rows:
@@ -1707,7 +2012,8 @@ def main():
     with open(REPORT, "w") as f:
         json.dump(report, f, indent=1, default=str)
     log(f"phases (s): {json.dumps(report['phases'])}")
-    gate = report["figures"]["gate_failures"] + predict_fails + serve_fails
+    gate = (report["figures"]["gate_failures"] + predict_fails + serve_fails
+            + shard_fails)
     check(not gate, f"regression gate: {len(gate)} check(s) failed")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,16 @@ Reports throughput (tokens/s), measured canary error against the target,
 the fallback rate, the knob trajectory and TTFT / latency percentiles.
 With `artifacts_dir`, writes ``BENCH_qos.json``; the committed H100 copy
 under ``src/repro_torch/benchmarks/baselines/`` is what ``run
---check-regression`` gates against. `--devices` / `--shards` (the sharded
-engine) come with multi-GPU (ROADMAP Queue 1 item 5).
+--check-regression`` gates against.
+
+With ``devices=N`` (CLI ``--devices N``; the default process group must be
+up with world size N, e.g. under ``torchrun --nproc-per-node N``) both
+engines run sharded over an (N, 1) data mesh with ``shards`` logical
+shards (N by default) of ``_LANES_PER_SHARD`` lanes each -- slots scale
+with the shards, the trace's open-loop arrival rate scales with slots, and
+the fault drill injects into ONE shard's canary stream (per-shard
+fallback). The artifact then also records devices / mesh_shape / shards
+and the per-shard knob trajectories; only rank 0 writes it.
 """
 from __future__ import annotations
 
@@ -44,33 +52,39 @@ _CANARY_FRACTION = 0.25
 _N_REQUESTS = 10
 _GEN = 8
 _SLOTS = 4
+_LANES_PER_SHARD = 4    # sharded runs: slots = lanes * shards
 _SPIKE_TICK = 22        # deterministic fault injection (monitor.inject),
 #                         late in the batch-only phase: the knob is open,
 #                         so the drill exercises a real back-off
 _SPIKE_ERROR = 10.0
-SHARDED_ITEM = "ROADMAP Queue 1 item 5 (multi-GPU)"
 
 
-def _trace(cfg, seed: int = 0):
+def _trace(cfg, seed: int = 0, *, slots: int = _SLOTS,
+           n_requests: int = _N_REQUESTS):
     """Seeded open-loop trace: arrival tick, prompt, class per request.
     Interactive ("default", tight bound) requests arrive first; a batch
     tail follows, so the run exercises both the strictest-live-lane
-    actuation and the opened knob once only batch lanes remain."""
+    actuation and the opened knob once only batch lanes remain. The
+    arrival rate scales with the engine's slot count (one request per
+    _GEN/slots ticks keeps the steady-state concurrency near the slot
+    count)."""
     rng = np.random.RandomState(seed)
     reqs = []
-    for i in range(_N_REQUESTS):
-        arrival = int(rng.randint(0, 3)) + (i * _GEN) // _SLOTS
+    for i in range(n_requests):
+        arrival = int(rng.randint(0, 3)) + (i * _GEN) // slots
         prompt = rng.randint(0, cfg.vocab_size, 8).astype(np.int32)
-        cls = "default" if i < _N_REQUESTS // 2 else "batch"
+        cls = "default" if i < n_requests // 2 else "batch"
         reqs.append((arrival, Request(uid=i, prompt=prompt,
                                       max_new_tokens=_GEN, qos_class=cls)))
     return reqs
 
 
-def _serve_trace(engine, trace, *, spike_at: Optional[int] = None):
+def _serve_trace(engine, trace, *, spike_at: Optional[int] = None,
+                 spike_shard: Optional[int] = None):
     """Open-loop drive: submissions happen at their arrival tick whether or
     not the engine kept up. Returns (stats, wall seconds). The caller must
-    have called `engine.warmup()`."""
+    have called `engine.warmup()`. `spike_shard` routes the fault drill
+    into one shard's canary stream (`QosEngine.inject(..., shard=)`)."""
     pending = sorted(trace, key=lambda ar: ar[0])
     t0 = time.perf_counter()
     tick = 0
@@ -78,7 +92,10 @@ def _serve_trace(engine, trace, *, spike_at: Optional[int] = None):
         while pending and pending[0][0] <= tick:
             engine.submit(pending.pop(0)[1])
         if spike_at is not None and tick == spike_at and engine.qos:
-            engine.qos.monitor.inject(_SPIKE_ERROR)
+            if spike_shard is None:
+                engine.qos.monitor.inject(_SPIKE_ERROR)
+            else:
+                engine.qos.inject(_SPIKE_ERROR, shard=spike_shard)
         engine.tick()
         tick += 1
         if tick > 10_000:
@@ -86,17 +103,37 @@ def _serve_trace(engine, trace, *, spike_at: Optional[int] = None):
     return engine.stats, time.perf_counter() - t0
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 def drill(*, device=None, params=None, jobs: int = 1,
           db_path: Optional[str] = None,
-          artifacts_dir: Optional[str] = None) -> Dict:
+          artifacts_dir: Optional[str] = None,
+          devices: Optional[int] = None,
+          shards: Optional[int] = None) -> Dict:
     """The whole drill on `device` (None means cuda): calibration sweep,
-    policy, precise and QoS-controlled runs of the trace. The model's
-    weights are its own init from seed 0 unless `params` is given (the
-    parity tests pass the JAX model's weights). The flight recorder's
+    policy, precise and QoS-controlled runs of the trace, sharded over
+    `devices` ranks in `shards` shards when `devices` is given. The
+    model's weights are its own init from seed 0 unless `params` is given
+    (the parity tests pass the JAX model's weights). The flight recorder's
     dumps land in `artifacts_dir` when given. Returns the policy, both
-    engines' stats and walls, the QoS engine and the flight recorder."""
+    engines' stats and walls, the QoS engine, the flight recorder and the
+    run's geometry."""
     dev = device_mod.resolve(device)
     cfg = qos.default_decode_cfg()
+    if devices is not None:
+        n_shards = int(shards) if shards is not None else int(devices)
+        slots = _LANES_PER_SHARD * n_shards
+        engine_kw = dict(devices=int(devices), shards=n_shards)
+    elif shards is not None:
+        raise ValueError("--shards needs --devices (the sharded engine)")
+    else:
+        n_shards, slots, engine_kw = 1, _SLOTS, {}
+    n_requests = max(_N_REQUESTS, (5 * slots) // 2)
+    trace_kw = dict(slots=slots, n_requests=n_requests)
     model = build(cfg, device=dev)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -113,10 +150,10 @@ def drill(*, device=None, params=None, jobs: int = 1,
     precise_model = build(dataclasses.replace(cfg,
                                               approx_decode=ApproxSpec()),
                           device=dev)
-    precise_eng = ServingEngine(precise_model, params, slots=_SLOTS,
-                                max_len=64, prompt_len=8)
+    precise_eng = ServingEngine(precise_model, params, slots=slots,
+                                max_len=64, prompt_len=8, **engine_kw)
     precise_eng.warmup()
-    p_stats, p_wall = _serve_trace(precise_eng, _trace(cfg))
+    p_stats, p_wall = _serve_trace(precise_eng, _trace(cfg, **trace_kw))
 
     # 3. QoS-controlled serving, same seeded trace + injected error spike
     engine_qos = qos.QosEngine(
@@ -124,39 +161,43 @@ def drill(*, device=None, params=None, jobs: int = 1,
         sample_fraction=_CANARY_FRACTION, window=8,
         config=qos.ControllerConfig(min_samples=2, hold_ticks=2,
                                     fallback_hold=4))
-    q_eng = ServingEngine(model, params, slots=_SLOTS, max_len=64,
-                          prompt_len=8, qos=engine_qos)
+    q_eng = ServingEngine(model, params, slots=slots, max_len=64,
+                          prompt_len=8, qos=engine_qos, **engine_kw)
     q_eng.warmup()
-    flight = obs_recorder.install(capacity=32, out_dir=artifacts_dir)
+    # sharded runs drill ONE shard -- the last, which hosts batch-class
+    # lanes by the spike tick
+    flight = obs_recorder.install(
+        capacity=32, out_dir=artifacts_dir if _rank() == 0 else None)
     try:
-        q_stats, q_wall = _serve_trace(q_eng, _trace(cfg),
-                                       spike_at=_SPIKE_TICK)
+        q_stats, q_wall = _serve_trace(
+            q_eng, _trace(cfg, **trace_kw), spike_at=_SPIKE_TICK,
+            spike_shard=(n_shards - 1 if n_shards > 1 else None))
     finally:
         obs_recorder.uninstall()
     return dict(policy=policy, precise_stats=p_stats, precise_wall=p_wall,
                 qos_stats=q_stats, qos_wall=q_wall, qos_engine=engine_qos,
-                serving_engine=q_eng, flight=flight)
+                serving_engine=q_eng, flight=flight,
+                devices=int(devices) if devices else 1, shards=n_shards,
+                slots=slots, requests=n_requests)
 
 
 def main(report, jobs: int = 1, db_path: Optional[str] = None,
          artifacts_dir: Optional[str] = None,
          devices: Optional[int] = None, shards: Optional[int] = None,
          device=None) -> Dict:
-    if devices is not None or shards is not None:
-        raise NotImplementedError(
-            f"--devices / --shards (the sharded engine) are not ported yet "
-            f"({SHARDED_ITEM})")
     r = drill(device=device, jobs=jobs, db_path=db_path,
-              artifacts_dir=artifacts_dir)
+              artifacts_dir=artifacts_dir, devices=devices, shards=shards)
     policy, engine_qos, q_eng = r["policy"], r["qos_engine"], \
         r["serving_engine"]
     p_stats, q_stats, flight = r["precise_stats"], r["qos_stats"], \
         r["flight"]
+    n_shards = r["shards"]
     report("qos_policy_ladder", f"{len(policy)}",
            ";".join(f"th={e.spec.get('thresh')}:err={e.error:.3f}"
                     for e in policy.entries[1:]) or "precise_only")
-    report("qos_mesh", "0", f"devices=1,mesh_shape=None,shards=1,"
-           f"slots={_SLOTS},requests={_N_REQUESTS}")
+    report("qos_mesh", "0", f"devices={r['devices']},mesh_shape="
+           f"{q_eng.mesh_shape},shards={n_shards},slots={r['slots']},"
+           f"requests={r['requests']}")
 
     summary = engine_qos.summary()
     traj = {cls: ctl.trajectory_json()
@@ -192,11 +233,12 @@ def main(report, jobs: int = 1, db_path: Optional[str] = None,
         "target_max_error": _TARGET,
         "metric": policy.metric,
         "canary_fraction": _CANARY_FRACTION,
-        "devices": 1,
-        "mesh_shape": None,
-        "shards": 1,
-        "slots": _SLOTS,
-        "requests": _N_REQUESTS,
+        "devices": r["devices"],
+        "mesh_shape": (list(q_eng.mesh_shape) if q_eng.mesh_shape
+                       else None),
+        "shards": n_shards,
+        "slots": r["slots"],
+        "requests": r["requests"],
         "policy_ladder": policy.to_json()["entries"],
         "precise": {"tokens_per_s": p_tps,
                     "latency": p_stats.latency_summary()},
@@ -215,18 +257,27 @@ def main(report, jobs: int = 1, db_path: Optional[str] = None,
                   ("target", "exposed_mean_error", "exposed_canaries",
                    "index", "fallback_rate")}
             for cls, c in summary["classes"].items()},
+        # engine-level knob actuations (with the typed move's reason);
+        # sharded entries hold one value per shard, and the per-shard
+        # trajectories below slice them out
         "knob_actuations": [
-            {"tick": m.tick, "threshold": m.value, "reason": m.reason}
+            {"tick": m.tick,
+             "threshold": (list(m.value) if isinstance(m.value, tuple)
+                           else m.value),
+             "reason": m.reason}
             for m in q_eng.knob_events],
         "knob_trajectory": traj,
-        "knob_trajectory_per_shard": None,
-        "shard_exposure": None,
+        "knob_trajectory_per_shard": None if n_shards == 1 else {
+            str(s): [{"tick": t, "threshold": v[s]}
+                     for t, v in q_eng.knob_log]
+            for s in range(n_shards)},
+        "shard_exposure": summary.get("shard_exposure"),
         "flight_dumps": [
             {"reason": d["reason"], "context": d["context"],
              "ticks": len(d["ticks"])}
             for d in flight.dumps],
     })
-    if artifacts_dir:
+    if artifacts_dir and _rank() == 0:
         os.makedirs(artifacts_dir, exist_ok=True)
         path = os.path.join(artifacts_dir, "BENCH_qos.json")
         with open(path, "w") as f:
@@ -245,9 +296,17 @@ if __name__ == "__main__":
     ap.add_argument("--db", default=None)
     ap.add_argument("--artifacts", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="serve sharded over N ranks (start them with "
+                    "torchrun --nproc-per-node N)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="logical shards (a multiple of --devices)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record a Chrome/Perfetto trace of the run")
     args = ap.parse_args()
+    if args.devices is not None:
+        from ..runtime import elastic
+        elastic.init_from_env(args.device)
     tracer = None
     if args.trace:
         tracer = obs_trace.Tracer()
@@ -255,7 +314,7 @@ if __name__ == "__main__":
     try:
         main(lambda n, us, d="": print(f"{n},{us},{d}", flush=True),
              jobs=args.jobs, db_path=args.db, artifacts_dir=args.artifacts,
-             device=args.device)
+             devices=args.devices, shards=args.shards, device=args.device)
     finally:
         if tracer is not None:
             obs_trace.disable()

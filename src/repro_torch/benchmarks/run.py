@@ -29,6 +29,12 @@ modules (`ffn`) into cost-model pruned mode: only the predicted front band
 of the grid is measured, and ``BENCH_ffn_predict.json`` is written instead
 of the full-grid ``BENCH_ffn.json``.
 
+``--devices N`` runs device-aware modules (`qos`) with the decode data
+plane sharded over N ranks, one a device: start them with ``torchrun
+--nproc-per-node N -m repro_torch.benchmarks.run --devices N ...`` (the
+process group comes from torchrun's environment; only rank 0 prints and
+writes artifacts).
+
 ``--check-regression <baseline-dir-or-file>`` compares the artifacts of
 THIS run with committed baselines (``src/repro_torch/benchmarks/
 baselines/``, taken on an H100) and exits 2 beyond the noise margin.
@@ -130,7 +136,8 @@ def run_modules(keys: Sequence[str], report: Callable[..., None], *,
                 db_path: Optional[str] = None,
                 substrate: Optional[str] = None,
                 artifacts_dir: Optional[str] = None,
-                predict: bool = False) -> Tuple[Dict, List[str]]:
+                predict: bool = False,
+                devices: Optional[int] = None) -> Tuple[Dict, List[str]]:
     """Run each module of `keys` with the options its `main` takes.
     Returns ({key: what its main returned}, [keys that raised]); a module
     that raises reports an ERROR row and the others still run."""
@@ -143,7 +150,8 @@ def run_modules(keys: Sequence[str], report: Callable[..., None], *,
             ("artifacts_dir", artifacts_dir), ("device", device),
             ("full", full or None),
             ("geometry", "full" if full else None),
-            ("predict", True if predict else None))
+            ("predict", True if predict else None),
+            ("devices", devices))
             if k in accepted and v is not None}
         # each module starts from a clean metrics registry, so the obs
         # snapshot stamped into its BENCH_*.json is that module's alone
@@ -329,6 +337,10 @@ def _report(name: str, value, derived: str = "") -> None:
     print(f"{name},{value},{derived}", flush=True)
 
 
+def _quiet(name: str, value, derived: str = "") -> None:
+    pass
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """The command line; returns the exit code (0 ok, 1 a module raised,
     2 the regression gate failed)."""
@@ -360,6 +372,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="record a Chrome/Perfetto trace of the whole run "
                     "(one span per module plus every repro_torch.obs span "
                     "the modules emit) and write it to this path")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="shard device-aware modules (qos) over N ranks "
+                    "(start them with torchrun --nproc-per-node N)")
     ap.add_argument("--predict", action="store_true",
                     help="cost-model pruned mode for predict-aware modules "
                     "(ffn: measure only the predicted front band, a fifth "
@@ -373,13 +388,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except ValueError as e:  # before any module burns sweep time
         ap.error(str(e))
 
-    print("name,value,derived")
+    report = _report
+    if args.devices is not None:
+        from ..runtime import elastic
+        elastic.init_from_env(args.device)
+        if elastic.require_world(args.devices, args.device) != 0:
+            report = _quiet     # rank 0 speaks for the group
+    if report is _report:
+        print("name,value,derived")
     tracer = obs_trace.enable() if args.trace else None
     try:
         _, errors = run_modules(
-            keys, _report, device=args.device, full=args.full,
+            keys, report, device=args.device, full=args.full,
             jobs=args.jobs, db_path=args.db, substrate=args.substrate,
-            artifacts_dir=args.artifacts, predict=args.predict)
+            artifacts_dir=args.artifacts, predict=args.predict,
+            devices=args.devices)
     finally:
         if tracer is not None:
             obs_trace.disable()
@@ -387,7 +410,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         tracer.save(args.trace)
         _report("trace", len(tracer), args.trace)
 
-    if args.check_regression:
+    if args.check_regression and report is _report:
         # outside the per-module guard: the gate fails the process, it
         # never becomes an ERROR row
         fails = check_regression(args.artifacts, args.check_regression,

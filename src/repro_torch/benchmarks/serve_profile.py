@@ -24,8 +24,14 @@ step:
   * `wall_ms`      -- the step between CUDA events (median of 5);
   * `idle`         -- 1 - device_ms / wall_ms.
 
+With `--shards S` the plain and precise steps are profiled once more
+through the sharded serve step (`launch.steps.make_sharded_serve_step`, S
+shards of batch / S lanes on a one-rank process group it starts):
+`sharded_plain` and `sharded_precise`, S decode steps' kernels each.
+
     PYTHONPATH=src python -m repro_torch.benchmarks.serve_profile \\
-        --arch qwen3-1.7b --batch 4 --prompt-len 128 [--out PATH]
+        --arch qwen3-1.7b --batch 4 --prompt-len 128 [--shards S]
+        [--out PATH]
 
 Prints one JSON object. Needs a CUDA device.
 """
@@ -35,7 +41,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -75,7 +81,8 @@ def _profile_step(step, dev) -> Dict:
                 device_ms=device_us / 1e3, kernel_names=names)
 
 
-def profile(arch: str, batch: int, prompt_len: int) -> Dict:
+def profile(arch: str, batch: int, prompt_len: int,
+            shards: Optional[int] = None) -> Dict:
     dev = device_mod.resolve(None)
     taf = ApproxSpec(Technique.TAF, Level.BLOCK, taf=TAFParams(2, 4, 0.0))
     cfg = dataclasses.replace(get_config(arch), approx_decode=taf)
@@ -115,8 +122,30 @@ def profile(arch: str, batch: int, prompt_len: int) -> Dict:
         ("skipped", stepper(cfg, params, skip_all)),
         ("skipped_short", stepper(dataclasses.replace(
             cfg, n_layers=SHORT_LAYERS), short_params, skip_all)))
+    started = False
+    if shards:
+        from ..launch import steps as steps_mod
+        from ..models.lm import shard_taf_state
+        from ..runtime import elastic
+        started = elastic.init_single(dev)
+        mesh = elastic.data_mesh_for(1, device=dev)
+
+        def sharded(c, ps, pre=None):
+            model, cache, tokens = prefilled(c, ps)
+            cache = shard_taf_state(cache, shards)
+            step_fn = steps_mod.make_sharded_serve_step(model, mesh, shards,
+                                                        batch)
+
+            def step():
+                if pre:
+                    pre(cache)
+                step_fn(ps, cache, tokens, prompt_len)
+            return step
+
+        steps += (("sharded_plain", sharded(get_config(arch), params)),
+                  ("sharded_precise", sharded(cfg, params, precise)))
     out = {"arch": arch, "n_layers": cfg.n_layers,
-           "short_layers": SHORT_LAYERS, "batch": batch,
+           "short_layers": SHORT_LAYERS, "batch": batch, "shards": shards,
            "prompt_len": prompt_len, "device": device_mod.name(dev)}
     for label, step in steps:
         step()                                   # warm
@@ -129,6 +158,9 @@ def profile(arch: str, batch: int, prompt_len: int) -> Dict:
                                         repeats=5).seconds * 1e3
         row["idle"] = 1.0 - row["device_ms"] / max(row["wall_ms"], 1e-9)
         out[label] = row
+    if started:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return out
 
 
@@ -137,9 +169,11 @@ def main(argv=None) -> Dict:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, required=True)
     ap.add_argument("--prompt-len", type=int, required=True)
+    ap.add_argument("--shards", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    res = profile(args.arch, batch=args.batch, prompt_len=args.prompt_len)
+    res = profile(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                  shards=args.shards)
     text = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

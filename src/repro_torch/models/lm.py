@@ -50,6 +50,33 @@ CACHE_BATCH_AXES = {
     ("taf", "memo_delta"): 1, ("taf", "memo_k"): 1, ("taf", "memo_v"): 1,
 }
 
+# The TAF detector-state leaves of `_taf_init_cache`: per-layer scalars or
+# small vectors with NO batch dim. These are the leaves that become
+# PER-SHARD under a sharded serving engine -- each logical shard runs its
+# own stability detector (window/filled/remaining) and its own threshold
+# knob, so a QoS controller can tighten one shard while another keeps
+# approximating, without building a step. The memo_* leaves already carry
+# the batch dim and shard along it like the KV cache.
+TAF_SHARD_STATE = ("threshold", "window", "filled", "remaining")
+
+
+def shard_taf_state(cache: Dict, n_shards: int) -> Dict:
+    """Return `cache` with the TAF detector state copied per shard.
+
+    Each `TAF_SHARD_STATE` leaf (n_layers, ...) gains a LEADING shard dim:
+    (n_shards, n_layers, ...), one independent copy a shard (the rows
+    evolve apart). `launch.steps.make_sharded_serve_step` runs each
+    shard's decode over its own row, so the batch-mean stability
+    statistic becomes a per-shard statistic over the shard's own lanes.
+    A no-op for caches without a "taf" entry (precise models)."""
+    if "taf" not in cache:
+        return cache
+    taf = dict(cache["taf"])
+    for key in TAF_SHARD_STATE:
+        leaf = taf[key]
+        taf[key] = leaf.unsqueeze(0).repeat((n_shards,) + (1,) * leaf.dim())
+    return dict(cache, taf=taf)
+
 
 def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
@@ -234,9 +261,12 @@ class Model:
             taf["memo_" + name].copy_(memo)
 
     def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, Dict]:
+                    pos: int, remaining=None) -> Tuple[torch.Tensor, Dict]:
         """tokens (B,) at position `pos` (a host int) -> (logits (B, V)
-        float32, the cache updated in place)."""
+        float32, the cache updated in place). `remaining`: the TAF
+        `remaining` vector as host ints when the caller has read it
+        already (the sharded step reads every shard's at once); None reads
+        it here."""
         cfg = self.cfg
         x = params["embed"][tokens[:, None].long()]
         kv = cache["dense"]
@@ -249,8 +279,10 @@ class Model:
                     approx_ffn=cfg.approx_ffn)
         else:
             skip = taf["remaining"] > 0               # device copy, pre-step
-            rem = taf["remaining"].tolist()           # the step's host read
-            obs_metrics.count_host_read()
+            rem = remaining
+            if rem is None:
+                rem = taf["remaining"].tolist()       # the step's host read
+                obs_metrics.count_host_read()
             sums = torch.zeros((cfg.n_layers,), dtype=torch.float32,
                                device=self.device)
             for l, lp in enumerate(params["dense_blocks"]):

@@ -32,8 +32,6 @@ from ..launch import steps as steps_mod
 from ..obs import metrics as obs_metrics
 from ..obs.timing import measure
 
-SHARDED_ITEM = "ROADMAP Queue 1 item 5 (multi-GPU)"
-
 
 def default_decode_cfg(arch: str = "qwen3-1.7b", *, history_size: int = 2,
                        prediction_size: int = 4,
@@ -61,20 +59,36 @@ def threshold_grid(cfg, thresholds: Sequence[float]) -> List[ApproxSpec]:
 
 
 def set_decode_threshold(cache, value):
-    """Set the decode-TAF threshold of every layer to `value` in place and
-    return `cache` (0.0 = precise: RSD < 0 never holds). A hard precise
-    fallback also cancels in-flight predictions, otherwise up to
-    prediction_size more approximated layer-steps would run after the knob
-    move. A tensor write: no step is rebuilt and nothing is read back. The
-    per-shard form (a sequence of values) comes with the sharded engine."""
-    if np.ndim(value) != 0:
-        raise NotImplementedError(
-            f"per-shard thresholds need a sharded TAF cache, which is not "
-            f"ported yet ({SHARDED_ITEM})")
+    """Set the decode-TAF threshold knob in place and return `cache` (0.0 =
+    precise: RSD < 0 never holds). A hard precise fallback also cancels
+    in-flight predictions, otherwise up to prediction_size more
+    approximated layer-steps would run after the knob move.
+
+    `value` may be a scalar (every layer -- and, on a sharded cache, every
+    shard -- gets the same knob) or a sequence with one value per row of a
+    cache whose TAF state has been through `models.lm.shard_taf_state`
+    (leading shard dim): each shard gets its own threshold, and only
+    shards set precise have their in-flight predictions cancelled. Either
+    way this is a tensor write: no step is rebuilt and nothing is read
+    back."""
     taf = cache["taf"]
-    taf["threshold"].fill_(float(value))
-    if float(value) == 0.0:
-        taf["remaining"].zero_()
+    th = taf["threshold"]
+    if np.ndim(value) == 0:
+        th.fill_(float(value))
+        if float(value) == 0.0:
+            taf["remaining"].zero_()
+        return cache
+    vals = [float(v) for v in value]
+    if th.dim() < 2 or len(vals) != th.shape[0]:
+        raise ValueError(
+            f"per-shard thresholds need a sharded TAF cache: got "
+            f"{len(vals)} values for threshold leaf of shape "
+            f"{tuple(th.shape)} (run models.lm.shard_taf_state first)")
+    th.copy_(torch.tensor(vals, dtype=th.dtype).unsqueeze(1).expand(
+        th.shape))
+    for s, v in enumerate(vals):
+        if v == 0.0:
+            taf["remaining"][s].zero_()
     return cache
 
 

@@ -1,5 +1,5 @@
 """QosEngine: the serving-side bundle of policy + monitor + controllers
-(port of `repro.qos.engine`, host logic line for line, one shard).
+(port of `repro.qos.engine`, host logic line for line).
 
 One engine serves one continuous-batching loop. It owns:
 
@@ -16,10 +16,8 @@ One engine serves one continuous-batching loop. It owns:
     call per knob group; the plan exposes the groups so schedulers can.
 
 The knob itself is data (the model's TAF threshold lives in the decode
-cache as a tensor), so a knob move rebuilds nothing. The per-shard methods
-(`enable_sharding`, `plan_shards`, `observe_shard`, `update_shards`,
-`inject(..., shard=)`) come with the sharded engine (ROADMAP Queue 1 item
-5).
+cache as a tensor, one row a shard on a sharded engine), so a knob move
+rebuilds nothing.
 """
 from __future__ import annotations
 
@@ -48,6 +46,13 @@ class TickPlan:
     lane indices + stacked knobs that COULD run as one vmapped call;
     `precise_lanes` are the lanes whose class currently demands rung 0.
 
+    Sharded engines (`plan_shards`) additionally fill `shard_indices` /
+    `shard_knobs`: each shard's OWN strictest-live rung and its knob value
+    (0.0 for precise -- the per-shard threshold vector is written into the
+    cache as one tensor, so None has no slot there). For those plans
+    `index` is the strictest-live-rung reduction ACROSS shards: min over
+    shards with live lanes -- commutative and associative, so the reduction
+    is independent of shard enumeration order.
     """
 
     index: int
@@ -55,6 +60,12 @@ class TickPlan:
     knob: Optional[float]
     groups: Dict[Tuple, Tuple[List[int], List[float]]]
     precise_lanes: List[int]
+    shard_indices: Optional[Tuple[int, ...]] = None
+    shard_knobs: Optional[Tuple[float, ...]] = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.shard_indices is not None
 
     @property
     def n_groups(self) -> int:
@@ -97,6 +108,13 @@ class QosEngine:
         self._exposure: Dict[str, List[float]] = {
             cls: [] for cls in self.controllers}
         self._actuated_index: Optional[int] = None
+        # sharded mode (enable_sharding): per-class evidence monitors,
+        # per-shard exposure, and the last actuated per-shard rung vector
+        self._n_shards: Optional[int] = None
+        self.class_monitors: Dict[str, QualityMonitor] = {}
+        self._shard_exposure: Dict[int, List[float]] = {}
+        self._actuated_shards: Optional[Tuple[int, ...]] = None
+        self._last_shard_classes: List[List[str]] = []
 
     def _target(self, cls: str, t: TargetLike) -> QosTarget:
         """Normalize a bound to a QosTarget stamped with its class name
@@ -116,8 +134,151 @@ class QosEngine:
     def spec_for(self, request_class: str = "default") -> ApproxSpec:
         return self.controller(request_class).spec()
 
+    # ------------------------------------------------------------------
+    # sharded mode
+    # ------------------------------------------------------------------
+
+    @property
+    def n_shards(self) -> Optional[int]:
+        """Shard count in sharded mode, None in single-lane-group mode."""
+        return self._n_shards
+
+    def enable_sharding(self, n_shards: int) -> None:
+        """Switch to per-shard actuation (the sharded ServingEngine calls
+        this at construction).
+
+        Evidence becomes per CLASS: each controller is rebound to its own
+        `QualityMonitor` (same metric/fraction/window as the shared one),
+        fed only by canaries from shards where the class had live lanes.
+        The shared window would mix errors measured under OTHER shards'
+        knobs -- with per-shard rungs those are genuinely different
+        configurations, so a shared estimate would fabricate violations
+        for a class that never ran the offending rung (and hide real
+        ones). The shared monitor keeps the canary SCHEDULE and the
+        lifetime/injection accounting, so reports stay comparable with
+        the single-shard engine's."""
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if self._n_shards is not None:
+            if self._n_shards == int(n_shards):
+                return
+            raise ValueError(
+                f"engine already sharded at {self._n_shards}; cannot "
+                f"re-shard to {n_shards} (controller evidence windows "
+                f"would be misattributed)")
+        self._n_shards = int(n_shards)
+        self.class_monitors = {
+            cls: QualityMonitor(metric=self.monitor.metric,
+                                sample_fraction=self.monitor.sample_fraction,
+                                window=self.monitor.window)
+            for cls in self.controllers}
+        for cls, ctl in self.controllers.items():
+            ctl.rebind_monitor(self.class_monitors[cls])
+        self._shard_exposure = {s: [] for s in range(self._n_shards)}
+        self._last_shard_classes = [[] for _ in range(self._n_shards)]
+
     def _norm_class(self, cls: str) -> str:
         return cls if cls in self.controllers else "default"
+
+    def plan_shards(self, shard_classes: Sequence[Sequence[str]]) -> TickPlan:
+        """Per-shard actuation plan: one entry of `shard_classes` per
+        shard, holding that shard's live lanes' classes (empty = idle
+        shard, which keeps the default class's posture but does not vote
+        in the global reduction).
+
+        Each shard's rung is the strictest among ITS live classes; the
+        plan's global `index` is the strictest-live-rung reduction across
+        shards (min over shards with live lanes). Per-shard knob-regime
+        changes reset the stale evidence of the classes live on that
+        shard -- same violation-preserving asymmetry as `plan_tick`: a
+        class whose window already crosses its bound keeps it, so this
+        tick's update fires the fallback instead of discarding the fault.
+        """
+        if self._n_shards is None:
+            raise ValueError("call enable_sharding() before plan_shards()")
+        if len(shard_classes) != self._n_shards:
+            raise ValueError(
+                f"expected {self._n_shards} shard class lists, got "
+                f"{len(shard_classes)}")
+        norm = [[self._norm_class(c) for c in sc] for sc in shard_classes]
+        per = [min(self.controller(c).index for c in (sc or ["default"]))
+               for sc in norm]
+        live = [per[s] for s in range(self._n_shards) if norm[s]]
+        index = min(live) if live else self.controllers["default"].index
+        if self._actuated_shards is not None:
+            for s, sc in enumerate(norm):
+                if per[s] == self._actuated_shards[s]:
+                    continue
+                for cls in sorted(set(sc)):
+                    mon = self.class_monitors[cls]
+                    bound = self.controllers[cls].target.max_error
+                    if not (mon.window_size > 0 and mon.estimate() >= bound):
+                        mon.reset_window()
+        self._actuated_shards = tuple(per)
+        self._last_shard_classes = [list(sc) for sc in norm]
+        # lane-order grouping: shards are contiguous lane ranges, so the
+        # flattened per-lane specs line up with the engine's lane indices
+        flat_specs = [self.policy.spec_at(per[s])
+                      for s, sc in enumerate(norm) for _ in sc]
+        groups, precise = batching.group_lanes(flat_specs)
+        spec = self.policy.spec_at(index)
+        return TickPlan(
+            index=index, spec=spec, knob=spec_knob(spec), groups=groups,
+            precise_lanes=precise, shard_indices=tuple(per),
+            shard_knobs=tuple(spec_knob(self.policy.spec_at(i)) or 0.0
+                              for i in per))
+
+    def observe_shard(self, shard: int, exact_logits, approx_logits,
+                      lane_classes: Sequence[str]) -> float:
+        """Score one shard's slice of a canary tick. The error feeds three
+        places: the shared monitor (lifetime stats + the report estimate),
+        the per-class evidence monitors of the classes live on THIS shard
+        (each class judges its bound only against canaries measured under
+        a knob it was actually exposed to), and the shard's exposure
+        record (per-shard canary attribution in `summary()`)."""
+        if self._n_shards is None:
+            raise ValueError("call enable_sharding() before observe_shard()")
+        exact_q, approx_q = self._qoi(exact_logits, approx_logits)
+        err = self.monitor.observe(exact_q, approx_q)
+        for cls in sorted({self._norm_class(c) for c in lane_classes}):
+            self._exposure[cls].append(err)
+            self.class_monitors[cls].record(err)
+        self._shard_exposure[shard].append(err)
+        return err
+
+    def update_shards(self,
+                      shard_classes: Sequence[Sequence[str]]) -> None:
+        """Per-tick feedback in sharded mode: every class with live lanes
+        on ANY shard steps its controller against ITS OWN evidence monitor.
+        No cross-class snapshot is needed here -- that dance in `update()`
+        guards the SHARED window against one controller's fallback reset;
+        per-class monitors cannot interfere with each other."""
+        if self._n_shards is None:
+            raise ValueError("call enable_sharding() before update_shards()")
+        live = ({self._norm_class(c) for sc in shard_classes for c in sc}
+                or {"default"})
+        for cls in sorted(live):
+            mon = self.class_monitors[cls]
+            self.controllers[cls].update(est=mon.estimate(),
+                                         drift=mon.drift(),
+                                         window_size=mon.window_size)
+        self._flight_note(sorted(live), shard_rungs=self._actuated_shards)
+
+    def inject(self, error: float, shard: Optional[int] = None) -> None:
+        """Stage a deterministic fault. Without `shard`, equivalent to
+        `monitor.inject` (the single-engine drill). With `shard` (sharded
+        mode), the fault also lands on the evidence monitors of the
+        classes live on that shard at the last plan -- the drill models
+        one shard's canary stream going bad, so only the classes exposed
+        there react (pinned by tests/test_torch_qos_sharded.py)."""
+        self.monitor.inject(error)
+        if shard is None:
+            return
+        if self._n_shards is None:
+            raise ValueError("per-shard inject needs enable_sharding()")
+        classes = set(self._last_shard_classes[shard]) or {"default"}
+        for cls in sorted(classes):
+            self.class_monitors[cls].inject(error)
 
     # ------------------------------------------------------------------
     # the per-tick loop
@@ -168,14 +329,10 @@ class QosEngine:
                     np.argmax(np.asarray(approx_logits), axis=-1))
         return np.asarray(exact_logits), np.asarray(approx_logits)
 
-    def inject(self, error: float) -> None:
-        """Stage a deterministic fault (equivalent to `monitor.inject`,
-        the single-engine drill)."""
-        self.monitor.inject(error)
-
     def observe_decode(self, exact_logits, approx_logits,
                        lane_classes: Sequence[str] = ()) -> float:
-        """Score one canary tick. `lane_classes` (the live lanes' classes)
+        """Score one canary tick (single-lane-group mode; sharded engines
+        use `observe_shard`). `lane_classes` (the live lanes' classes)
         attributes the canary to every class exposed to this tick's
         knob."""
         exact_q, approx_q = self._qoi(exact_logits, approx_logits)
@@ -209,7 +366,8 @@ class QosEngine:
                                          window_size=wsize)
         self._flight_note(sorted(live))
 
-    def _flight_note(self, stepped: Sequence[str]) -> None:
+    def _flight_note(self, stepped: Sequence[str],
+                     shard_rungs: Optional[Tuple[int, ...]] = None) -> None:
         """Feed the flight recorder (when one is installed): one per-tick
         note of per-class control state, and a `trip()` dump on the tick a
         controller fires its hard fallback -- the incident the ring buffer
@@ -219,7 +377,7 @@ class QosEngine:
             return
         classes = {}
         for cls, ctl in self.controllers.items():
-            mon = self.monitor
+            mon = self.class_monitors.get(cls, self.monitor)
             last = ctl.trajectory[-1] if ctl.trajectory else None
             classes[cls] = {
                 "index": ctl.index,
@@ -230,7 +388,10 @@ class QosEngine:
                 "window": mon.window_size,
                 "event": last.event if last else None,
             }
-        rec.note(classes=classes)
+        note = {"classes": classes}
+        if shard_rungs is not None:
+            note["shard_rungs"] = list(shard_rungs)
+        rec.note(**note)
         for cls in stepped:
             t = self.controllers[cls].trajectory
             if t and t[-1].event == "fallback":
@@ -266,4 +427,10 @@ class QosEngine:
                                     if self._exposure[cls] else 0.0))
                 for cls, ctl in self.controllers.items()},
         }
+        if self._n_shards is not None:
+            out["shards"] = self._n_shards
+            out["shard_exposure"] = {
+                s: {"exposed_canaries": len(v),
+                    "exposed_mean_error": (float(np.mean(v)) if v else 0.0)}
+                for s, v in self._shard_exposure.items()}
         return out

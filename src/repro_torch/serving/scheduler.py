@@ -32,9 +32,18 @@ Per tick the engine reads the device once (the new tokens, with the TAF
 once more (its `remaining` at the step's start), and a canary tick once
 more (both logits); every read is counted in `obs.metrics.HOST_READS`.
 
-Sharded serving (`mesh=`, `devices=`, `shards=`) comes with multi-GPU
-(ROADMAP Queue 1 item 5) and the `lint=` pass with the analysis lint
-(item 7); asking for either raises.
+Sharded serving (`mesh=` or `devices=`, with `shards=`): `shards` logical
+shards of `slots // shards` contiguous lanes each, split over the mesh's
+data axes -- any multiple of their extent, so one card can run several.
+Each shard carries its own TAF detector state and threshold knob, the
+decode runs shard by shard (`launch.steps.make_sharded_serve_step`), and
+with `qos=` the control plane actuates, canaries and updates per shard
+(`QosEngine.enable_sharding`). Several ranks run SPMD: every rank runs the
+same host logic on the same queue, prefills and decodes only its own
+shards' lanes, and one `all_gather` a tick (the new tokens with the
+`remaining` rows, and both logits on a canary tick) gives every rank the
+same view, so the QoS plane runs identically everywhere. The `lint=`
+pass comes with the analysis lint (ROADMAP Queue 1 item 7) and raises.
 """
 from __future__ import annotations
 
@@ -54,7 +63,6 @@ from ..obs import recorder as obs_recorder
 from ..obs import trace
 from ..obs.metrics import percentile as _percentile
 
-SHARDED_ITEM = "ROADMAP Queue 1 item 5 (multi-GPU)"
 LINT_ITEM = "ROADMAP Queue 1 item 7 (analysis lint)"
 
 
@@ -76,13 +84,14 @@ class Request:
 class KnobMove:
     """One actuator write: the typed record behind `knob_log`.
 
-    `value`/`previous` are the threshold actually written (`previous` is
-    None for the first actuation). `reason` classifies the move from the
-    controller state and the value delta: init | tighten | loosen |
-    fallback. Emitted as an obs `knob_move` event when tracing."""
+    `value`/`previous` are the threshold actually written -- a float, or
+    a per-shard tuple on sharded engines (`previous` is None for the
+    first actuation). `reason` classifies the move from the controller
+    state and the value delta: init | tighten | loosen | fallback |
+    mixed. Emitted as an obs `knob_move` event when tracing."""
     tick: int
-    value: float
-    previous: Optional[float]
+    value: object
+    previous: object
     reason: str
 
 
@@ -98,10 +107,18 @@ class EngineStats:
     # per-request latency samples (seconds), appended as requests progress:
     ttft_s: List[float] = dataclasses.field(default_factory=list)
     latency_s: List[float] = dataclasses.field(default_factory=list)
+    # sharded engines: skipped / total layer-steps of each shard
+    shard_taf_skipped: List[int] = dataclasses.field(default_factory=list)
+    shard_taf_total: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def taf_skip_fraction(self) -> float:
         return self.taf_skipped / max(self.taf_total, 1)
+
+    @property
+    def shard_skip_fractions(self) -> List[float]:
+        return [k / max(n, 1) for k, n in zip(self.shard_taf_skipped,
+                                               self.shard_taf_total)]
 
     @property
     def ttft_p50(self) -> Optional[float]:
@@ -131,17 +148,24 @@ class EngineStats:
 
 class ServingEngine:
     """Slot-based continuous batching over a fixed decode batch size, on
-    the model's device."""
+    the model's device.
+
+    Sharded mode (`mesh=` a `DeviceMesh`, or `devices=N` for the (N, 1)
+    data mesh of `runtime.elastic.data_mesh_for`, which needs the default
+    process group up with world size N): `shards` logical shards (the
+    mesh's data extent by default) of `slots // shards` contiguous lanes
+    each. Logical shards are decoupled from the device count, so the same
+    engine config gives the same outputs on one rank and on several. Each
+    shard carries its own TAF detector state and threshold knob; with
+    `qos=`, the control plane is switched to per-shard actuation
+    (`QosEngine.enable_sharding`) and every tick plans, canaries and
+    updates per shard.
+    """
 
     def __init__(self, model: Model, params, *, slots: int = 4,
                  max_len: int = 256, prompt_len: int = 32, qos=None,
                  mesh=None, devices: Optional[int] = None,
                  shards: Optional[int] = None, lint: bool = False):
-        if mesh is not None or devices is not None or shards not in (None,
-                                                                     1):
-            raise NotImplementedError(
-                f"sharded serving (mesh=, devices=, shards=) is not ported "
-                f"yet ({SHARDED_ITEM})")
         if lint:
             raise NotImplementedError(
                 f"the engine's lint pass is not ported yet ({LINT_ITEM})")
@@ -155,13 +179,55 @@ class ServingEngine:
         self.pos = np.zeros(slots, np.int64)       # next write position
         self.limit = np.zeros(slots, np.int64)     # stop position
         self.stats = EngineStats()
+        if devices is not None and mesh is None:
+            from ..runtime import elastic
+            mesh = elastic.data_mesh_for(devices, device=model.device)
+        self.mesh = mesh
+        n_data, data_index = 1, 0
+        if mesh is not None:
+            from ..runtime import sharding as shardlib
+            n_data = shardlib.data_extent(mesh)
+            data_index = shardlib.data_index(mesh)
+            other = {a: n for a, n in shardlib.mesh_shape(mesh).items()
+                     if a not in shardlib.data_axes(mesh) and n != 1}
+            if other:
+                raise ValueError(f"the serving mesh is data-parallel only; "
+                                 f"axes {other} must have size 1")
+            da = shardlib.data_axes(mesh)
+            self._group = mesh.get_group(da[0]) if len(da) == 1 else None
+            self.n_shards = int(shards) if shards is not None else n_data
+            if self.n_shards < 1 or self.n_shards % n_data:
+                raise ValueError(
+                    f"shards ({self.n_shards}) must be a positive multiple "
+                    f"of the mesh's data extent ({n_data})")
+            if slots % self.n_shards:
+                raise ValueError(
+                    f"slots ({slots}) must divide evenly into "
+                    f"{self.n_shards} shards")
+        else:
+            if shards not in (None, 1):
+                raise ValueError(
+                    "shards needs a mesh (pass devices=1 for a "
+                    "single-device data-parallel mesh)")
+            self.n_shards = 1
+        self.lanes_per_shard = slots // self.n_shards
+        self._n_data = n_data
+        # this rank's shards [s_lo, s_hi) and lanes [lo, hi)
+        self.local_shards = self.n_shards // n_data
+        self._s_lo = data_index * self.local_shards
+        self._lo = self._s_lo * self.lanes_per_shard
+        self._hi = self._lo + self.local_shards * self.lanes_per_shard
         self._prefill = steps_mod.make_prefill_step(model, max_len)
-        self._serve = steps_mod.make_serve_step(model)
+        if mesh is not None:
+            self._serve = steps_mod.make_sharded_serve_step(
+                model, mesh, self.n_shards, slots)
+        else:
+            self._serve = steps_mod.make_serve_step(model)
         self.cache = None
-        self.tokens = torch.zeros((slots,), dtype=torch.int32,
+        self.tokens = torch.zeros((self._hi - self._lo,), dtype=torch.int32,
                                   device=model.device)
         self.qos = qos
-        self._knob = None                    # last actuated threshold
+        self._knob = None                    # last actuated threshold(s)
         self.knob_events: List[KnobMove] = []
         self._serve_exact = None
         if qos is not None:
@@ -175,10 +241,17 @@ class ServingEngine:
             from ..qos import validate_ladder_taf
             validate_ladder_taf(qos.policy, model.cfg.approx_decode.taf)
             # the canary oracle: the SAME params through a precise decode
-            # step; the cache's 'taf' entry rides through it untouched
+            # step; the cache's 'taf' entry rides through it untouched. A
+            # sharded engine runs it through the same sharded wrapper, so
+            # its lanes run in the same groups as the served step's.
             exact_model = build(dataclasses.replace(
                 model.cfg, approx_decode=ApproxSpec()), device=model.device)
-            self._serve_exact = steps_mod.make_serve_step(exact_model)
+            if mesh is not None:
+                self._serve_exact = steps_mod.make_sharded_serve_step(
+                    exact_model, mesh, self.n_shards, slots)
+                qos.enable_sharding(self.n_shards)
+            else:
+                self._serve_exact = steps_mod.make_serve_step(exact_model)
 
     @property
     def knob_log(self) -> List[tuple]:
@@ -188,8 +261,31 @@ class ServingEngine:
     @property
     def host_reads_per_tick(self) -> int:
         """Device reads a tick makes outside canaries: the tokens (with
-        the TAF `remaining` vector), and the TAF decode step's own read."""
+        the TAF `remaining` rows), and the TAF decode step's own read."""
         return 2 if self.model.taf_enabled else 1
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def mesh_shape(self) -> Optional[tuple]:
+        if self.mesh is None:
+            return None
+        return tuple(int(n) for n in self.mesh.shape)
+
+    def _lane_shard(self, lane: int) -> int:
+        """Shards are contiguous lane ranges: lane -> owning shard."""
+        return lane // self.lanes_per_shard
+
+    @property
+    def _admit_width(self) -> int:
+        """Admission batch width: how many arriving requests of one shard
+        one prefill + one cache splice covers. Lanes-per-shard, capped
+        BELOW the full batch (as the JAX engine's), so an unsharded or
+        one-shard engine admits request by request."""
+        return (self.lanes_per_shard
+                if self.lanes_per_shard < self.n_slots else 1)
 
     def _knob_reason(self, val, prev) -> str:
         """Classify an actuator write from controller state + the value
@@ -200,40 +296,88 @@ class ServingEngine:
         if self.qos is not None and any(
                 c.in_fallback for c in self.qos.controllers.values()):
             return "fallback"
+        old = prev if isinstance(prev, tuple) else (prev,)
+        new = val if isinstance(val, tuple) else (val,)
+        if len(old) != len(new):            # resharding edge: no delta
+            return "init"
+        up = any(n > o for o, n in zip(old, new))
+        down = any(n < o for o, n in zip(old, new))
+        if up and down:
+            return "mixed"
         # lower TAF threshold => fewer skips => more precise
-        return "tighten" if val < prev else "loosen"
+        return "tighten" if down else "loosen"
 
-    def _lane_write(self, cache, row, tokens, row_logits, lane: int):
-        """Splice a batch-1 prefill into the live cache at `lane`, in
-        place. Each leaf's batch axis is named in
+    def _lane_write(self, cache, rows, tokens, row_logits, lanes):
+        """Splice a batch-W prefill into the live cache in place: row j
+        goes to local lane `lanes[j]`. Each leaf's batch axis is named in
         `models.lm.CACHE_BATCH_AXES`; leaves without one (the detector
         state, the knob thresholds) keep their LIVE values: admission does
         not reset another lane's quality state or the actuated knob."""
-        for group, leaves in row.items():
+        for group, leaves in rows.items():
             for name, r in leaves.items():
                 axis = CACHE_BATCH_AXES[(group, name)]
                 if axis is not None:
-                    cache[group][name].select(axis, lane).copy_(
-                        r.select(axis, 0))
-        tokens[lane:lane + 1].copy_(
-            torch.argmax(row_logits, dim=-1).to(tokens.dtype))
+                    for j, lane in enumerate(lanes):
+                        cache[group][name].select(axis, lane).copy_(
+                            r.select(axis, j))
+        new = torch.argmax(row_logits, dim=-1).to(tokens.dtype)
+        for j, lane in enumerate(lanes):
+            tokens[lane:lane + 1].copy_(new[j:j + 1])
+
+    def _prefill_local(self, prompts):
+        """Prefill this rank's lanes of the (slots, prompt_len) `prompts`.
+        A sharded engine prefills shard by shard (so a shard's cache does
+        not depend on how shards are packed onto ranks) and stacks the
+        shards' detector state on a leading shard dim
+        (`models.lm.shard_taf_state`)."""
+        if not self.sharded:
+            return self._prefill(self.params, {"tokens": prompts})
+        w = self.lanes_per_shard
+        parts = [self._prefill(self.params, {"tokens": prompts[a:a + w]})
+                 for a in range(self._lo, self._hi, w)]
+        logits = torch.cat([lg for lg, _ in parts])
+        cache = {}
+        for group, leaves in parts[0][1].items():
+            cache[group] = {}
+            for name in leaves:
+                axis = CACHE_BATCH_AXES[(group, name)]
+                ts = [c[group][name] for _, c in parts]
+                cache[group][name] = (torch.stack(ts) if axis is None
+                                      else torch.cat(ts, dim=axis))
+        return logits, cache
+
+    def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every data rank's `t`, in data order (one collective; just [t]
+        unsharded)."""
+        if self.mesh is None:
+            return [t]
+        import torch.distributed as dist
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self._n_data)]
+        dist.all_gather(parts, t, group=self._group)
+        return parts
 
     def warmup(self):
-        """Run prefill, serve, the canary oracle and the admission path
-        once on throwaway state, so the first timed tick measures decode,
-        not first-call setup. Engine state is untouched."""
-        with trace.span("engine.warmup", slots=self.n_slots):
+        """Run prefill, serve, the canary oracle, the admission path and
+        the tick's collective once on throwaway state, so the first timed
+        tick measures decode, not first-call setup. Engine state is
+        untouched."""
+        with trace.span("engine.warmup", slots=self.n_slots,
+                        shards=self.n_shards):
             prompts = np.zeros((self.n_slots, self.prompt_len), np.int32)
-            logits, cache = self._prefill(self.params, {"tokens": prompts})
+            logits, cache = self._prefill_local(prompts)
             tokens = torch.argmax(logits, dim=-1).to(torch.int32)
             if self._serve_exact is not None:
                 self._serve_exact(self.params, cache, tokens, self.prompt_len)
             self._serve(self.params, cache, tokens, self.prompt_len)
             if self.n_slots > 1:
-                row_logits, row = self._prefill(
+                w = self._admit_width
+                row_logits, rows = self._prefill(
                     self.params,
-                    {"tokens": np.zeros((1, self.prompt_len), np.int32)})
-                self._lane_write(cache, row, tokens, row_logits, 0)
+                    {"tokens": np.zeros((w, self.prompt_len), np.int32)})
+                self._lane_write(cache, rows, tokens, row_logits,
+                                 list(range(w)))
+            self._gather(tokens)
             if self.model.device.type == "cuda":
                 torch.cuda.synchronize(self.model.device)
 
@@ -243,10 +387,12 @@ class ServingEngine:
 
     def _admit(self):
         """Fill free slots from the queue. The FIRST admission prefills
-        the whole batch (there is no live cache yet); afterwards each
-        arriving request costs one batch-1 prefill plus a per-lane cache
-        splice, which leaves ongoing lanes' KV, detector state and the
-        actuated knob untouched."""
+        the whole batch (there is no live cache yet); afterwards the
+        arriving requests of a shard cost one prefill of up to
+        `_admit_width` rows plus a per-lane cache splice, which leaves
+        ongoing lanes' KV, detector state and the actuated knob untouched.
+        Every rank admits the same requests; each prefills only those
+        landing in its own lanes."""
         free = [i for i, r in enumerate(self.active) if r is None]
         if not free or not self.queue:
             return
@@ -273,28 +419,43 @@ class ServingEngine:
                 if r is not None:
                     p = r.prompt[-self.prompt_len:]
                     prompts[i, -len(p):] = p
-            logits, self.cache = self._prefill(self.params,
-                                               {"tokens": prompts})
+            logits, self.cache = self._prefill_local(prompts)
             self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
             self._knob = None   # fresh cache: actuate on the next plan
             return
-        for i in admitted:
-            prompt = np.zeros((1, self.prompt_len), np.int32)
-            p = self.active[i].prompt[-self.prompt_len:]
-            prompt[0, -len(p):] = p
-            row_logits, row = self._prefill(self.params, {"tokens": prompt})
-            self._lane_write(self.cache, row, self.tokens, row_logits, i)
+        w = self._admit_width
+        for s in range(self._s_lo, self._s_lo + self.local_shards):
+            mine = [i for i in admitted if self._lane_shard(i) == s]
+            for g in range(0, len(mine), w):
+                grp = mine[g:g + w]
+                prompts = np.zeros((len(grp), self.prompt_len), np.int32)
+                for j, i in enumerate(grp):
+                    p = self.active[i].prompt[-self.prompt_len:]
+                    prompts[j, -len(p):] = p
+                row_logits, rows = self._prefill(self.params,
+                                                 {"tokens": prompts})
+                self._lane_write(self.cache, rows, self.tokens, row_logits,
+                                 [i - self._lo for i in grp])
 
     def _apply_knob(self, knob):
-        """Write the controller-chosen TAF threshold into the decode cache:
-        a tensor write, never a rebuild. `None` (precise) writes 0.0 AND
-        cancels in-flight predictions ("remaining"), making a hard fallback
-        effective on the next token."""
-        val = 0.0 if knob is None else float(knob)
+        """Write the controller-chosen TAF threshold(s) into the decode
+        cache: a tensor write, never a rebuild. `None` (precise) writes 0.0
+        AND cancels in-flight predictions ("remaining"), making a hard
+        fallback effective on the next token. Sharded engines pass a
+        per-shard sequence (`TickPlan.shard_knobs`): each value lands on
+        its shard's row of the threshold leaf (this rank writes its own
+        shards' rows), and only shards set precise have their predictions
+        cancelled."""
+        if isinstance(knob, (list, tuple)):
+            val = tuple(0.0 if k is None else float(k) for k in knob)
+        else:
+            val = 0.0 if knob is None else float(knob)
         if self.cache is None or val == self._knob:
             return
         from ..qos import set_decode_threshold
-        set_decode_threshold(self.cache, val)
+        set_decode_threshold(
+            self.cache, val[self._s_lo:self._s_lo + self.local_shards]
+            if isinstance(val, tuple) else val)
         prev = self._knob
         self._knob = val
         # admission re-prefills rebuild the cache and force a re-apply of
@@ -309,6 +470,46 @@ class ServingEngine:
             self.knob_events.append(move)
             trace.event("knob_move", tick=move.tick, value=move.value,
                         previous=move.previous, reason=move.reason)
+
+    def _observe_canary(self, exact_logits, logits, live, lane_classes,
+                        shard_classes):
+        """Score a canary tick's live lanes: one gather and one host read
+        of both logits, then per shard (sharded) or as one group."""
+        parts = self._gather(torch.stack([exact_logits, logits]))
+        pair = (parts[0] if len(parts) == 1
+                else torch.cat(parts, dim=1)).cpu().numpy()
+        obs_metrics.count_host_read()
+        if not self.sharded:
+            self.qos.observe_decode(pair[0][live], pair[1][live],
+                                    lane_classes)
+            return
+        # per-shard attribution: each shard's slice is scored separately,
+        # so a canary error is credited only to the shard (and the
+        # classes) that ran under that knob
+        for s in range(self.n_shards):
+            lanes = [i for i in live if self._lane_shard(i) == s]
+            if lanes:
+                self.qos.observe_shard(s, pair[0][lanes], pair[1][lanes],
+                                       shard_classes[s])
+
+    def _read_tokens(self):
+        """The tick's host read: every rank's new tokens (with the TAF
+        `remaining` rows when the model runs decode TAF) in one gather and
+        one read. Returns (tokens (slots,), remaining (shards, n_layers)
+        or None)."""
+        n_local = self._hi - self._lo
+        taf = self.cache.get("taf")
+        mine = self.tokens
+        if taf is not None:
+            mine = torch.cat([self.tokens, taf["remaining"].reshape(-1)])
+        parts = self._gather(mine)
+        rows = (parts[0][None] if len(parts) == 1
+                else torch.stack(parts)).cpu().numpy()
+        obs_metrics.count_host_read()
+        toks = rows[:, :n_local].reshape(-1)
+        if taf is None:
+            return toks, None
+        return toks, rows[:, n_local:].reshape(self.n_shards, -1)
 
     def tick(self) -> int:
         """One engine step: admit, decode one token for all active slots,
@@ -327,11 +528,20 @@ class ServingEngine:
             if not live:
                 return 0
             lane_classes = []
+            shard_classes = None
             if self.qos is not None:
                 lane_classes = [self.active[i].qos_class for i in live]
                 with trace.span("tick.actuate"):
-                    plan = self.qos.plan_tick(lane_classes)
-                    self._apply_knob(plan.knob)
+                    if self.sharded:
+                        shard_classes = [[] for _ in range(self.n_shards)]
+                        for i in live:
+                            shard_classes[self._lane_shard(i)].append(
+                                self.active[i].qos_class)
+                        plan = self.qos.plan_shards(shard_classes)
+                        self._apply_knob(plan.shard_knobs)
+                    else:
+                        plan = self.qos.plan_tick(lane_classes)
+                        self._apply_knob(plan.knob)
             pos = int(self.pos[live].min())  # single shared timeline pos
             canary = self.qos is not None and self.qos.should_sample()
             exact_logits = None
@@ -348,22 +558,23 @@ class ServingEngine:
                 # score ONLY the live lanes: idle or retired slots hold
                 # stale state nobody consumes
                 with trace.span("tick.canary"):
-                    pair = torch.stack([exact_logits, logits]).cpu().numpy()
-                    obs_metrics.count_host_read()
-                    self.qos.observe_decode(pair[0][live], pair[1][live],
-                                            lane_classes)
+                    self._observe_canary(exact_logits, logits, live,
+                                         lane_classes, shard_classes)
                 self.stats.canary_ticks += 1
             with trace.span("tick.host_read"):
-                taf = self.cache.get("taf")
-                if taf is not None:
-                    both = torch.cat([self.tokens, taf["remaining"]])
-                    both = both.cpu().numpy()
-                    toks, rem = both[:self.n_slots], both[self.n_slots:]
+                toks, rem = self._read_tokens()
+                if rem is not None:
                     self.stats.taf_skipped += int((rem > 0).sum())
                     self.stats.taf_total += rem.size
-                else:
-                    toks = self.tokens.cpu().numpy()
-                obs_metrics.count_host_read()
+                    if self.sharded:
+                        if not self.stats.shard_taf_total:
+                            self.stats.shard_taf_skipped = \
+                                [0] * self.n_shards
+                            self.stats.shard_taf_total = [0] * self.n_shards
+                        for s in range(self.n_shards):
+                            self.stats.shard_taf_skipped[s] += int(
+                                (rem[s] > 0).sum())
+                            self.stats.shard_taf_total[s] += rem.shape[1]
             now = time.time()
             with trace.span("tick.retire"):
                 for i in live:
@@ -385,7 +596,10 @@ class ServingEngine:
             self.stats.ticks += 1
             if self.qos is not None:
                 with trace.span("tick.qos_update"):
-                    self.qos.update(lane_classes)
+                    if self.sharded:
+                        self.qos.update_shards(shard_classes)
+                    else:
+                        self.qos.update(lane_classes)
         if tr_on or rec is not None:
             dt = time.perf_counter() - t_tick
             if tr_on:

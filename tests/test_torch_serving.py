@@ -201,15 +201,25 @@ def test_engine_reads_the_device_once_a_tick_and_builds_nothing():
     assert [m.value for m in eng.knob_events] == [0.3, 0.0, 0.06]
 
 
-def test_sharding_and_lint_raise_naming_their_items():
+def test_sharding_raises_naming_what_it_needs():
+    """Sharded serving without its process group, shards without a mesh,
+    and per-shard knobs on an unsharded cache each raise, saying what is
+    missing; nothing falls back to one process."""
     model = build(get_smoke_config("qwen3-1.7b"), device="cpu")
-    for kw in (dict(devices=2), dict(shards=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            ServingEngine(model, {}, **kw)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        ServingEngine(model, {}, devices=2)
+    with pytest.raises(ValueError, match="shards needs a mesh"):
+        ServingEngine(model, {}, shards=2)
+    cache = {"taf": {"threshold": torch.zeros(3),
+                     "remaining": torch.zeros(3, dtype=torch.int32)}}
+    with pytest.raises(ValueError, match="shard_taf_state"):
+        set_decode_threshold(cache, (0.1, 0.2))
+
+
+def test_lint_raises_naming_its_item():
+    model = build(get_smoke_config("qwen3-1.7b"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ServingEngine(model, {}, lint=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        set_decode_threshold({"taf": {}}, (0.1, 0.2))
 
 
 @pytest.mark.parametrize("taf", ["memo(out:2:4:50.0)", "memo(out:2:4:0.5)"])
