@@ -137,6 +137,19 @@ failure could still exit 0):
      BENCH_qos.json gate's exact fields against the baseline; (d) `pipeline_apply` with one stage against
      serial application (1e-5) and the compressed all-reduce on one rank
      against the dequantized tensor (exact), through NCCL.
+  13. the model zoo's serving path at full width, one model at a time
+     (weights from seed 0 on the card, each freed before the next):
+     olmoe-1b-7b, zamba2-7b, rwkv6-1.6b, whisper-large-v3 (1500 frames),
+     pixtral-12b (256 patch tokens), starcoder2-3b and qwen1.5-4b whole,
+     deepseek-v3-671b cut in depth only (2 layers for the float32 check,
+     4 for serving: one card's 80 GB) with every width kept. Each: decode
+     against the teacher-forced forward in float32 (MoE at capacity 8.0)
+     within 0.02; `launch.serve` in bfloat16 at batch 4, prompt 128, gen
+     32 (olmoe also with expert perforation fini 0.5, 32 of 64 experts
+     kept), prefill ms and decode tokens/s; the 8-slot engine draining
+     phase 11's 16 requests on olmoe, zamba2 and rwkv6 (tokens/s, TTFT
+     p50 / p99). The kernel launch counts read 0 across the phase: no
+     kernel lies on this path.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -1430,6 +1443,206 @@ def phase_sharded(dev, card, ctx):
     return out, fails
 
 
+# phase 13: the model zoo's serving path at full width
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 128, 32
+# the float32 check: B * (prompt + 4) = 512 tokens, so an MoE forward over
+# them splits into whole router groups of 512
+ZOO_CHECK_PROMPT = 124
+# arch -> (layers of the float32 check, layers served in bfloat16, whether
+# the engine drains phase 11's 16 requests on it); None keeps the config's
+ZOO = (("olmoe-1b-7b", None, None, True),
+       ("zamba2-7b", None, None, True),
+       ("rwkv6-1.6b", None, None, True),
+       ("whisper-large-v3", None, None, False),
+       ("pixtral-12b", None, None, False),
+       ("starcoder2-3b", None, None, False),
+       ("qwen1.5-4b", None, None, False),
+       # 61 layers are 671 B parameters: 1.34 TB in bfloat16
+       ("deepseek-v3-671b", 2, 4, False))
+
+
+def zoo_config(arch, layers, **kw):
+    """The registry's config of `arch` at `layers` layers (None: all), every
+    width kept."""
+    import dataclasses
+    from repro_torch.configs import cut_depth, get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cut_depth(cfg, layers)
+    return dataclasses.replace(cfg, **kw)
+
+
+def zoo_describe(cfg):
+    desc = (f"{cfg.name} [{cfg.family}]: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}), "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+            f"{cfg.padded_vocab_size})")
+    if cfg.moe is not None:
+        m = cfg.moe
+        desc += (f", {m.n_experts} experts top-{m.experts_per_token} d_ff "
+                 f"{m.d_ff_expert}, {m.n_shared_experts} shared")
+        if m.n_dense_layers:
+            desc += (f", {m.n_dense_layers} dense layers (d_ff "
+                     f"{m.d_ff_dense or cfg.d_ff})")
+    if cfg.use_mla:
+        m = cfg.mla
+        desc += (f", MLA ranks q {m.q_lora_rank} kv {m.kv_lora_rank} "
+                 f"nope {m.qk_nope_head_dim} rope {m.qk_rope_head_dim}")
+    if cfg.ssm is not None:
+        desc += (f", Mamba2 state {cfg.ssm.d_state} head {cfg.ssm.head_dim}"
+                 f" attn period {cfg.hybrid.attn_period}")
+    if cfg.frontend in ("vision_patches", "audio_frames"):
+        desc += (f", frontend {cfg.frontend} ("
+                 f"{cfg.n_patch_tokens or cfg.max_source_positions} "
+                 "positions)")
+    return desc + f": {cfg.param_count() / 1e9:.3f} B parameters"
+
+
+def zoo_check(cfg, dev):
+    """Decode against the teacher-forced forward in float32 (MoE at
+    capacity 8.0, where no token drops): the largest relative error of
+    three steps."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    s = ZOO_CHECK_PROMPT
+    inputs, off = serve.frontend_batch(cfg, ZOO_BATCH, s + 4, 0)
+    toks = inputs["tokens"]
+    _, cache = model.prefill(params, dict(inputs, tokens=toks[:, :s],
+                                          max_len=off + s + 4))
+    h = model.hidden(params, inputs)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    errs = []
+    for t in range(3):
+        logits, cache = model.decode_step(
+            params, cache, torch.as_tensor(toks[:, s + t], device=dev),
+            off + s + t)
+        ref = (h[:, off + s + t] @ head).float()
+        errs.append(float((logits - ref).abs().max())
+                    / (float(ref.abs().max()) + 1e-6))
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name}: logits "
+              "not finite")
+    return errs
+
+
+def phase_zoo(dev, card):
+    """Phase 13: every family of the registry served at full width (depth
+    cut only where one card's 80 GB forces it): decode against forward in
+    float32, `launch.serve` in bfloat16 (olmoe also under expert
+    perforation), and the engine on olmoe, zamba2 and rwkv6."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core.types import (ApproxSpec, Level, PerforationKind,
+                                        PerforationParams, Technique)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build, moe
+    from repro_torch.serving import ServingEngine
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {}
+    t_phase = time.perf_counter()
+    ops.reset_counts()
+    for arch, check_layers, serve_layers, engine in ZOO:
+        row = out[arch] = {}
+        full = zoo_config(arch, None)
+        for label, layers in (("float32 check", check_layers),
+                              ("bfloat16 serving", serve_layers)):
+            if layers is not None and layers < full.n_layers:
+                cut = zoo_config(arch, layers)
+                log(f"  {arch}: depth cut to {layers} of {full.n_layers} "
+                    f"layers for the {label} ({cut.param_count() / 1e9:.3f}"
+                    f" B of {full.param_count() / 1e9:.3f} B parameters): "
+                    "one card's 80 GB holds no more; every width is kept")
+                row.setdefault("cuts", {})[label] = layers
+        moe_kw = {}
+        if full.moe is not None:
+            moe_kw = dict(moe=dataclasses.replace(zoo_config(
+                arch, check_layers).moe, capacity_factor=8.0))
+        c32 = zoo_config(arch, check_layers, compute_dtype="float32",
+                         **moe_kw)
+        log(f"  {zoo_describe(c32)} (float32, capacity 8.0)"
+            if moe_kw else f"  {zoo_describe(c32)} (float32)")
+        t0 = time.perf_counter()
+        errs = zoo_check(c32, dev)
+        free()
+        row["config"] = zoo_describe(full)
+        row["decode_vs_forward"] = errs
+        log(f"  {arch} decode vs forward (float32, {c32.n_layers} layers): "
+            f"max relative error {max(errs):.3g} (limit 0.02) "
+            f"[{time.perf_counter() - t0:.1f} s, {card}]")
+        check(max(errs) < 0.02, f"{arch}: decode departs from forward: "
+              f"{errs}")
+
+        cfg = zoo_config(arch, serve_layers)
+        log(f"  {zoo_describe(cfg)} (bfloat16)")
+        model = build(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        runs = [("precise", cfg)]
+        if cfg.moe is not None and arch == "olmoe-1b-7b":
+            spec = ApproxSpec(Technique.PERFORATION, Level.BLOCK,
+                              perforation=PerforationParams(
+                                  kind=PerforationKind.FINI, fraction=0.5))
+            kept = moe.kept_experts(cfg.moe.n_experts, spec)
+            log(f"  {arch} expert perforation fini 0.5 keeps "
+                f"{len(kept)} of {cfg.moe.n_experts} experts: "
+                f"{kept.tolist()}")
+            check(len(kept) == cfg.moe.n_experts // 2,
+                  f"expert perforation kept {len(kept)} experts")
+            row["kept_experts"] = kept.tolist()
+            runs.append(("experts perforated",
+                         dataclasses.replace(cfg, approx_ffn=spec)))
+        for label, rcfg in runs:
+            # a short call first: the measured run times no first-call setup
+            serve.run(rcfg, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT, gen=2,
+                      device=dev, params=params)
+            r = serve.run(rcfg, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT,
+                          gen=ZOO_GEN, device=dev, params=params)
+            check(r["tokens"].shape == (ZOO_BATCH, ZOO_GEN)
+                  and bool(((r["tokens"] >= 0)
+                            & (r["tokens"] < cfg.padded_vocab_size)).all()),
+                  f"{arch} launch.serve {label}: bad tokens")
+            row[label] = dict(prefill_ms=r["prefill_s"] * 1e3,
+                              decode_tokens_per_s=r["tokens_per_s"])
+            log(f"  {arch} launch.serve {label} (batch {ZOO_BATCH}, prompt "
+                f"{ZOO_PROMPT}, gen {ZOO_GEN}, {cfg.n_layers} layers): "
+                f"prefill {r['prefill_s'] * 1e3:.3f} ms, decode "
+                f"{r['tokens_per_s']:.1f} tokens/s [{card}]")
+        if engine:
+            eng = ServingEngine(model, params, slots=ENGINE_SLOTS,
+                                max_len=ENGINE_MAX_LEN,
+                                prompt_len=SERVE_PROMPT)
+            reqs = engine_requests(cfg.vocab_size)
+            erow, stats = drain(eng, reqs)
+            check(stats.finished == ENGINE_REQUESTS
+                  and all(len(q.output) == q.max_new_tokens for q in reqs),
+                  f"{arch} engine did not drain")
+            lat = erow["latency"]
+            row["engine"] = {k: erow[k] for k in (
+                "tokens_per_s", "wall_s", "ticks", "tokens_out", "latency")}
+            log(f"  {arch} engine ({ENGINE_SLOTS} slots, {ENGINE_REQUESTS} "
+                f"requests): {erow['tokens_per_s']:.1f} tokens/s, TTFT "
+                f"p50/p99 {lat['ttft_p50_s']:.3f}/{lat['ttft_p99_s']:.3f} s,"
+                f" {erow['ticks']} ticks [{card}]")
+            del eng
+        del model, params
+        free()
+    launches = ops.launch_counts()
+    out["kernel_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  the zoo's path launched {launches} (no Pallas kernel lies on "
+        f"it); phase 13 wall {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1961,6 +2174,14 @@ def main():
     report["sharded"], shard_fails = phase_sharded(dev, card, serve_ctx)
     del serve_ctx
     report["phases"]["sharded_s"] = time.perf_counter() - t0
+
+    # -- 13. the model zoo's serving path at full width -------------------
+    log("phase 13: the model zoo at full width: decode vs forward in "
+        "float32, launch.serve in bfloat16 (olmoe also with expert "
+        "perforation), the engine on olmoe, zamba2 and rwkv6")
+    t0 = time.perf_counter()
+    report["zoo"] = phase_zoo(dev, card)
+    report["phases"]["zoo_s"] = time.perf_counter() - t0
 
     kernels = []
     for r in rows:

@@ -86,7 +86,7 @@ MODULES = {
 # keys of the JAX runner that the port does not have yet, and the ROADMAP
 # Queue 1 item that ports each
 NOT_PORTED = {
-    "roofline": "Queue 1 item 6 (the XLA-only tools)",
+    "roofline": "Queue 1 item 6b (the XLA-only tools)",
     "lint": "Queue 1 item 7 (analysis lint)",
 }
 

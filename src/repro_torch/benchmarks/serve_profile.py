@@ -2,16 +2,19 @@
 computing every layer and with every layer skipped, at a config's full
 width.
 
-For Qwen3-1.7B (28 layers, d_model 2048, bf16 compute, weights from seed
-0), a batch of prompts is prefilled and one decode step is profiled three
-times: by the model without decode TAF (`plain`), by the TAF model with
-its threshold at 0 (`precise`: every layer computed, the detector stepped)
-and with every layer's `remaining` counter set (`skipped`). The skipped
-step is profiled once more on the first `SHORT_LAYERS` layers alone
-(`skipped_short`): the two counts pin what one skipped layer launches,
-`(skipped - skipped_short) / (n_layers - SHORT_LAYERS)`, apart from the
-step's fixed kernels (embedding, detector step, final norm, head). Per
-step:
+For any architecture of the registry (bf16 compute, weights from seed 0,
+`--layers` cuts the depth and keeps every width), a batch of prompts (with
+the vlm's or audio model's seeded frontend inputs, as `launch.serve`
+draws them) is prefilled and one decode step is profiled by the model
+without decode TAF (`plain`). Where decode TAF runs (a transformer
+without MLA or MoE, e.g. Qwen3-1.7B), the step is profiled twice more: by
+the TAF model with its threshold at 0 (`precise`: every layer computed,
+the detector stepped) and with every layer's `remaining` counter set
+(`skipped`). The skipped step is profiled once more on the first
+`SHORT_LAYERS` layers alone (`skipped_short`): the two counts pin what
+one skipped layer launches, `(skipped - skipped_short) / (n_layers -
+SHORT_LAYERS)`, apart from the step's fixed kernels (embedding, detector
+step, final norm, head). Per step:
 
   * `kernels`      -- the CUDA kernels the step ran (`torch.profiler`);
   * `gemm_kernels` -- those of them that are matrix products (cuBLAS
@@ -31,7 +34,7 @@ shards of batch / S lanes on a one-rank process group it starts):
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serve_profile \\
         --arch qwen3-1.7b --batch 4 --prompt-len 128 [--shards S]
-        [--out PATH]
+        [--layers N] [--out PATH]
 
 Prints one JSON object. Needs a CUDA device.
 """
@@ -43,11 +46,10 @@ import json
 import time
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from .. import device as device_mod
-from ..configs import get_config
+from ..configs import cut_depth, get_config
 from ..core.types import ApproxSpec, Level, TAFParams, Technique
 from ..models import build
 from ..obs import timing
@@ -82,15 +84,21 @@ def _profile_step(step, dev) -> Dict:
 
 
 def profile(arch: str, batch: int, prompt_len: int,
-            shards: Optional[int] = None) -> Dict:
+            shards: Optional[int] = None,
+            layers: Optional[int] = None) -> Dict:
+    from ..launch import serve
     dev = device_mod.resolve(None)
     taf = ApproxSpec(Technique.TAF, Level.BLOCK, taf=TAFParams(2, 4, 0.0))
-    cfg = dataclasses.replace(get_config(arch), approx_decode=taf)
-    params = build(cfg, device=dev).init(
+    base = get_config(arch)
+    if layers is not None:
+        base = cut_depth(base, layers)
+    cfg = dataclasses.replace(base, approx_decode=taf)
+    with_taf = build(cfg, device=dev).taf_enabled
+    params = build(base, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
-    prompts = np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
-    batch_ = {"tokens": prompts, "max_len": prompt_len + 16}
+    inputs, prefix = serve.frontend_batch(base, batch, prompt_len, 0)
+    batch_ = dict(inputs, max_len=prefix + prompt_len + 16)
+    pos = prefix + prompt_len
     p = taf.taf.prediction_size
 
     def prefilled(c, ps):
@@ -104,11 +112,8 @@ def profile(arch: str, batch: int, prompt_len: int,
         def step():
             if pre:
                 pre(cache)
-            model.decode_step(ps, cache, tokens, prompt_len)
+            model.decode_step(ps, cache, tokens, pos)
         return step
-
-    short_params = dict(params,
-                        dense_blocks=params["dense_blocks"][:SHORT_LAYERS])
 
     def precise(cache):
         set_decode_threshold(cache, 0.0)
@@ -116,12 +121,15 @@ def profile(arch: str, batch: int, prompt_len: int,
     def skip_all(cache):
         cache["taf"]["remaining"].fill_(p)
 
-    steps = (
-        ("plain", stepper(get_config(arch), params)),
-        ("precise", stepper(cfg, params, precise)),
-        ("skipped", stepper(cfg, params, skip_all)),
-        ("skipped_short", stepper(dataclasses.replace(
-            cfg, n_layers=SHORT_LAYERS), short_params, skip_all)))
+    steps = (("plain", stepper(base, params)),)
+    if with_taf:
+        short_params = dict(
+            params, dense_blocks=params["dense_blocks"][:SHORT_LAYERS])
+        steps += (
+            ("precise", stepper(cfg, params, precise)),
+            ("skipped", stepper(cfg, params, skip_all)),
+            ("skipped_short", stepper(dataclasses.replace(
+                cfg, n_layers=SHORT_LAYERS), short_params, skip_all)))
     started = False
     if shards:
         from ..launch import steps as steps_mod
@@ -139,12 +147,13 @@ def profile(arch: str, batch: int, prompt_len: int,
             def step():
                 if pre:
                     pre(cache)
-                step_fn(ps, cache, tokens, prompt_len)
+                step_fn(ps, cache, tokens, pos)
             return step
 
-        steps += (("sharded_plain", sharded(get_config(arch), params)),
-                  ("sharded_precise", sharded(cfg, params, precise)))
-    out = {"arch": arch, "n_layers": cfg.n_layers,
+        steps += (("sharded_plain", sharded(base, params)),)
+        if with_taf:
+            steps += (("sharded_precise", sharded(cfg, params, precise)),)
+    out = {"arch": arch, "n_layers": cfg.n_layers, "decode_taf": with_taf,
            "short_layers": SHORT_LAYERS, "batch": batch, "shards": shards,
            "prompt_len": prompt_len, "device": device_mod.name(dev)}
     for label, step in steps:
@@ -170,10 +179,12 @@ def main(argv=None) -> Dict:
     ap.add_argument("--batch", type=int, required=True)
     ap.add_argument("--prompt-len", type=int, required=True)
     ap.add_argument("--shards", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     res = profile(args.arch, batch=args.batch, prompt_len=args.prompt_len,
-                  shards=args.shards)
+                  shards=args.shards, layers=args.layers)
     text = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,7 +1,7 @@
 """Model configs of the port (port of `repro.configs`): the schema, the
-registry, and the dense architectures `qwen3-1.7b` and `deepseek-7b`."""
+registry, and the JAX package's ten architectures."""
 from .base import SHAPES, ModelConfig, ShapeConfig, shape_applicable
-from .registry import get_config, get_smoke_config, list_archs
+from .registry import cut_depth, get_config, get_smoke_config, list_archs
 
 __all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "shape_applicable",
-           "get_config", "get_smoke_config", "list_archs"]
+           "cut_depth", "get_config", "get_smoke_config", "list_archs"]

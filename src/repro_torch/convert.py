@@ -11,9 +11,9 @@ packages compute on identical data.
 numpy can read) into the port's state on a device, so both packages can
 carry on from one mid-run state.
 
-`lm_params` turns the JAX LM's parameter tree (`Model.init`, layers stacked
-on a leading axis) into the port's, so both packages compute on identical
-weights.
+`lm_params` turns the parameter tree of any JAX model family (`Model.init`,
+layers stacked on leading axes) into the port's, so both packages compute
+on identical weights.
 """
 from __future__ import annotations
 
@@ -42,28 +42,46 @@ def _exact(a, dtype, dev) -> torch.Tensor:
 
 
 def lm_params(jax_params, cfg, *, device=None):
-    """The JAX dense LM's parameter tree (arrays numpy can read, the
-    blocks stacked on a leading layer axis) as the port's parameters on
-    `device` (None means cuda): one dict per layer, each weight held as
-    `models.lm.Model` holds it (matrices and the embedding in the compute
-    dtype, norm scales in the param dtype)."""
+    """The JAX LM's parameter tree of any family (arrays numpy can read,
+    each layer stack on leading axes) as the port's parameters on `device`
+    (None means cuda): a stack becomes a list of per-layer dicts (nested
+    lists for the hybrid's (n_groups, mamba_per_group) stack, `None` where
+    JAX has None), and each leaf is held as the port's `Model.init` holds
+    it (`Model.hold`: the compute dtype, norm leaves in the param dtype,
+    the modules' float32 leaves in float32)."""
     from .models import lm
     model = lm.build(cfg, device=device)
 
-    def leaf(path, a):
-        t = torch.from_numpy(np.array(a, dtype=np.float32)).to(model.device)
-        return t.to(model.pdt) if path[-1] == "scale" else model._as_used(t)
+    def leaf(name, a):
+        return model.hold(name, torch.from_numpy(np.array(a, np.float32)))
 
-    def tree(node, path=(), index=None):
+    def tree(node, path, index=()):
+        if node is None:
+            return None
         if isinstance(node, dict):
+            depth = 0 if index else model.STACKS.get(path, 0)
+            if depth:
+                lead = np.shape(next(iter(_leaves(node))))[:depth]
+                return _grid(lambda ix: tree(node, path, ix), lead)
             return {k: tree(v, path + (k,), index) for k, v in node.items()}
-        return leaf(path, node if index is None else np.asarray(node)[index])
+        return leaf(path[-1], np.asarray(node)[index] if index else node)
 
-    out = {k: tree(v, (k,)) for k, v in jax_params.items()
-           if k != "dense_blocks"}
-    blocks = jax_params["dense_blocks"]
-    out["dense_blocks"] = [tree(blocks, (), l) for l in range(cfg.n_layers)]
-    return out
+    return tree(jax_params, ())
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    elif node is not None:
+        yield node
+
+
+def _grid(fn, lead, index=()):
+    """Nested lists of `fn(index)` over the index grid `lead`."""
+    if len(index) == len(lead):
+        return fn(index)
+    return [_grid(fn, lead, index + (i,)) for i in range(lead[len(index)])]
 
 
 def taf_state(state, *, device=None) -> taf.TAFState:

@@ -5,8 +5,8 @@ JAX jits these; eager PyTorch has nothing to compile, so the counterpart
 of "a knob move recompiles nothing" is that no caller builds a new step
 after construction: `builds()` counts every step built, and the serving
 tests and `obs_overhead` pin its difference across knob moves and tracing
-at 0. The train steps come with the model zoo and training (ROADMAP Queue
-1 item 6).
+at 0. The train steps come with the training half of the model zoo
+(ROADMAP Queue 1 item 6b).
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Callable
 
 import torch
 
-from ..models.lm import Model
+from ..models.lm import Model, map_cache
 from ..obs import metrics as obs_metrics
 
 _BUILDS = [0]
@@ -90,26 +90,25 @@ def make_sharded_serve_step(model: Model, mesh, n_shards: int,
     lanes = batch_size // n_shards
     _BUILDS[0] += 1
 
+    def view(path, t, s):
+        kind = shardlib.decode_shard_axis(path)
+        return (t if kind is None else t[s] if kind[0] == "state"
+                else t.narrow(kind[1], s * lanes, lanes))
+
     def shard_view(cache, s: int):
         """Shard s's lanes and detector row, as views of the cache."""
-        out = {}
-        for group, leaves in cache.items():
-            out[group] = {}
-            for name, t in leaves.items():
-                kind = shardlib.decode_shard_axis((group, name))
-                out[group][name] = (
-                    t if kind is None else t[s] if kind[0] == "state"
-                    else t.narrow(kind[1], s * lanes, lanes))
-        return out
+        return map_cache(lambda path, t: view(path, t, s), cache)
 
     def sharded_step(params, cache, tokens, pos: int):
         rems = [None] * local_shards
         if model.taf_enabled and "taf" in cache:
             rems = cache["taf"]["remaining"].tolist()   # one host read
             obs_metrics.count_host_read()
+        # only a decode-TAF step takes the `remaining` it was read into
+        kw = [{"remaining": r} if model.taf_enabled else {} for r in rems]
         logits = [model.decode_step(params, shard_view(cache, s),
                                     tokens[s * lanes:(s + 1) * lanes], pos,
-                                    remaining=rems[s])[0]
+                                    **kw[s])[0]
                   for s in range(local_shards)]
         logits = logits[0] if local_shards == 1 else torch.cat(logits)
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)

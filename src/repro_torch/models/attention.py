@@ -28,27 +28,28 @@ from . import common
 KV_BLOCK = 128    # herded KV-perforation block (the JAX module's `block`)
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, dtype,
-                device=None, norm_dtype=torch.float32) -> Dict:
+def init_params(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
+    """The attention leaves drawn from `generator`, each through
+    `hold(name, tensor)` (the model's dtype rule)."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
 
-    def dense(shape):
-        return common.dense_init(generator, shape, dtype=dtype, device=device)
+    def dense(name, shape):
+        return hold(name, common.dense_init(generator, shape))
 
     p = {
-        "wq": dense((d, cfg.n_heads * hd)),
-        "wk": dense((d, cfg.n_kv_heads * hd)),
-        "wv": dense((d, cfg.n_kv_heads * hd)),
-        "wo": dense((cfg.n_heads * hd, d)),
+        "wq": dense("wq", (d, cfg.n_heads * hd)),
+        "wk": dense("wk", (d, cfg.n_kv_heads * hd)),
+        "wv": dense("wv", (d, cfg.n_kv_heads * hd)),
+        "wo": dense("wo", (cfg.n_heads * hd, d)),
     }
     if cfg.qkv_bias:
         for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                         ("bv", cfg.n_kv_heads)):
-            p[name] = torch.zeros((n * hd,), dtype=dtype, device=device)
+            p[name] = hold(name, torch.zeros((n * hd,)))
     if cfg.qk_norm:
-        p["q_norm"] = common.rmsnorm_params(hd, norm_dtype, device)
-        p["k_norm"] = common.rmsnorm_params(hd, norm_dtype, device)
+        p["q_norm"] = common.rmsnorm_params(hd, hold)
+        p["k_norm"] = common.rmsnorm_params(hd, hold)
     return p
 
 

@@ -16,31 +16,58 @@ import numpy as np
 import torch
 
 
-def dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
-               dtype=torch.float32, device=None) -> torch.Tensor:
+def dense_init(generator: torch.Generator, shape,
+               scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal fan-in init: a standard normal cut at +-2, times
-    1/sqrt(fan_in) (the JAX package's scales). Drawn on the generator's
-    device, returned on `device` in `dtype`."""
+    1/sqrt(fan_in) (the JAX package's scales), float32 on the generator's
+    device (a model's `hold` moves and casts it)."""
     fan_in = shape[0] if len(shape) >= 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * scale).to(device=device, dtype=dtype)
+    return t.mul_(scale)
 
 
-def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
-               device=None) -> torch.Tensor:
+def embed_init(generator: torch.Generator, shape) -> torch.Tensor:
     t = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (t * 0.02).to(device=device, dtype=dtype)
+    return t.mul_(0.02)
 
 
 # ----------------------------------------------------------------------------
 # norms
 # ----------------------------------------------------------------------------
 
-def rmsnorm_params(d: int, dtype=torch.float32, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+# the leaves of a norm's parameter dict: held in the param dtype and cast
+# to float32 at use, as the JAX norms do
+NORM_LEAVES = ("scale", "bias")
+
+
+def holder(param_dtype: torch.dtype, compute_dtype: torch.dtype, device,
+           float32_leaves=()):
+    """The dtype rule of one model: `hold(name, tensor)` puts a freshly
+    drawn float32 leaf named `name` on `device` in the dtype the JAX
+    forward multiplies it in. A leaf of `float32_leaves` (each module's
+    table of leaves JAX keeps and uses in float32) stays float32; a norm
+    leaf is held in the param dtype; every other leaf is rounded to the
+    param dtype (JAX stores it there) and held in the compute dtype (its
+    `.astype(x.dtype)` at use, done once here)."""
+    def hold(name: str, t: torch.Tensor) -> torch.Tensor:
+        t = t.to(device)
+        if name in float32_leaves:
+            return t.to(torch.float32)
+        if name in NORM_LEAVES:
+            return t.to(param_dtype)
+        if t.dtype == compute_dtype != param_dtype:
+            # round in place: a full-width expert stack is gigabytes, and
+            # the caller still holds `t`
+            return t.copy_(t.to(param_dtype))
+        return t.to(param_dtype).to(compute_dtype)
+    return hold
+
+
+def rmsnorm_params(d: int, hold):
+    return {"scale": hold("scale", torch.ones((d,)))}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -50,9 +77,9 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def layernorm_params(d: int, dtype=torch.float32, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device),
-            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+def layernorm_params(d: int, hold):
+    return {"scale": hold("scale", torch.ones((d,))),
+            "bias": hold("bias", torch.zeros((d,)))}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -64,13 +91,27 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def norm_params(kind: str, d: int, dtype=torch.float32, device=None):
-    return (rmsnorm_params(d, dtype, device) if kind == "rms"
-            else layernorm_params(d, dtype, device))
+def norm_params(kind: str, d: int, hold):
+    return (rmsnorm_params(d, hold) if kind == "rms"
+            else layernorm_params(d, hold))
 
 
 def apply_norm(kind: str, p, x: torch.Tensor, eps: float = 1e-5):
     return rmsnorm(p, x, eps) if kind == "rms" else layernorm(p, x, eps)
+
+
+# ----------------------------------------------------------------------------
+# activations, op by op as XLA evaluates the JAX definitions
+# ----------------------------------------------------------------------------
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu`: x * logistic(x), the logistic as 1 / (1 + exp(-x))
+    with each op rounded in x's dtype (XLA's bfloat16 results bit for bit;
+    `F.silu` rounds once and differs in the last bit of a third of them).
+    The MoE experts, Mamba2 and RWKV6 use it: without it zamba2's bfloat16
+    hidden states depart from JAX's by more than 0.02. The dense FFN keeps
+    `F.silu`, whose bfloat16 streams the dense serving tests pin."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 # ----------------------------------------------------------------------------
@@ -97,6 +138,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     xr2 = x2 * cos + x1 * sin
     out = torch.stack([xr1, xr2], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d: int, device=None) -> torch.Tensor:
+    """(seq_len, d) float32 sinusoidal position table: sin in the even
+    columns, cos in the odd ones (Whisper's encoder)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq_len, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ----------------------------------------------------------------------------

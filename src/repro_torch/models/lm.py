@@ -1,19 +1,30 @@
-"""Causal LM assembly for the dense family, with decode-time TAF (port of
-`repro.models.lm`).
+"""Causal LM assembly for every decoder-only family, with decode-time TAF
+(port of `repro.models.lm`):
+
+  dense / vlm  -- GQA (or MLA) transformer, the vlm with a stubbed
+                  patch-embedding prefix (pixtral)
+  moe          -- transformer with MoE FFN (+ leading dense layers, MTP)
+  hybrid       -- zamba2: Mamba2 backbone + a shared attention block
+  ssm          -- rwkv6 (attention-free)
+  audio        -- whisper (`models.whisper`)
 
 `build(cfg, device=None)` returns a `Model` whose methods are the JAX
 `Model`'s bound functions: `init`, `hidden`, `init_cache`, `prefill` and
-`decode_step`. The layer loop is a Python loop over a list of per-layer
-parameter dicts; the decode cache stacks every layer on a leading axis, as
-the JAX model's vmapped caches do.
+`decode_step`. The layer loop is a Python loop over lists of per-layer
+parameter dicts (nested lists where JAX stacks two axes); the decode cache
+stacks the layers on leading axes, as the JAX model's vmapped caches do,
+and every step updates it in place.
 
-Weights are held in the dtype they are used in: every matrix and the
-embedding in `compute_dtype` (the values JAX's per-use `.astype(cdt)`
-gives, cast once here instead of at every use), norm scales in
-`param_dtype`.
+Weights are held in the dtype the JAX forward multiplies them in
+(`common.holder`): matrices, embeddings and every leaf JAX casts with
+`.astype(x.dtype)` at its use in `compute_dtype` (cast once here instead of
+at every use), norm scales in `param_dtype`, and the leaves each module
+lists in its `FLOAT32_LEAVES` (the MoE router, Mamba2's A_log / D /
+dt_bias, RWKV6's w0 / u) in float32.
 
 Decode-time TAF (paper section 3.1.3 as a serving feature): with
-cfg.approx_decode = TAF, each layer carries a TAF state machine across
+cfg.approx_decode = TAF on a transformer without MLA or MoE (JAX's
+`_taf_decode_enabled`), each layer carries a TAF state machine across
 decode steps; while a layer's recent output deltas are RSD-stable the
 layer is SKIPPED and its memoized delta and stale K/V are reused. JAX
 branches on the device (`lax.cond`); here the branch is on the host: a
@@ -28,7 +39,7 @@ tensor write.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -36,19 +47,50 @@ from .. import device as device_mod
 from ..configs.base import ModelConfig
 from ..core.types import Technique
 from ..obs import metrics as obs_metrics
-from . import blocks, common
+from . import blocks, common, mamba2, moe, rwkv6
 
-ZOO_ITEM = "ROADMAP Queue 1 item 6 (model zoo and training)"
 
-# Each cache leaf's batch axis (None: the leaf has none). The serving
-# engine's lane splice reads it instead of inferring the axis from shapes.
+def _attn_axes(group: str, names, axis: int) -> Dict:
+    return {(group, name): axis for name in names}
+
+
+_GQA = ("k", "v", "k_scale", "v_scale")
+_MLA = ("ckv", "k_rope")
+
+# Each cache leaf's batch axis, keyed by the leaf's path in the cache
+# (None: the leaf has none). The serving engine's lane splice and the
+# sharding rules read it instead of inferring the axis from shapes.
 CACHE_BATCH_AXES = {
-    ("dense", "k"): 1, ("dense", "v"): 1,
-    ("dense", "k_scale"): 1, ("dense", "v_scale"): 1,
+    # transformer stacks (L, B, ...), GQA or MLA
+    **_attn_axes("dense", _GQA + _MLA, 1),
+    **_attn_axes("moe", _GQA + _MLA, 1),
     ("taf", "threshold"): None, ("taf", "window"): None,
     ("taf", "filled"): None, ("taf", "remaining"): None,
     ("taf", "memo_delta"): 1, ("taf", "memo_k"): 1, ("taf", "memo_v"): 1,
+    # hybrid: mixers (G, M, B, ...) and (T, B, ...), shared attn (G, B, ...)
+    ("mamba_main", "conv"): 2, ("mamba_main", "ssm"): 2,
+    ("mamba_tail", "conv"): 1, ("mamba_tail", "ssm"): 1,
+    **_attn_axes("attn", _GQA, 1),
+    # ssm: every layer's state (L, B, ...)
+    ("tm_x",): 1, ("cm_x",): 1, ("wkv",): 1,
+    # audio: the decoder's self-attention (L, B, ...), the encoder memory
+    **_attn_axes("self", _GQA, 1),
+    ("memory",): 0,
 }
+
+
+def map_cache(fn: Callable, tree, *others, path: Tuple[str, ...] = ()):
+    """`fn(path, leaf, *other leaves)` over a cache tree of nested dicts
+    (a None subtree, such as a hybrid's absent `mamba_tail`, stays None);
+    `others` are trees of the same structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_cache(fn, v, *(o[k] for o in others),
+                             path=path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, *others)
+
 
 # The TAF detector-state leaves of `_taf_init_cache`: per-layer scalars or
 # small vectors with NO batch dim. These are the leaves that become
@@ -82,105 +124,163 @@ def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+# every module's leaves that JAX keeps and multiplies in float32
+FLOAT32_LEAVES = moe.FLOAT32_LEAVES + mamba2.FLOAT32_LEAVES \
+    + rwkv6.FLOAT32_LEAVES
+
+
+def layer_view(stack: Dict, index) -> Dict:
+    """One layer's cache: views of a stacked cache group at `index` (an int
+    or a tuple of ints for nested stacks)."""
+    return {k: t[index] for k, t in stack.items()}
+
+
 class Model:
-    """The dense causal LM of one config on one device."""
+    """One architecture's causal LM on one device: the pieces every family
+    shares (dtype rule, embedding, head)."""
+
+    # parameter subtrees JAX stacks on leading layer axes -> their number;
+    # the port holds such a subtree as (nested) lists of per-layer dicts
+    STACKS: Dict[Tuple[str, ...], int] = {}
 
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
         self.device = device_mod.resolve(device)
         self.pdt = _dtype(cfg.param_dtype)
         self.cdt = _dtype(cfg.compute_dtype)
+        self.hold = common.holder(self.pdt, self.cdt, self.device,
+                                  FLOAT32_LEAVES)
+
+    @property
+    def taf_enabled(self) -> bool:
+        """Decode-time TAF runs (JAX's `_taf_decode_enabled`): a TAF spec
+        on a transformer without MLA or MoE."""
+        return False
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _embed_init(self, generator) -> torch.Tensor:
+        cfg = self.cfg
+        return self.hold("embed", common.embed_init(
+            generator, (cfg.padded_vocab_size, cfg.d_model)))
+
+    def _head_init(self, generator) -> torch.Tensor:
+        cfg = self.cfg
+        return self.hold("head", common.dense_init(
+            generator, (cfg.d_model, cfg.padded_vocab_size)))
+
+    def _head_w(self, params) -> torch.Tensor:
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["head"])
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """(B, V) float32 logits of the (B, d) hidden states `x`."""
+        return (x @ self._head_w(params)).float()
+
+
+# ============================================================================
+# transformer families: dense / vlm / moe
+# ============================================================================
+
+class Transformer(Model):
+    """dense / vlm / moe: `dense_blocks` (+ `moe_blocks` after them for
+    moe), the vlm's patch embeddings prefixed to the text, the MTP head's
+    parameters built as JAX builds them (only the loss reads them)."""
+
+    STACKS = {("dense_blocks",): 1, ("moe_blocks",): 1}
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.n_dense = cfg.moe.n_dense_layers if cfg.moe else cfg.n_layers
+        self.n_moe = cfg.n_layers - self.n_dense
         if self.taf_enabled and cfg.kv_cache_dtype == "int8":
             raise ValueError(
                 "decode-time TAF memoizes K/V rows in the compute dtype; the "
                 "int8 KV cache has no such rows (the JAX model cannot trace "
                 "this combination either)")
 
-    # ------------------------------------------------------------------
-    # parameters
-    # ------------------------------------------------------------------
-
     @property
     def taf_enabled(self) -> bool:
-        return self.cfg.approx_decode.technique == Technique.TAF
+        cfg = self.cfg
+        return (cfg.approx_decode.technique == Technique.TAF
+                and not cfg.use_mla and cfg.moe is None)
 
-    def _as_used(self, t: torch.Tensor) -> torch.Tensor:
-        """A weight as JAX uses it: stored in param_dtype, cast to
-        compute_dtype."""
-        return t.to(self.pdt).to(self.cdt)
+    def _stacks(self):
+        """(params key, cache key) of each layer stack, in order."""
+        return [(pk, ck) for pk, ck, n in (
+            ("dense_blocks", "dense", self.n_dense),
+            ("moe_blocks", "moe", self.n_moe)) if n]
 
     def init(self, generator: torch.Generator) -> Dict:
         """Parameters drawn from `generator` (on its device), with the JAX
         package's init scales, on the model's device."""
-        cfg, dev = self.cfg, self.device
-
-        def used(t):
-            return self._as_used(t.to(dev))
-
-        p: Dict = {
-            "embed": used(common.embed_init(
-                generator, (cfg.padded_vocab_size, cfg.d_model))),
-            "final_norm": common.norm_params(cfg.norm, cfg.d_model, self.pdt,
-                                             dev),
-        }
+        cfg, hold = self.cfg, self.hold
+        p: Dict = {"embed": self._embed_init(generator),
+                   "final_norm": common.norm_params(cfg.norm, cfg.d_model,
+                                                    hold)}
         if not cfg.tie_embeddings:
-            p["head"] = used(common.dense_init(
-                generator, (cfg.d_model, cfg.padded_vocab_size)))
-        layers = []
-        for _ in range(cfg.n_layers):
-            lp = blocks.init_block(generator, cfg, torch.float32, dev,
-                                   self.pdt)
-            for sub in ("attn", "ffn"):
-                lp[sub] = {k: (used(v) if k.startswith(("w", "b")) else v)
-                           for k, v in lp[sub].items()}
-            layers.append(lp)
-        p["dense_blocks"] = layers
+            p["head"] = self._head_init(generator)
+        if self.n_dense:
+            p["dense_blocks"] = [blocks.init_block(generator, cfg, hold)
+                                 for _ in range(self.n_dense)]
+        if self.n_moe:
+            p["moe_blocks"] = [blocks.init_block(generator, cfg, hold,
+                                                 use_moe=True)
+                               for _ in range(self.n_moe)]
+        if cfg.mtp:
+            p["mtp"] = {
+                "proj": hold("proj", common.dense_init(
+                    generator, (2 * cfg.d_model, cfg.d_model))),
+                "block": blocks.init_block(generator, cfg, hold),
+            }
         return p
 
-    def _head_w(self, params) -> torch.Tensor:
-        return (params["embed"].T if self.cfg.tie_embeddings
-                else params["head"])
-
-    def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(tokens, device=self.device).long()
-
-    # ------------------------------------------------------------------
-    # full-sequence paths
-    # ------------------------------------------------------------------
+    def _embed(self, params, batch) -> torch.Tensor:
+        x = params["embed"][self._tokens(batch["tokens"])]
+        if self.cfg.frontend == "vision_patches":   # the stubbed ViT's output
+            patches = torch.as_tensor(batch["patch_embeds"],
+                                      device=self.device).to(self.cdt)
+            x = torch.cat([patches, x], dim=1)
+        return x
 
     def hidden(self, params, batch) -> torch.Tensor:
-        """(B, S, d) final hidden states of `batch["tokens"]`."""
+        """(B, S, d) final hidden states of `batch["tokens"]` (after the
+        vlm's patch prefix)."""
         cfg = self.cfg
-        x = params["embed"][self._tokens(batch["tokens"])]
+        x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=self.device)
-        for lp in params["dense_blocks"]:
-            x = blocks.block_forward(lp, cfg, x, positions,
-                                     approx_attn=cfg.approx_attention,
-                                     approx_ffn=cfg.approx_ffn)
+        for pk, _ in self._stacks():
+            for lp in params[pk]:
+                x, _ = blocks.block_forward(lp, cfg, x, positions,
+                                            approx_attn=cfg.approx_attention,
+                                            approx_ffn=cfg.approx_ffn)
         return common.apply_norm(cfg.norm, params["final_norm"], x,
                                  cfg.norm_eps)
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict:
-        cfg = self.cfg
-        cache = {"dense": blocks.init_block_cache(
-            cfg, cfg.n_layers, batch_size, max_len, self.cdt, self.device)}
+        cache = {ck: blocks.init_block_cache(
+            self.cfg, n, batch_size, max_len, self.cdt, self.device)
+            for ck, n in (("dense", self.n_dense), ("moe", self.n_moe)) if n}
         if self.taf_enabled:
             cache["taf"] = self._taf_init_cache(batch_size)
         return cache
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """(last-position logits (B, V) float32, a fresh cache of
-        `batch["max_len"]` positions holding the prompt's K/V)."""
+        `batch["max_len"]` positions holding the prompt's K/V; the vlm's
+        prompt starts with its patch embeddings)."""
         cfg = self.cfg
-        x = params["embed"][self._tokens(batch["tokens"])]
+        x = self._embed(params, batch)
         cache = self.init_cache(x.shape[0], batch["max_len"])
-        kv = cache["dense"]
-        for l, lp in enumerate(params["dense_blocks"]):
-            x, _ = blocks.block_prefill(
-                lp, cfg, x, {k: t[l] for k, t in kv.items()},
-                approx_attn=cfg.approx_attention, approx_ffn=cfg.approx_ffn)
+        for pk, ck in self._stacks():
+            for l, lp in enumerate(params[pk]):
+                x, _ = blocks.block_prefill(
+                    lp, cfg, x, layer_view(cache[ck], l),
+                    approx_attn=cfg.approx_attention,
+                    approx_ffn=cfg.approx_ffn)
         x = common.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-        return (x[:, -1] @ self._head_w(params)).float(), cache
+        return self._logits(params, x[:, -1]), cache
 
     # ------------------------------------------------------------------
     # decode
@@ -269,40 +369,207 @@ class Model:
         it here."""
         cfg = self.cfg
         x = params["embed"][tokens[:, None].long()]
-        kv = cache["dense"]
         taf = cache.get("taf") if self.taf_enabled else None
-        if taf is None:
-            for l, lp in enumerate(params["dense_blocks"]):
+        for pk, ck in self._stacks():
+            kv = cache[ck]
+            if taf is not None:
+                x = self._decode_taf(params[pk], kv, taf, x, pos, remaining)
+                continue
+            for l, lp in enumerate(params[pk]):
                 x, _ = blocks.block_decode(
-                    lp, cfg, x, {k: c[l] for k, c in kv.items()}, pos,
+                    lp, cfg, x, layer_view(kv, l), pos,
                     approx_attn=cfg.approx_attention,
                     approx_ffn=cfg.approx_ffn)
-        else:
-            skip = taf["remaining"] > 0               # device copy, pre-step
-            rem = remaining
-            if rem is None:
-                rem = taf["remaining"].tolist()       # the step's host read
-                obs_metrics.count_host_read()
-            sums = torch.zeros((cfg.n_layers,), dtype=torch.float32,
-                               device=self.device)
-            for l, lp in enumerate(params["dense_blocks"]):
-                if rem[l] > 0:
-                    x.add_(taf["memo_delta"][l].unsqueeze(1))
-                else:
-                    x = self._decode_layer_taf(lp, l, kv, taf, sums, x, pos)
-            self._taf_step(kv, taf, sums, skip, pos)
         x = common.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-        return (x[:, 0] @ self._head_w(params)).float(), cache
+        return self._logits(params, x[:, 0]), cache
 
+    def _decode_taf(self, layers, kv: Dict, taf: Dict, x, pos: int,
+                    remaining):
+        skip = taf["remaining"] > 0                   # device copy, pre-step
+        rem = remaining
+        if rem is None:
+            rem = taf["remaining"].tolist()           # the step's host read
+            obs_metrics.count_host_read()
+        sums = torch.zeros((self.cfg.n_layers,), dtype=torch.float32,
+                           device=self.device)
+        for l, lp in enumerate(layers):
+            if rem[l] > 0:
+                x.add_(taf["memo_delta"][l].unsqueeze(1))
+            else:
+                x = self._decode_layer_taf(lp, l, kv, taf, sums, x, pos)
+        self._taf_step(kv, taf, sums, skip, pos)
+        return x
+
+
+# ============================================================================
+# hybrid (zamba2)
+# ============================================================================
+
+class Hybrid(Model):
+    """zamba2: groups of Mamba2 mixers, each group closed by ONE shared
+    attention block (weights shared, one KV cache per application), then
+    a tail of mixers."""
+
+    STACKS = {("layers", "main"): 2, ("layers", "tail"): 1}
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.n_groups, self.mpg, self.tail = blocks.hybrid_layout(cfg)
+
+    def init(self, generator: torch.Generator) -> Dict:
+        cfg = self.cfg
+        return {"embed": self._embed_init(generator),
+                "layers": blocks.init_hybrid(generator, cfg, self.hold),
+                "final_norm": common.norm_params(cfg.norm, cfg.d_model,
+                                                 self.hold),
+                "head": self._head_init(generator)}
+
+    def hidden(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"][self._tokens(batch["tokens"])]
+        positions = torch.arange(x.shape[1], device=self.device)
+        layers = params["layers"]
+        for group in layers["main"]:
+            for mp in group:
+                x = blocks.mamba_sublayer(mp, cfg, x,
+                                          approx_ffn=cfg.approx_ffn)
+            x, _ = blocks.block_forward(layers["shared_attn"], cfg, x,
+                                        positions,
+                                        approx_attn=cfg.approx_attention,
+                                        approx_ffn=cfg.approx_ffn)
+        for mp in layers["tail"] or ():
+            x = blocks.mamba_sublayer(mp, cfg, x, approx_ffn=cfg.approx_ffn)
+        return common.apply_norm(cfg.norm, params["final_norm"], x,
+                                 cfg.norm_eps)
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict:
+        cfg, dev = self.cfg, self.device
+        return {
+            "mamba_main": mamba2.init_cache(cfg, (self.n_groups, self.mpg),
+                                            batch_size, self.cdt, dev),
+            "mamba_tail": (mamba2.init_cache(cfg, (self.tail,), batch_size,
+                                             self.cdt, dev)
+                           if self.tail else None),
+            "attn": blocks.init_block_cache(cfg, self.n_groups, batch_size,
+                                            max_len, self.cdt, dev),
+        }
+
+    def _run(self, params, x, cache, mixer, shared):
+        """x through every group's mixers and its shared-attention call,
+        then the tail's mixers: `mixer(layer params, its cache view, x)`
+        and `shared(x, the group's attention cache view)` each return the
+        new x and write their cache in place."""
+        layers = params["layers"]
+        for g, group in enumerate(layers["main"]):
+            for m, mp in enumerate(group):
+                x = mixer(mp, layer_view(cache["mamba_main"], (g, m)), x)
+            x = shared(x, layer_view(cache["attn"], g))
+        for t, mp in enumerate(layers["tail"] or ()):
+            x = mixer(mp, layer_view(cache["mamba_tail"], t), x)
+        x = common.apply_norm(self.cfg.norm, params["final_norm"], x,
+                              self.cfg.norm_eps)
+        return x
+
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        cfg = self.cfg
+        x = params["embed"][self._tokens(batch["tokens"])]
+        cache = self.init_cache(x.shape[0], batch["max_len"])
+
+        def mixer(mp, mc, h):
+            h, state = blocks.mamba_sublayer_prefill(mp, cfg, h)
+            for k, t in state.items():        # cast to the cache's dtypes
+                mc[k].copy_(t)
+            return h
+
+        def shared(h, ac):
+            return blocks.block_prefill(params["layers"]["shared_attn"],
+                                        cfg, h, ac)[0]
+
+        x = self._run(params, x, cache, mixer, shared)
+        return self._logits(params, x[:, -1]), cache
+
+    def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, Dict]:
+        cfg = self.cfg
+        x = params["embed"][tokens[:, None].long()]
+
+        def mixer(mp, mc, h):
+            h, state = blocks.mamba_sublayer_decode(mp, cfg, h, mc)
+            for k, t in state.items():
+                mc[k].copy_(t)
+            return h
+
+        def shared(h, ac):
+            return blocks.block_decode(params["layers"]["shared_attn"], cfg,
+                                       h, ac, pos,
+                                       approx_attn=cfg.approx_attention)[0]
+
+        x = self._run(params, x, cache, mixer, shared)
+        return self._logits(params, x[:, 0]), cache
+
+
+# ============================================================================
+# ssm (rwkv6)
+# ============================================================================
+
+class Rwkv(Model):
+    """rwkv6: an input LayerNorm, RWKV layers carrying their state, a final
+    LayerNorm. Decode ignores `pos`: the position is implicit in the
+    state."""
+
+    STACKS = {("layers",): 1}
+
+    def init(self, generator: torch.Generator) -> Dict:
+        cfg, hold = self.cfg, self.hold
+        return {"embed": self._embed_init(generator),
+                "ln_in": common.norm_params("ln", cfg.d_model, hold),
+                "layers": [rwkv6.init_layer(generator, cfg, hold)
+                           for _ in range(cfg.n_layers)],
+                "final_norm": common.norm_params("ln", cfg.d_model, hold),
+                "head": self._head_init(generator)}
+
+    def init_cache(self, batch_size: int, max_len: int = 0) -> Dict:
+        return rwkv6.init_cache(self.cfg, self.cfg.n_layers, batch_size,
+                                self.cdt, self.device)
+
+    def _run(self, params, tokens, cache) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"][tokens]
+        x = common.layernorm(params["ln_in"], x, cfg.norm_eps)
+        for l, lp in enumerate(params["layers"]):
+            x = rwkv6.layer_forward(lp, cfg, x, layer_view(cache, l))
+        return common.layernorm(params["final_norm"], x, cfg.norm_eps)
+
+    def hidden(self, params, batch) -> torch.Tensor:
+        tokens = self._tokens(batch["tokens"])
+        return self._run(params, tokens, self.init_cache(tokens.shape[0]))
+
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        tokens = self._tokens(batch["tokens"])
+        cache = self.init_cache(tokens.shape[0])
+        x = self._run(params, tokens, cache)
+        return self._logits(params, x[:, -1]), cache
+
+    def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, Dict]:
+        del pos  # state-space: the position is implicit in the state
+        x = self._run(params, tokens[:, None].long(), cache)
+        return self._logits(params, x[:, 0]), cache
+
+
+# ============================================================================
+# factory
+# ============================================================================
 
 def build(cfg: ModelConfig, device=None) -> Model:
-    """The dense LM of `cfg` on `device` (None means cuda)."""
-    if cfg.family != "dense" or cfg.use_mla or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            + (" with MLA" if cfg.use_mla else "")
-            + (" with MoE" if cfg.moe is not None else "")
-            + f" is not ported yet ({ZOO_ITEM}); the port builds the dense "
-            "family")
-    return Model(cfg, device)
-
+    """The model of `cfg` on `device` (None means cuda)."""
+    if cfg.family in ("dense", "vlm", "moe"):
+        return Transformer(cfg, device)
+    if cfg.family == "hybrid":
+        return Hybrid(cfg, device)
+    if cfg.family == "ssm":
+        return Rwkv(cfg, device)
+    if cfg.family == "audio":
+        from . import whisper
+        return whisper.Whisper(cfg, device)
+    raise ValueError(f"unknown family {cfg.family}")

@@ -21,14 +21,16 @@ FF_BLOCK = 128    # herded d_ff-perforation block
 
 
 def init_params(generator: torch.Generator, d_model: int, d_ff: int,
-                kind: str, dtype, device=None) -> Dict:
-    def dense(shape):
-        return common.dense_init(generator, shape, dtype=dtype, device=device)
+                kind: str, hold) -> Dict:
+    def dense(name, shape):
+        return hold(name, common.dense_init(generator, shape))
 
     if kind == "gated_silu":
-        return {"w_gate": dense((d_model, d_ff)), "w_up": dense((d_model, d_ff)),
-                "w_down": dense((d_ff, d_model))}
-    return {"w_up": dense((d_model, d_ff)), "w_down": dense((d_ff, d_model))}
+        return {"w_gate": dense("w_gate", (d_model, d_ff)),
+                "w_up": dense("w_up", (d_model, d_ff)),
+                "w_down": dense("w_down", (d_ff, d_model))}
+    return {"w_up": dense("w_up", (d_model, d_ff)),
+            "w_down": dense("w_down", (d_ff, d_model))}
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,0 +1,154 @@
+"""Mixture-of-Experts layer: GShard-style top-k routing with capacity,
+grouped dispatch and optional shared (always-on) experts -- the
+DeepSeek-V3 / OLMoE shapes (port of `repro.models.moe`).
+
+Beyond-paper AC composition: *expert perforation* -- herded dropping of
+experts over the expert list (the paper's loop-perforation insight applied
+to the expert loop). The drop set is herded (static and shared), so the
+dropped experts' weights are never touched.
+
+Routing follows the JAX module decision for decision: float32 router
+logits on `x` cast to float32, softmax, the top k with ties broken toward
+the lower expert index (`lax.top_k`'s order, a stable descending sort
+here), and each (token, slot)'s capacity rank counted over the group's
+flattened (token, slot) order, so the same tokens drop. The JAX module's
+one-hot dispatch and combine products become an index scatter into the
+(group, expert, capacity) buffer and a gather back: the expert products
+run over the same (E, C) slots, and each kept slot's output is weighted as
+the JAX combine weights it (its weight rounded to the compute dtype).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig, MoEConfig
+from ..core.perforation import kept_indices
+from ..core.types import ApproxSpec, Technique
+from . import common, mlp
+
+# leaves JAX keeps and multiplies in float32 (the router runs in float32)
+FLOAT32_LEAVES = ("router",)
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
+    m = cfg.moe
+    d = cfg.d_model
+
+    def dense(name, shape, scale=None):
+        return hold(name, common.dense_init(generator, shape, scale=scale))
+
+    p = {
+        "router": dense("router", (d, m.n_experts)),
+        # experts stacked on a leading E axis
+        "w_gate": dense("w_gate", (m.n_experts, d, m.d_ff_expert),
+                        1.0 / (d ** 0.5)),
+        "w_up": dense("w_up", (m.n_experts, d, m.d_ff_expert),
+                      1.0 / (d ** 0.5)),
+        "w_down": dense("w_down", (m.n_experts, m.d_ff_expert, d),
+                        1.0 / (m.d_ff_expert ** 0.5)),
+    }
+    if m.n_shared_experts:
+        p["shared"] = mlp.init_params(
+            generator, d, m.d_ff_expert * m.n_shared_experts, "gated_silu",
+            hold)
+    return p
+
+
+def _capacity(m: MoEConfig, group: int) -> int:
+    c = int(group * m.experts_per_token * m.capacity_factor / m.n_experts)
+    return max(c, m.experts_per_token)
+
+
+def kept_experts(n_experts: int, approx: Optional[ApproxSpec]):
+    """The experts an expert-perforation spec keeps (None: all of them)."""
+    if approx is None or approx.technique != Technique.PERFORATION:
+        return None
+    kept = kept_indices(n_experts, approx.perforation)
+    return kept if len(kept) < n_experts else None
+
+
+def route(logits: torch.Tensor, k: int, cap: int):
+    """The routing decisions of float32 router logits (g, t, E): the top-k
+    experts `top_i` (g, t, k), their renormalized weights `top_w`, each
+    (token, slot)'s rank `pos` within its expert and whether it fits the
+    capacity (`keep`), and the softmax `probs`."""
+    g, t, n_e = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: descending, ties toward the lower index
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[..., :k], top_i[..., :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    # rank of each (token, slot) within its expert: the assignments before
+    # it in the flattened (t, k) order
+    onehot = torch.nn.functional.one_hot(top_i.reshape(g, t * k), n_e)
+    before = torch.cumsum(onehot, dim=1) - onehot
+    pos = torch.gather(before, 2, top_i.reshape(g, t * k, 1)).reshape(g, t, k)
+    return top_i, top_w, pos, pos < cap, probs
+
+
+def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+            approx: Optional[ApproxSpec] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss). Dropped-token policy: capacity
+    overflow falls through to the shared expert / residual (standard
+    GShard)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    dt = x.dtype
+    n_e = m.n_experts
+
+    router_w = p["router"]
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    kept = kept_experts(n_e, approx)
+    if kept is not None:
+        idx = torch.as_tensor(kept, device=x.device)
+        router_w = router_w.index_select(1, idx)
+        w_gate = w_gate.index_select(0, idx)
+        w_up = w_up.index_select(0, idx)
+        w_down = w_down.index_select(0, idx)
+        n_e = len(kept)
+
+    group = min(m.router_group_size, b * s)
+    n_tokens = b * s
+    assert n_tokens % group == 0, (n_tokens, group)
+    g = n_tokens // group
+    xg = x.reshape(g, group, d)
+
+    logits = xg.float() @ router_w.float()
+    k = min(m.experts_per_token, n_e)
+    cap = _capacity(m, group)
+    top_i, top_w, pos, keep, probs = route(logits, k, cap)
+
+    # aux load-balance loss (Switch-style): E * sum_e f_e * P_e
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros((n_e,), dtype=torch.float32, device=x.device)
+    ce.index_add_(0, top_i.reshape(-1),
+                  torch.ones(top_i.numel(), device=x.device))
+    ce = ce / (g * group)
+    aux = n_e * torch.sum(me * ce) * m.aux_loss_coef
+
+    # dispatch: each kept (token, slot) to row e * cap + pos of its group
+    slot = (top_i * cap + pos).reshape(g, group * k)
+    keep_f = keep.reshape(g, group * k)
+    src = xg.unsqueeze(2).expand(g, group, k, d).reshape(g, group * k, d)
+    xe = torch.zeros((g, n_e * cap + 1, d), dtype=dt, device=x.device)
+    # dropped slots land on the spare last row, which no expert reads
+    dest = torch.where(keep_f, slot, n_e * cap)
+    xe.scatter_(1, dest.unsqueeze(-1).expand(-1, -1, d), src)
+    xe = xe[:, :n_e * cap].reshape(g, n_e, cap, d)
+
+    h = common.silu(torch.einsum("gecd,edf->gecf", xe, w_gate)) \
+        * torch.einsum("gecd,edf->gecf", xe, w_up)
+    ye = torch.einsum("gecf,efd->gecd", h, w_down).reshape(g, n_e * cap, d)
+
+    # combine: the kept slots' outputs, weighted in the compute dtype
+    w_kept = (top_w * keep).to(dt).reshape(g, group * k, 1)
+    got = torch.gather(ye, 1, torch.where(keep_f, slot, 0)
+                       .unsqueeze(-1).expand(-1, -1, d))
+    out = (got.float() * w_kept.float()).reshape(g, group, k, d).sum(2)
+    out = out.to(dt).reshape(b, s, d)
+    if m.n_shared_experts:
+        out = out + mlp.forward(p["shared"], cfg, x, "gated_silu")
+    return out, aux.float()

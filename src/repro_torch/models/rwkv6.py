@@ -1,0 +1,168 @@
+"""RWKV-6 "Finch" (attention-free) -- data-dependent decay time-mix +
+channel-mix (port of `repro.models.rwkv6`).
+
+Per-channel data-dependent decay w_t = exp(-exp(w0 + lora(x))) clipped to
+[-20, 3] inside, token-shift mixing, the per-head WKV state recurrence with
+bonus `u` for the current token, squared-ReLU channel mix. The token-shift
+mix coefficients are learned-static (the JAX module's recorded
+simplification).
+
+The WKV recurrence is a `lax.scan` over tokens in the JAX module; here it
+is a per-token loop on the host, so a prefill launches a handful of
+kernels per token and layer (host-bound; no kernel is written for it). A
+decode step is the same layer on one token.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from . import common
+
+# leaves JAX keeps and multiplies in float32 (the decay base and the bonus)
+FLOAT32_LEAVES = ("w0", "u")
+
+
+def _dims(cfg: ModelConfig):
+    r = cfg.rwkv
+    return r, cfg.d_model // r.head_dim
+
+
+def init_time_mix(generator: torch.Generator, cfg: ModelConfig,
+                  hold) -> Dict:
+    r, nh = _dims(cfg)
+    d = cfg.d_model
+
+    def dense(name, shape, scale=None):
+        return hold(name, common.dense_init(generator, shape, scale=scale))
+
+    p = {name: hold(name, torch.full((d,), 0.5))
+         for name in ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g")}
+    p.update({
+        "w_r": dense("w_r", (d, d)), "w_k": dense("w_k", (d, d)),
+        "w_v": dense("w_v", (d, d)), "w_g": dense("w_g", (d, d)),
+        "w_o": dense("w_o", (d, d)),
+        # data-dependent decay LoRA (Finch): w = exp(-exp(w0 + tanh(xA)B))
+        "w0": hold("w0", torch.full((d,), -6.0)),
+        "decay_A": dense("decay_A", (d, r.decay_lora_rank)),
+        "decay_B": dense("decay_B", (r.decay_lora_rank, d), 0.01),
+        "u": dense("u", (nh, r.head_dim), 0.5),
+        "ln_x": common.norm_params("ln", d, hold),
+    })
+    return p
+
+
+def init_channel_mix(generator: torch.Generator, cfg: ModelConfig,
+                     hold) -> Dict:
+    d = cfg.d_model
+    return {
+        "mix_k": hold("mix_k", torch.full((d,), 0.5)),
+        "w_k": hold("w_k", common.dense_init(generator, (d, cfg.d_ff))),
+        "w_v": hold("w_v", common.dense_init(generator, (cfg.d_ff, d))),
+    }
+
+
+def init_layer(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
+    return {
+        "ln1": common.norm_params("ln", cfg.d_model, hold),
+        "ln2": common.norm_params("ln", cfg.d_model, hold),
+        "tm": init_time_mix(generator, cfg, hold),
+        "cm": init_channel_mix(generator, cfg, hold),
+    }
+
+
+def init_cache(cfg: ModelConfig, n_layers: int, batch: int, dtype,
+               device=None) -> Dict:
+    """Every layer's state, stacked on a leading axis: the last token of
+    the time mix and of the channel mix (`dtype`), the WKV state
+    (float32)."""
+    r, nh = _dims(cfg)
+    return {
+        "tm_x": torch.zeros((n_layers, batch, cfg.d_model), dtype=dtype,
+                            device=device),
+        "cm_x": torch.zeros((n_layers, batch, cfg.d_model), dtype=dtype,
+                            device=device),
+        "wkv": torch.zeros((n_layers, batch, nh, r.head_dim, r.head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _token_shift(x, x_prev):
+    """shifted[t] = x[t-1]; x_prev seeds t=0. x: (B,S,d), x_prev: (B,d)."""
+    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def wkv_scan(r, k, v, w, u, state):
+    """Recurrent WKV, token by token. r,k,v: (B,S,H,P); w: (B,S,H,P) decay
+    in (0,1); u: (H,P) bonus; state: (B,H,P,P). S_t[h, i, j] accumulates
+    k_i v_j; y_t = r_t . (S_{t-1} + u k v). Returns (y (B,S,H,P), the
+    final state)."""
+    ys = []
+    ub = u[None, :, :, None]
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B,H,P,P)
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], state + ub * kv))
+        state = state * w[:, t, :, :, None] + kv
+    return torch.stack(ys, dim=1), state
+
+
+def time_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+             x_prev: torch.Tensor, state: torch.Tensor):
+    """x: (B,S,d); x_prev: (B,d) the last token of the previous segment;
+    state: (B,H,P,P). Returns (out, last_x, new_state)."""
+    r_cfg, nh = _dims(cfg)
+    b, s, d = x.shape
+    hp = r_cfg.head_dim
+    xs = _token_shift(x, x_prev)
+
+    def mixed(name):
+        m = p["mix_" + name]
+        return x * m + xs * (1 - m)
+
+    r = mixed("r") @ p["w_r"]
+    k = mixed("k") @ p["w_k"]
+    v = mixed("v") @ p["w_v"]
+    g = mixed("g") @ p["w_g"]
+    # Finch data-dependent decay
+    dlora = torch.tanh(mixed("w") @ p["decay_A"]) @ p["decay_B"]
+    w = torch.exp(-torch.exp(torch.clamp(p["w0"] + dlora.float(),
+                                         -20.0, 3.0)))
+    y, new_state = wkv_scan(r.reshape(b, s, nh, hp).float(),
+                            k.reshape(b, s, nh, hp).float(),
+                            v.reshape(b, s, nh, hp).float(),
+                            w.reshape(b, s, nh, hp), p["u"], state)
+    y = y.reshape(b, s, d).to(x.dtype)
+    y = common.layernorm(p["ln_x"], y, cfg.norm_eps)
+    return (y * common.silu(g)) @ p["w_o"], x[:, -1, :], new_state
+
+
+def channel_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                x_prev: torch.Tensor):
+    xs = _token_shift(x, x_prev)
+    m = p["mix_k"]
+    h = torch.square(F.relu((x * m + xs * (1 - m)) @ p["w_k"]))
+    return h @ p["w_v"], x[:, -1, :]
+
+
+def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Dict) -> torch.Tensor:
+    """One RWKV block over a sequence, carrying the segment state: reads
+    this layer's `cache` views and writes the new state into them in
+    place."""
+    h = common.layernorm(p["ln1"], x, cfg.norm_eps)
+    att, tm_x, wkv = time_mix(p["tm"], cfg, h, cache["tm_x"].to(x.dtype),
+                              cache["wkv"])
+    x = x + att
+    h2 = common.layernorm(p["ln2"], x, cfg.norm_eps)
+    ffn, cm_x = channel_mix(p["cm"], cfg, h2, cache["cm_x"].to(x.dtype))
+    cache["tm_x"].copy_(tm_x)
+    cache["cm_x"].copy_(cm_x)
+    cache["wkv"].copy_(wkv)
+    return x + ffn
+
+
+# a single-token step is the same math with S=1 (the state makes it O(1))
+layer_decode = layer_forward

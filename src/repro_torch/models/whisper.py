@@ -1,0 +1,152 @@
+"""Whisper-large-v3 backbone: encoder-decoder transformer (port of
+`repro.models.whisper`).
+
+The conv frontend is a STUB: the batch carries precomputed log-mel frame
+embeddings `frames` (B, S_enc, d_model); the encoder runs bidirectional
+attention over them, the decoder causal self-attention (with a KV cache at
+decode) and cross-attention over the encoder memory. Prefill keeps the
+memory in the cache, padded to `max_source_positions`; decode attends
+over all of it and recomputes the cross K/V from it every step, as the
+JAX model does.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import attention, common, lm, mlp
+
+
+def _init_enc_block(generator, cfg: ModelConfig, hold) -> Dict:
+    return {
+        "ln1": common.norm_params("ln", cfg.d_model, hold),
+        "attn": attention.init_params(generator, cfg, hold),
+        "ln2": common.norm_params("ln", cfg.d_model, hold),
+        "ffn": mlp.init_params(generator, cfg.d_model, cfg.d_ff, "gelu",
+                               hold),
+    }
+
+
+def _init_dec_block(generator, cfg: ModelConfig, hold) -> Dict:
+    return {
+        "ln1": common.norm_params("ln", cfg.d_model, hold),
+        "self_attn": attention.init_params(generator, cfg, hold),
+        "ln_x": common.norm_params("ln", cfg.d_model, hold),
+        "cross_attn": attention.init_params(generator, cfg, hold),
+        "ln2": common.norm_params("ln", cfg.d_model, hold),
+        "ffn": mlp.init_params(generator, cfg.d_model, cfg.d_ff, "gelu",
+                               hold),
+    }
+
+
+def _enc_block(p, cfg: ModelConfig, x, positions):
+    h = common.layernorm(p["ln1"], x, cfg.norm_eps)
+    x = x + attention.forward(p["attn"], cfg, h, positions, causal=False,
+                              approx=cfg.approx_attention)
+    h = common.layernorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp.forward(p["ffn"], cfg, h, "gelu", approx=cfg.approx_ffn)
+
+
+def _cross_attention(p, cfg: ModelConfig, x, memory):
+    """Queries from the decoder's x; K/V from the encoder memory (no mask,
+    no rotary embedding)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    sm = memory.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+    k = (memory @ p["wk"]).reshape(b, sm, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = (memory @ p["wv"]).reshape(b, sm, cfg.n_kv_heads, hd).transpose(1, 2)
+    ctx = common.chunked_attention(q, k, v, causal=False)
+    return ctx.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+
+
+def _dec_tail(p, cfg: ModelConfig, x, memory, approx_ffn=None):
+    """A decoder block after its self-attention: cross-attention and FFN."""
+    h = common.layernorm(p["ln_x"], x, cfg.norm_eps)
+    x = x + _cross_attention(p["cross_attn"], cfg, h, memory)
+    h = common.layernorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp.forward(p["ffn"], cfg, h, "gelu", approx=approx_ffn)
+
+
+class Whisper(lm.Model):
+    """The encoder-decoder on one device. Its batches carry `frames`."""
+
+    STACKS = {("enc_blocks",): 1, ("dec_blocks",): 1}
+
+    def init(self, generator: torch.Generator) -> Dict:
+        cfg, hold = self.cfg, self.hold
+        return {
+            "embed": self._embed_init(generator),
+            "enc_blocks": [_init_enc_block(generator, cfg, hold)
+                           for _ in range(cfg.n_layers)],
+            "dec_blocks": [_init_dec_block(generator, cfg, hold)
+                           for _ in range(cfg.n_layers)],
+            "enc_norm": common.norm_params("ln", cfg.d_model, hold),
+            "dec_norm": common.norm_params("ln", cfg.d_model, hold),
+            "head": self._head_init(generator),
+        }
+
+    def encode(self, params, frames) -> torch.Tensor:
+        """The encoder memory (B, S_enc, d) of `frames`."""
+        cfg = self.cfg
+        x = torch.as_tensor(frames, device=self.device).to(self.cdt)
+        x = x + common.sinusoidal_positions(
+            x.shape[1], cfg.d_model, self.device).to(self.cdt)[None]
+        positions = torch.arange(x.shape[1], device=self.device)
+        for lp in params["enc_blocks"]:
+            x = _enc_block(lp, cfg, x, positions)
+        return common.layernorm(params["enc_norm"], x, cfg.norm_eps)
+
+    def hidden(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        memory = self.encode(params, batch["frames"])
+        x = params["embed"][self._tokens(batch["tokens"])]
+        positions = torch.arange(x.shape[1], device=self.device)
+        for lp in params["dec_blocks"]:
+            h = common.layernorm(lp["ln1"], x, cfg.norm_eps)
+            x = x + attention.forward(lp["self_attn"], cfg, h, positions,
+                                      causal=True,
+                                      approx=cfg.approx_attention)
+            x = _dec_tail(lp, cfg, x, memory, approx_ffn=cfg.approx_ffn)
+        return common.layernorm(params["dec_norm"], x, cfg.norm_eps)
+
+    def init_cache(self, batch_size: int, max_len: int) -> Dict:
+        cfg = self.cfg
+        return {
+            "self": attention.init_cache(cfg, cfg.n_layers, batch_size,
+                                         max_len, self.cdt, self.device),
+            # the encoder memory, computed at prefill and kept
+            "memory": torch.zeros((batch_size, cfg.max_source_positions,
+                                   cfg.d_model), dtype=self.cdt,
+                                  device=self.device),
+        }
+
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        cfg = self.cfg
+        memory = self.encode(params, batch["frames"])
+        x = params["embed"][self._tokens(batch["tokens"])]
+        cache = self.init_cache(x.shape[0], batch["max_len"])
+        cache["memory"][:, :memory.shape[1]].copy_(memory)
+        for l, lp in enumerate(params["dec_blocks"]):
+            h = common.layernorm(lp["ln1"], x, cfg.norm_eps)
+            out, _ = attention.prefill(lp["self_attn"], cfg, h,
+                                       lm.layer_view(cache["self"], l))
+            x = _dec_tail(lp, cfg, x + out, memory)
+        x = common.layernorm(params["dec_norm"], x, cfg.norm_eps)
+        return self._logits(params, x[:, -1]), cache
+
+    def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, Dict]:
+        cfg = self.cfg
+        x = params["embed"][tokens[:, None].long()]
+        memory = cache["memory"]
+        for l, lp in enumerate(params["dec_blocks"]):
+            h = common.layernorm(lp["ln1"], x, cfg.norm_eps)
+            out, _ = attention.decode_step(
+                lp["self_attn"], cfg, h, lm.layer_view(cache["self"], l),
+                pos, approx=cfg.approx_decode)
+            x = _dec_tail(lp, cfg, x + out, memory)
+        x = common.layernorm(params["dec_norm"], x, cfg.norm_eps)
+        return self._logits(params, x[:, 0]), cache

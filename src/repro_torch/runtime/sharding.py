@@ -137,7 +137,9 @@ def _param_spec(path: Sequence, shape, mesh, fsdp: bool,
 
 def _map(fn, tree, path=(), stack=()):
     """`fn(path, leaf, stack)` over a tree of dicts and lists; a list is a
-    layer stack (its length joins `stack`)."""
+    layer stack (its length joins `stack`); a None subtree stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _map(fn, v, path + (k,), stack) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -7,6 +7,12 @@ prefill; every engine tick decodes ONE token for ALL active slots;
 finished sequences (EOS or max_tokens) free their slot at once -- no
 head-of-line blocking on long generations.
 
+Every family of the registry serves here but the vlm and audio ones,
+whose prompts need their frontend's embeddings (the JAX engine prefills
+tokens only); `launch.serve` serves those. Cache surgery walks the cache
+tree to any depth and reads each leaf's batch axis from
+`models.lm.CACHE_BATCH_AXES` by its path.
+
 Composes with the paper's technique: a TAF `approx_decode` config skips
 stable layers inside the shared decode step, and the engine reports the
 skipped-layer fraction alongside throughput.
@@ -55,15 +61,17 @@ from typing import Deque, List, Optional
 import numpy as np
 import torch
 
-from ..core.types import ApproxSpec, Technique
+from ..core.types import ApproxSpec
 from ..launch import steps as steps_mod
-from ..models.lm import CACHE_BATCH_AXES, Model, build
+from ..models.lm import CACHE_BATCH_AXES, Model, build, map_cache
 from ..obs import metrics as obs_metrics
 from ..obs import recorder as obs_recorder
 from ..obs import trace
 from ..obs.metrics import percentile as _percentile
 
 LINT_ITEM = "ROADMAP Queue 1 item 7 (analysis lint)"
+# the families whose prompts carry a stubbed frontend's embeddings
+FRONTEND_INPUTS = {"vlm": "patch_embeds", "audio": "frames"}
 
 
 @dataclasses.dataclass
@@ -169,6 +177,13 @@ class ServingEngine:
         if lint:
             raise NotImplementedError(
                 f"the engine's lint pass is not ported yet ({LINT_ITEM})")
+        if model.cfg.family in FRONTEND_INPUTS:
+            raise ValueError(
+                f"{model.cfg.name}: the engine prefills prompts of tokens "
+                f"only, and a {model.cfg.family} model needs its "
+                f"frontend's {FRONTEND_INPUTS[model.cfg.family]!r} with "
+                "every prompt (as the JAX engine, which cannot serve it "
+                "either); serve it through launch.serve")
         self.model = model
         self.params = params
         self.n_slots = slots
@@ -231,11 +246,12 @@ class ServingEngine:
         self.knob_events: List[KnobMove] = []
         self._serve_exact = None
         if qos is not None:
-            if model.cfg.approx_decode.technique != Technique.TAF:
+            if not model.taf_enabled:
                 raise ValueError(
                     "QoS-controlled serving needs decode-time TAF: build "
-                    "the model with cfg.approx_decode = a TAF spec (the "
-                    "threshold is the online actuator)")
+                    "the model with cfg.approx_decode = a TAF spec, on a "
+                    "transformer without MLA or MoE (the threshold is the "
+                    "online actuator)")
             # the actuator writes ONLY the threshold, so every rung must
             # describe THIS model's decode step
             from ..qos import validate_ladder_taf
@@ -313,13 +329,13 @@ class ServingEngine:
         `models.lm.CACHE_BATCH_AXES`; leaves without one (the detector
         state, the knob thresholds) keep their LIVE values: admission does
         not reset another lane's quality state or the actuated knob."""
-        for group, leaves in rows.items():
-            for name, r in leaves.items():
-                axis = CACHE_BATCH_AXES[(group, name)]
-                if axis is not None:
-                    for j, lane in enumerate(lanes):
-                        cache[group][name].select(axis, lane).copy_(
-                            r.select(axis, j))
+        def splice(path, live, r):
+            axis = CACHE_BATCH_AXES[path]
+            if axis is not None:
+                for j, lane in enumerate(lanes):
+                    live.select(axis, lane).copy_(r.select(axis, j))
+
+        map_cache(splice, cache, rows)
         new = torch.argmax(row_logits, dim=-1).to(tokens.dtype)
         for j, lane in enumerate(lanes):
             tokens[lane:lane + 1].copy_(new[j:j + 1])
@@ -336,15 +352,13 @@ class ServingEngine:
         parts = [self._prefill(self.params, {"tokens": prompts[a:a + w]})
                  for a in range(self._lo, self._hi, w)]
         logits = torch.cat([lg for lg, _ in parts])
-        cache = {}
-        for group, leaves in parts[0][1].items():
-            cache[group] = {}
-            for name in leaves:
-                axis = CACHE_BATCH_AXES[(group, name)]
-                ts = [c[group][name] for _, c in parts]
-                cache[group][name] = (torch.stack(ts) if axis is None
-                                      else torch.cat(ts, dim=axis))
-        return logits, cache
+
+        def merge(path, *ts):
+            axis = CACHE_BATCH_AXES[path]
+            return (torch.stack(ts) if axis is None
+                    else torch.cat(ts, dim=axis))
+
+        return logits, map_cache(merge, *[c for _, c in parts])
 
     def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every data rank's `t`, in data order (one collective; just [t]

@@ -737,7 +737,7 @@ def _to(tree, dev):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
-    return tree.to(dev)
+    return None if tree is None else tree.to(dev)
 
 
 @pytest.mark.cuda
@@ -818,3 +818,77 @@ class TestServingOnCard:
             outs.append(([r.output for r in reqs],
                          (s.ticks, s.tokens_out, s.taf_skipped, s.taf_total)))
         assert outs[0] == outs[1]
+
+
+ZOO = ("olmoe-1b-7b", "deepseek-v3-671b", "zamba2-7b", "rwkv6-1.6b",
+       "whisper-large-v3", "pixtral-12b", "starcoder2-3b", "qwen1.5-4b")
+
+
+@pytest.mark.cuda
+class TestZooOnCard:
+    """Every family of the model zoo on the card against the port on the
+    CPU, on the same weights (the CPU init moved to the card), at the smoke
+    sizes: prefill and decode logits, and the engine's float32 streams."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _models(arch):
+        import dataclasses
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import build
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        cpu = build(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        return cfg, cpu, params, build(cfg, device="cuda"), \
+            _to(params, torch.device("cuda"))
+
+    @pytest.mark.parametrize("arch", ZOO)
+    def test_prefill_and_decode_match_the_cpu(self, arch):
+        from repro_torch.launch import serve
+        cfg, cpu, p, card, pc = self._models(arch)
+        inputs, off = serve.frontend_batch(cfg, 2, 19, 2)
+        toks = inputs["tokens"]
+        batch = dict(inputs, tokens=toks[:, :16], max_len=off + 20)
+        la, ca = cpu.prefill(p, batch)
+        lb, cb = card.prefill(pc, batch)
+        scale = float(la.abs().max())
+        assert float((la - lb.cpu()).abs().max()) / scale < 1e-4
+        for t in range(3):
+            tok = torch.as_tensor(toks[:, 16 + t])
+            la, ca = cpu.decode_step(p, ca, tok, off + 16 + t)
+            lb, cb = card.decode_step(pc, cb, tok.cuda(), off + 16 + t)
+            assert float((la - lb.cpu()).abs().max()) / scale < 1e-4, t
+
+    @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "zamba2-7b",
+                                      "rwkv6-1.6b"])
+    def test_engine_streams_match_the_cpu(self, arch):
+        from repro_torch.serving import Request, ServingEngine
+        cfg, cpu, p, card, pc = self._models(arch)
+        outs = []
+        for model, params in ((cpu, p), (card, pc)):
+            eng = ServingEngine(model, params, slots=3, max_len=48,
+                                prompt_len=8)
+            rng = np.random.RandomState(0)
+            reqs = [Request(uid=i, prompt=rng.randint(0, cfg.vocab_size, 8)
+                            .astype(np.int32), max_new_tokens=5 + i)
+                    for i in range(7)]
+            for r in reqs:
+                eng.submit(r)
+            s = eng.run_until_drained()
+            outs.append(([r.output for r in reqs], (s.ticks, s.tokens_out)))
+        assert outs[0] == outs[1]
+
+    def test_serve_profile_profiles_a_zoo_step(self):
+        """`serve_profile` on an MoE model (no decode TAF there) profiles
+        the plain step alone, at a depth cut."""
+        from repro_torch.benchmarks import serve_profile
+        res = serve_profile.profile("olmoe-1b-7b", batch=2, prompt_len=16,
+                                    layers=2)
+        assert not res["decode_taf"] and res["n_layers"] == 2
+        assert res["plain"]["kernels"] > 0 and "precise" not in res

@@ -23,7 +23,7 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.core import types as jt
 from repro.models import build as jax_build
 from repro_torch import convert
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import types as tt
 from repro_torch.models import blocks, build
 from repro_torch.obs import metrics as obs_metrics
@@ -265,19 +265,25 @@ def test_skipped_layer_writes_its_stale_kv_at_pos():
 
 
 def test_configs_and_build_refuse_what_is_not_ported():
+    """The registry carries every JAX architecture, each with the JAX
+    config's parameter count; only an unknown arch or family is
+    refused."""
+    from repro.configs import list_archs as jax_archs
     full = get_config("qwen3-1.7b")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
             full.d_ff, full.vocab_size, full.tie_embeddings) == \
         (28, 2048, 16, 8, 6144, 151936, False)
-    assert full.param_count() == jax_config("qwen3-1.7b").param_count()
-    for arch in ("zamba2-7b", "olmoe-1b-7b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            get_smoke_config(arch)
+    assert list_archs() == jax_archs()
+    for arch in jax_archs():
+        assert get_config(arch).param_count() == \
+            jax_config(arch).param_count(), arch
+        assert get_smoke_config(arch).param_count() == \
+            jax_smoke(arch).param_count(), arch
     with pytest.raises(KeyError):
         get_config("gpt-17")
-    moe = dataclasses.replace(get_smoke_config("qwen3-1.7b"), family="moe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build(moe, device="cpu")
+    odd = dataclasses.replace(get_smoke_config("qwen3-1.7b"), family="gnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        build(odd, device="cpu")
 
 
 def _xla_tree_sum(x):

@@ -268,6 +268,108 @@ def test_launch_serve_precise_matches_jax_steps_in_float32(capsys):
     assert "tok/s" in capsys.readouterr().out
 
 
+_PERFO = "perfo(fini:0.5)"
+
+
+@pytest.mark.parametrize("arch,ffn", [("pixtral-12b", None),
+                                      ("whisper-large-v3", None),
+                                      ("olmoe-1b-7b", _PERFO)])
+def test_launch_serve_zoo_matches_jax_steps_in_float32(arch, ffn, capsys):
+    """`launch.serve` on the families the engine cannot serve (the vlm and
+    audio ones, with their seeded frontend inputs) and on an MoE model
+    under expert perforation, against the JAX step functions' greedy loop
+    on the same inputs (float32). The vlm's decode positions follow its
+    patch prefix (the JAX entry point's count from the prompt alone would
+    overwrite the prompt's last K/V)."""
+    from repro.launch import steps as jax_steps
+    cfg = dataclasses.replace(jax_smoke(arch), remat=False,
+                              compute_dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch),
+                               compute_dtype="float32")
+    if ffn:
+        cfg = dataclasses.replace(cfg, approx_ffn=jax_pragma(ffn))
+        tcfg = dataclasses.replace(tcfg, approx_ffn=parse_pragma(ffn))
+    model = jax_build(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    inputs, prefix = serve.frontend_batch(tcfg, 4, 8, 0)
+    assert prefix == (cfg.n_patch_tokens if arch == "pixtral-12b" else 0)
+    assert set(inputs) == {"tokens"} | (
+        {"patch_embeds"} if arch == "pixtral-12b" else
+        {"frames"} if arch == "whisper-large-v3" else set())
+    prefill = jax.jit(jax_steps.make_prefill_step(model, prefix + 16))
+    step = jax.jit(jax_steps.make_serve_step(model))
+    logits, cache = prefill(params, {k: jnp.asarray(v)
+                                     for k, v in inputs.items()})
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    want = [tok]
+    for t in range(7):
+        tok, _, cache = step(params, cache, tok, jnp.int32(prefix + 8 + t))
+        want.append(tok)
+    got = serve.run(tcfg, batch=4, prompt_len=8, gen=8, device="cpu",
+                    params=convert.lm_params(params, tcfg, device="cpu"))
+    np.testing.assert_array_equal(got["tokens"],
+                                  np.stack([np.asarray(w) for w in want], 1))
+    argv = ["--arch", arch, "--smoke", "--gen", "3", "--prompt-len", "8",
+            "--device", "cpu"] + (["--approx-ffn", ffn] if ffn else [])
+    assert serve.main(argv).shape == (4, 3)
+    assert "tok/s" in capsys.readouterr().out
+
+
+def test_engine_refuses_frontend_families_and_qos_without_decode_taf():
+    """The engine prefills tokens only, so it refuses the vlm and audio
+    families, naming their inputs and `launch.serve`; QoS needs decode
+    TAF, which a TAF spec on an MoE or MLA model does not run."""
+    for arch, key in (("pixtral-12b", "patch_embeds"),
+                      ("whisper-large-v3", "frames")):
+        model = build(get_smoke_config(arch), device="cpu")
+        with pytest.raises(ValueError, match=f"{key}.*launch.serve"):
+            ServingEngine(model, {})
+    from repro_torch import qos
+    taf = parse_pragma(TAF50)
+    for arch in ("olmoe-1b-7b", "deepseek-v3-671b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), approx_decode=taf)
+        q = qos.QosEngine(qos.QosPolicy.from_records([], metric="mcr"),
+                          0.1)
+        with pytest.raises(ValueError, match="without MLA or MoE"):
+            ServingEngine(build(cfg, device="cpu"), {}, qos=q)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b",
+                                  "whisper-large-v3"])
+def test_sharded_step_walks_every_cache(arch):
+    """The sharded serve step over 2 shards of 2 lanes on the hybrid's
+    (G, M, B, ...) mixer caches, tail and shared-attention caches, the
+    ssm's group-less state and the audio model's memory equals the
+    unsharded step lane for lane (float32, 1e-5), caches included."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    model = build(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    inputs, _ = serve.frontend_batch(cfg, 4, 8, 0)
+    (l1, c1), (_, c2) = (model.prefill(params, dict(inputs, max_len=16))
+                         for _ in range(2))
+    step = steps_mod.make_serve_step(model)
+    sharded = steps_mod.make_sharded_serve_step(
+        model, {"data": 1, "model": 1}, 2, 4)
+    tok = torch.argmax(l1, -1).to(torch.int32)
+    for t in range(3):
+        nxt, la, c1 = step(params, c1, tok, 8 + t)
+        _, lb, c2 = sharded(params, c2, tok, 8 + t)
+        tok = nxt
+        np.testing.assert_allclose(lb.numpy(), la.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    for (_, a), (_, b) in zip(_cache_leaves(c1), _cache_leaves(c2)):
+        np.testing.assert_allclose(b.float().numpy(), a.float().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _cache_leaves(cache, path=()):
+    if isinstance(cache, dict):
+        for k in sorted(cache):
+            yield from _cache_leaves(cache[k], path + (k,))
+    elif cache is not None:
+        yield path, cache
+
+
 def test_serving_examples_run_on_the_cpu(tmp_path, capsys):
     """`repro_torch.examples.continuous_batching` and `approx_serving` (the
     ports of examples/*.py) drain their traces on the CPU."""

@@ -5,9 +5,10 @@ The JAX specs come from a subprocess with 8 fake host devices (the device
 count must be set before jax initializes, as in tests/test_distributed.py):
 `param_shardings`, `opt_state_shardings` and `cache_shardings` over
 `jax.eval_shape` of each smoke model's init on a (2, 4) mesh. The port
-needs no model of those families: its trees are built from the same shapes
-in its own layout (one dict per layer in a list, so a JAX spec's
-layer-stack entries drop), from meta tensors.
+builds its trees from the same shapes in its own layout (one dict per
+layer in a list, so a JAX spec's layer-stack entries drop), from meta
+tensors, and holds each model's own `init` / `init_cache` trees to that
+layout.
 """
 import dataclasses
 import json
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch import qos as tqos
+from repro_torch.configs import get_smoke_config
 from repro_torch.models import build as tbuild
 from repro_torch.models.lm import shard_taf_state
 from repro_torch.optim import compress
@@ -27,26 +29,24 @@ from repro_torch.runtime import elastic, sharding, straggler
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b", "rwkv6-1.6b",
-         "zamba2-7b")
+         "zamba2-7b", "starcoder2-3b", "qwen1.5-4b", "pixtral-12b",
+         "deepseek-v3-671b", "whisper-large-v3")
 MESH = {"data": 2, "model": 4}
 BATCHES = (1, 6, 8)
 
+
 # number of layer-stack axes each JAX subtree leads with (longest prefix)
+_TRANSFORMER = {("dense_blocks",): 1, ("moe_blocks",): 1}
 STACKS = {
-    "qwen3-1.7b": {("dense_blocks",): 1},
-    "deepseek-7b": {("dense_blocks",): 1},
-    "olmoe-1b-7b": {("moe_blocks",): 1},
+    "qwen3-1.7b": _TRANSFORMER, "deepseek-7b": _TRANSFORMER,
+    "olmoe-1b-7b": _TRANSFORMER, "starcoder2-3b": _TRANSFORMER,
+    "qwen1.5-4b": _TRANSFORMER, "pixtral-12b": _TRANSFORMER,
+    "deepseek-v3-671b": _TRANSFORMER,
     "rwkv6-1.6b": {("layers",): 1},
     "zamba2-7b": {("layers", "main"): 2, ("layers", "tail"): 1},
+    "whisper-large-v3": {("enc_blocks",): 1, ("dec_blocks",): 1},
 }
-# each cache leaf's batch axis, for the families the port has no model of
-# yet (the dense family's is `models.lm.CACHE_BATCH_AXES`)
-CACHE_AXES = {
-    ("moe", "k"): 1, ("moe", "v"): 1, ("cm_x",): 1, ("tm_x",): 1,
-    ("wkv",): 1, ("attn", "k"): 1, ("attn", "v"): 1,
-    ("mamba_main", "conv"): 2, ("mamba_main", "ssm"): 2,
-    ("mamba_tail", "conv"): 1, ("mamba_tail", "ssm"): 1,
-}
+
 
 _JAX_SPECS = r"""
 import json, jax
@@ -80,15 +80,24 @@ for arch in %(archs)r:
     model = build(cfg)
     params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
     opt = jax.eval_shape(adamw.init, params)
+    caches = {b: jax.eval_shape(lambda: model.init_cache(b, 40))
+              for b in %(batches)r}
     out[arch] = {
+        "decode": {b: [[[key(p) for p in path], spec_json(s)]
+                       for (path, _), s in zip(
+                           jax.tree_util.tree_flatten_with_path(c)[0],
+                           jax.tree_util.tree_leaves(
+                               sh.decode_partition_specs(mesh, c, b),
+                               is_leaf=lambda x: isinstance(
+                                   x, jax.sharding.PartitionSpec)))]
+                   for b, c in caches.items()},
         "params": rows(params, sh.param_shardings(mesh, params)),
         "params_fsdp": rows(params, sh.param_shardings(mesh, params,
                                                        fsdp=True)),
         "opt": rows(opt, sh.opt_state_shardings(mesh, opt)),
         "opt_fsdp": rows(opt, sh.opt_state_shardings(mesh, opt, fsdp=True)),
         "cache": {b: rows(c, sh.cache_shardings(mesh, c, b))
-                  for b in %(batches)r
-                  for c in [jax.eval_shape(lambda: model.init_cache(b, 40))]},
+                  for b, c in caches.items()},
     }
 model = build(qos.default_decode_cfg())
 taf = {}
@@ -128,8 +137,9 @@ def jax_specs():
     doc["taf_cache"] = {(int(k) if k.isdigit() else k): v
                         for k, v in doc["taf_cache"].items()}
     for arch in ARCHS:
-        doc[arch]["cache"] = {int(k): v
-                              for k, v in doc[arch]["cache"].items()}
+        for part in ("cache", "decode"):
+            doc[arch][part] = {int(k): v
+                               for k, v in doc[arch][part].items()}
     return doc
 
 
@@ -246,11 +256,55 @@ def _compare_cache(rows, batch, axes):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cache_specs_equal_jax(jax_specs, arch):
     from repro_torch.models.lm import CACHE_BATCH_AXES
-    axes = {**CACHE_BATCH_AXES, **CACHE_AXES}
-    compared = sum(_compare_cache(jax_specs[arch]["cache"][b], b, axes)
+    compared = sum(_compare_cache(jax_specs[arch]["cache"][b], b,
+                                  CACHE_BATCH_AXES)
                    for b in BATCHES)
     # batch 6 and 8 are unambiguous for every leaf of these caches
     assert compared >= 2 * len(jax_specs[arch]["cache"][6])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_trees_have_the_jax_layout(jax_specs, arch):
+    """The port model's own parameter tree (`init`) is the JAX tree in the
+    port's layout (`_port_tree`: the same leaves and shapes), and its
+    decode cache has the JAX cache's leaves, at the same paths and of the
+    same shapes, at every batch size."""
+    model = tbuild(get_smoke_config(arch), device="cpu")
+    assert model.STACKS == STACKS[arch]     # what convert.lm_params reads
+    params = model.init(torch.Generator().manual_seed(0))
+    want, _ = _port_tree(arch, jax_specs[arch]["params"])
+
+    def shapes(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: shapes(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [shapes(v) for v in tree]
+        return None if tree is None else tuple(tree.shape)
+
+    assert shapes(params) == shapes(want)
+    for b in BATCHES:
+        cache = shapes(model.init_cache(b, 40))
+        cache = {k: v for k, v in cache.items() if v is not None}
+        assert cache == shapes(_cache_tree(jax_specs[arch]["cache"][b]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_partition_specs_equal_jax(jax_specs, arch):
+    """The sharded serve step's cache specs on each family's cache, leaf
+    for leaf against JAX's wherever its batch-dim heuristic picks the
+    leaf's true batch axis (batch 6 and 8: every leaf)."""
+    from repro_torch.models.lm import CACHE_BATCH_AXES
+    model = tbuild(get_smoke_config(arch), device="cpu")
+    for b in (6, 8):
+        got = sharding.decode_partition_specs(MESH, model.init_cache(b, 40),
+                                              b)
+        rows = jax_specs[arch]["decode"][b]
+        assert rows
+        for keys, spec in rows:
+            want = _spec(spec)
+            want += (None,) * (len(_at(got, keys)) - len(want))
+            assert _at(got, keys) == want, (keys, b)
+            assert CACHE_BATCH_AXES[tuple(keys)] is not None
 
 
 def test_taf_cache_specs_and_decode_axes_equal_jax(jax_specs):
