@@ -147,9 +147,26 @@ failure could still exit 0):
      within 0.02; `launch.serve` in bfloat16 at batch 4, prompt 128, gen
      32 (olmoe also with expert perforation fini 0.5, 32 of 64 experts
      kept), prefill ms and decode tokens/s; the 8-slot engine draining
-     phase 11's 16 requests on olmoe, zamba2 and rwkv6 (tokens/s, TTFT
-     p50 / p99). The kernel launch counts read 0 across the phase: no
-     kernel lies on this path.
+     phase 11's 16 requests on olmoe, zamba2, rwkv6, starcoder2, qwen1.5
+     and deepseek-v3 (tokens/s, TTFT p50 / p99). The kernel launch counts
+     read 0 across the phase: no kernel lies on this path.
+  14. the model zoo's training half: (a) one `launch.steps.make_train_step`
+     on the card and on the CPU from the same float32 masters (Qwen3-1.7B's
+     widths at 2 layers, batch 2 x seq 128, TF32 off): loss within 1e-5
+     relative, grad_norm within 1e-4, params within 1e-6 where AdamW moves
+     them by about lr sign(g) and within 2 lr elsewhere; (b) Qwen3-1.7B as
+     its config gives it (28 layers, float32 masters, bf16 compute, remat)
+     trained for 12 steps at batch 8 x seq 2048 with AdamW lr 3e-4 and
+     warmup-cosine (2 / 12) over `SyntheticLM`: every loss finite and the
+     mean of the last 3 below step 0's; the median step wall of steps 3-12
+     (CUDA events), tokens/s, peak memory and the model-FLOP share
+     6 N T / (wall x 989e12), and one step profiled in a fresh process
+     (`benchmarks.train_profile`: CUDA kernels, device ms, idle share);
+     (c) `repro_torch.examples.train_100m` for 60 steps with checkpoints
+     every 20 (the loss falls), the same run sent SIGTERM after step 40
+     (exit 42, checkpoint 40 written) and resumed to 60 (the final loss
+     within rtol 1e-4 of the uninterrupted run's). The kernel launch
+     counts read 0 across the phase.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -1455,10 +1472,10 @@ ZOO = (("olmoe-1b-7b", None, None, True),
        ("rwkv6-1.6b", None, None, True),
        ("whisper-large-v3", None, None, False),
        ("pixtral-12b", None, None, False),
-       ("starcoder2-3b", None, None, False),
-       ("qwen1.5-4b", None, None, False),
+       ("starcoder2-3b", None, None, True),
+       ("qwen1.5-4b", None, None, True),
        # 61 layers are 671 B parameters: 1.34 TB in bfloat16
-       ("deepseek-v3-671b", 2, 4, False))
+       ("deepseek-v3-671b", 2, 4, True))
 
 
 def zoo_config(arch, layers, **kw):
@@ -1532,7 +1549,8 @@ def phase_zoo(dev, card):
     """Phase 13: every family of the registry served at full width (depth
     cut only where one card's 80 GB forces it): decode against forward in
     float32, `launch.serve` in bfloat16 (olmoe also under expert
-    perforation), and the engine on olmoe, zamba2 and rwkv6."""
+    perforation), and the engine on every family it serves (all but the
+    vlm and the audio model, as in JAX)."""
     import dataclasses
     import gc
     import numpy as np
@@ -1640,6 +1658,297 @@ def phase_zoo(dev, card):
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"  the zoo's path launched {launches} (no Pallas kernel lies on "
         f"it); phase 13 wall {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+# phase 14: the model zoo's training half, Qwen3-1.7B at full width
+TRAIN_ARCH = "qwen3-1.7b"
+# (a) float32 on the card against the CPU: the config's widths at 2 layers
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 128
+# (b) the config as given (bf16 compute, float32 masters, remat)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 2048, 12, 2
+TRAIN_LR = 3e-4
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+# (c) the 100M example: 60 steps, checkpoints every 20, preempted at 40
+TRAIN_100M_STEPS, TRAIN_100M_EVERY, TRAIN_100M_PREEMPT = 60, 20, 40
+
+
+def tree_to(tree, dev):
+    """A copy of a parameter tree (dicts, lists, None) on `dev`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.detach().to(dev, copy=True)
+
+
+def train_parity(dev, card):
+    """(a) One `make_train_step` on the card and on the CPU from the same
+    float32 masters and `SyntheticLM` batch, TF32 off: loss within 1e-5
+    relative, grad_norm within 1e-4, params within 1e-6 where AdamW moves
+    them by about lr sign(g) (|g| > 1e-4 rms(g) and the clipped |g| above
+    100 eps), within 2 lr elsewhere."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ARCH),
+                                        TRAIN_CHECK_LAYERS),
+                              compute_dtype="float32")
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_CHECK_SEQ,
+        global_batch=TRAIN_CHECK_BATCH, seed=0)).batch(0)
+    cpu = torch.device("cpu")
+    m_cpu = build(cfg, cpu)
+    masters = {"cpu": m_cpu.masters(torch.Generator().manual_seed(0))}
+    masters["card"] = tree_to(masters["cpu"], dev)
+    _, _, grads = steps.loss_and_grads(m_cpu, masters["cpu"], batch)
+    grads = [g.detach().double() for g in grads]
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    out = {}
+    for label, d, model in (("cpu", cpu, m_cpu), ("card", dev,
+                                                  build(cfg, dev))):
+        p = masters[label]
+        p, _, m = steps.make_train_step(model, ocfg)(p, adamw.init(p), batch)
+        out[label] = (adamw.leaves(p), {k: float(v) for k, v in m.items()})
+    (p_cpu, m_cpu_), (p_card, m_card) = out["cpu"], out["card"]
+    loss_rel = abs(m_card["loss"] - m_cpu_["loss"]) / abs(m_cpu_["loss"])
+    gn_rel = abs(m_card["grad_norm"] - m_cpu_["grad_norm"]) \
+        / m_cpu_["grad_norm"]
+    scale = min(1.0, ocfg.grad_clip / m_cpu_["grad_norm"])
+    worst_signal = worst_all = 0.0
+    for a, b, g in zip(p_card, p_cpu, grads):
+        d = (a.detach().cpu().double() - b.detach().double()).abs()
+        rms = float(torch.sqrt(torch.mean(g * g)))
+        signal = (g.abs() > 1e-4 * rms) & (g.abs() * scale > 100 * ocfg.eps)
+        if bool(signal.any()):
+            worst_signal = max(worst_signal, float(d[signal].max()))
+        worst_all = max(worst_all, float(d.max()))
+    row = dict(config=zoo_describe(cfg), loss_card=m_card["loss"],
+               loss_cpu=m_cpu_["loss"], loss_rel=loss_rel,
+               grad_norm_rel=gn_rel, param_err_signal=worst_signal,
+               param_err_all=worst_all)
+    log(f"  (a) float32 train step, {zoo_describe(cfg)}, batch "
+        f"{TRAIN_CHECK_BATCH} x seq {TRAIN_CHECK_SEQ}: loss card "
+        f"{m_card['loss']:.7f} vs cpu {m_cpu_['loss']:.7f} (rel "
+        f"{loss_rel:.3g}, limit 1e-5), grad_norm rel {gn_rel:.3g} (limit "
+        f"1e-4), params max err {worst_signal:.3g} where |g| is signal "
+        f"(limit 1e-6), {worst_all:.3g} anywhere (limit 2 lr = "
+        f"{2 * TRAIN_LR:g}) [{card}]")
+    check(loss_rel <= 1e-5, f"train step loss card vs cpu: {loss_rel}")
+    check(gn_rel <= 1e-4, f"train step grad_norm card vs cpu: {gn_rel}")
+    check(worst_signal <= 1e-6, f"train step params card vs cpu: "
+          f"{worst_signal}")
+    check(worst_all <= 2 * TRAIN_LR + 1e-6, f"train step params card vs "
+          f"cpu anywhere: {worst_all}")
+    return row
+
+
+def train_full_width(dev, card):
+    """(b) Qwen3-1.7B as its config gives it: TRAIN_STEPS steps of AdamW
+    with warmup-cosine over `SyntheticLM`, each timed between CUDA events;
+    then one step profiled in a fresh process (`benchmarks.train_profile`)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, schedule
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the parameters that enter a product: all but the embedding table
+    # (the head is its own matrix here)
+    n_embed = cfg.padded_vocab_size * cfg.d_model
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build(cfg, dev)
+    masters = model.masters(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in adamw.leaves(masters))
+    n_product = n_params - n_embed
+    log(f"  (b) {zoo_describe(cfg)}; masters {n_params / 1e9:.3f} B "
+        f"float32, compute {cfg.compute_dtype}, remat {cfg.remat}; batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ} = {tokens} tokens a step, AdamW "
+        f"lr {TRAIN_LR} warmup-cosine ({TRAIN_WARMUP} / {TRAIN_STEPS})")
+    opt = adamw.init(masters)
+    step_fn = steps.make_train_step(
+        model, adamw.AdamWConfig(lr=TRAIN_LR), schedule.warmup_cosine,
+        dict(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+    losses, walls, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        masters, opt, m = step_fn(masters, opt, batch)
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        log(f"    step {i:2d}: loss {losses[-1]:.4f} grad_norm "
+            f"{norms[-1]:.3f} wall {walls[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model, masters, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = float(np.median(walls[2:]))
+    tps = tokens / (med / 1e3)
+    mfu = 6 * n_product * tokens / (med / 1e3 * PEAK_BF16_FLOPS)
+    first, last3 = losses[0], float(np.mean(losses[-3:]))
+    log(f"  (b) steps 3-{TRAIN_STEPS}: median wall {med:.1f} ms, "
+        f"{tps:.0f} tokens/s, peak memory {peak:.2f} GB of 80, model-FLOP "
+        f"share {mfu:.4f} (6 N T / (wall x 989e12), N = {n_product / 1e9:.3f}"
+        f" B parameters in products, the {n_embed / 1e6:.1f} M-entry "
+        f"embedding left out); loss {first:.4f} -> {last3:.4f} (mean of the "
+        f"last 3) [{card}]")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(last3 < first, f"the loss did not fall: {losses}")
+
+    prof_path = os.path.join(os.path.dirname(REPORT), "train_profile.json")
+    subprocess.run([sys.executable, "-m",
+                    "repro_torch.benchmarks.train_profile",
+                    "--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
+                    "--seq-len", str(TRAIN_SEQ), "--out", prof_path],
+                   check=True, timeout=900, cwd=HERE,
+                   env=dict(os.environ, PYTHONPATH=SRC),
+                   stdout=subprocess.DEVNULL)
+    with open(prof_path) as f:
+        prof = json.load(f)
+    log(f"  (b) one profiled step (fresh process): {prof['kernels']} CUDA "
+        f"kernels ({prof['gemm_kernels']} products, "
+        f"{prof['foreach_kernels']} foreach), device "
+        f"{prof['device_ms']:.1f} ms, wall {prof['wall_ms']:.1f} ms, idle "
+        f"{prof['idle']:.3f}, peak {prof['peak_gb']:.2f} GB [{card}]")
+    for r in prof["top"][:5]:
+        log(f"      {r['device_ms']:9.1f} ms  {r['count']:6d}x  {r['name']}")
+    check(prof["kernels"] > 0, "the profiler recorded no CUDA kernel")
+    return dict(config=zoo_describe(cfg), tokens_per_step=tokens,
+                losses=losses, grad_norms=norms, walls_ms=walls,
+                median_wall_ms=med, tokens_per_s=tps, peak_gb=peak,
+                n_params=n_params, n_product=n_product, mfu=mfu,
+                profile=prof)
+
+
+def preempting_guard(at):
+    """A `launch.train` PreemptionGuard whose process receives a real
+    SIGTERM at its `at`-th poll (one a step, after the step): the guard's
+    own handler flags it, and the driver checkpoints and exits 42."""
+    import signal
+    from repro_torch.launch import train as train_mod
+
+    class Guard(train_mod.PreemptionGuard):
+        polls = 0
+
+        @property
+        def should_stop(self):
+            Guard.polls += 1
+            if Guard.polls == at:
+                signal.raise_signal(signal.SIGTERM)
+                time.sleep(0.01)   # the handler runs in this thread
+            return self._flag
+
+    return Guard
+
+
+def train_driver(dev, card):
+    """(c) the 100M example through `launch.train`: 60 steps with
+    checkpoints every 20 (the loss must fall); the same run preempted by
+    SIGTERM after step 40 (exit 42, its checkpoint written), then
+    `--resume` to 60: the same final loss (rtol 1e-4)."""
+    import signal
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.examples import train_100m
+    from repro_torch.launch import train as train_mod
+    import tempfile
+    # checkpoints of 100M masters and moments: about 1 GB each, so they go
+    # to a temporary directory removed with the phase
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    common = ["--steps", str(TRAIN_100M_STEPS), "--ckpt-every",
+              str(TRAIN_100M_EVERY), "--device", dev.type]
+    run_dir = os.path.join(train_dir, "preempted")
+    # the driver's guard takes SIGTERM / SIGINT: give them back after
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    real_guard = train_mod.PreemptionGuard
+    code = None
+    try:
+        t0 = time.perf_counter()
+        full = train_100m.main(common + ["--ckpt-dir",
+                                         os.path.join(train_dir, "full")])
+        t_full = time.perf_counter() - t0
+        check(len(full) == TRAIN_100M_STEPS
+              and np.mean(full[-5:]) < np.mean(full[:5]),
+              f"train_100m: the loss did not fall: {full}")
+        train_mod.PreemptionGuard = preempting_guard(TRAIN_100M_PREEMPT)
+        try:
+            train_100m.main(common + ["--ckpt-dir", run_dir])
+        except SystemExit as e:
+            code = e.code
+        train_mod.PreemptionGuard = real_guard
+        saved = CheckpointManager(run_dir).latest_step()
+        check(code == train_mod.PREEMPTED_EXIT == 42,
+              f"the preempted run exited {code}, not 42")
+        check(saved is not None and saved >= TRAIN_100M_PREEMPT,
+              f"the preempted run left checkpoint step {saved}")
+        resumed = train_100m.main(common + ["--ckpt-dir", run_dir,
+                                            "--resume"])
+    finally:
+        train_mod.PreemptionGuard = real_guard
+        for s, h in handlers.items():
+            signal.signal(s, h)
+        shutil.rmtree(train_dir, ignore_errors=True)
+    rel = abs(resumed[-1] - full[-1]) / abs(full[-1])
+    log(f"  (c) train_100m ({train_100m.CONFIG_100M.param_count() / 1e6:.1f}"
+        f" M parameters, float32): {TRAIN_100M_STEPS} steps, loss "
+        f"{np.mean(full[:5]):.4f} -> {np.mean(full[-5:]):.4f} (means of 5) "
+        f"in {t_full:.1f} s; SIGTERM after step {TRAIN_100M_PREEMPT}: exit "
+        f"{code}, checkpoint at step {saved}; resumed {len(resumed)} steps "
+        f"to a final loss {resumed[-1]:.6f} vs {full[-1]:.6f} uninterrupted "
+        f"(rel {rel:.3g}, limit 1e-4) [{card}]")
+    check(len(resumed) == TRAIN_100M_STEPS - saved,
+          f"resumed {len(resumed)} steps from {saved}")
+    check(rel <= 1e-4, f"resume departs from the uninterrupted run: {rel}")
+    return dict(losses=full, wall_s=t_full, preempt_exit=code,
+                preempt_step=saved, resumed_losses=resumed, final_rel=rel)
+
+
+def phase_train(dev, card):
+    """Phase 14: the training half: (a) float32 card-vs-CPU parity of a
+    train step, (b) Qwen3-1.7B trained at full width in bf16, (c) the 100M
+    example with checkpoints, preemption and resume. The kernel launch
+    counts read 0 across the phase: no kernel lies on this path."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    out, walls = {}, {}
+    for key, part in (("parity", train_parity), ("full_width",
+                                                  train_full_width),
+                      ("driver", train_driver)):
+        t = time.perf_counter()
+        out[key] = part(dev, card)
+        walls[key] = time.perf_counter() - t
+    out["part_walls_s"] = walls
+    launches = ops.launch_counts()
+    out["kernel_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  the training path launched {launches} (no Pallas kernel lies "
+        f"on it); phase 14 wall {out['wall_s']:.1f} s (a / b / c "
+        f"{walls['parity']:.1f} / {walls['full_width']:.1f} / "
+        f"{walls['driver']:.1f} s) [{card}]")
+    check(not any(launches.values()), f"a kernel launched in phase 14: "
+          f"{launches}")
     return out
 
 
@@ -2178,10 +2487,18 @@ def main():
     # -- 13. the model zoo's serving path at full width -------------------
     log("phase 13: the model zoo at full width: decode vs forward in "
         "float32, launch.serve in bfloat16 (olmoe also with expert "
-        "perforation), the engine on olmoe, zamba2 and rwkv6")
+        "perforation), the engine on every family it serves")
     t0 = time.perf_counter()
     report["zoo"] = phase_zoo(dev, card)
     report["phases"]["zoo_s"] = time.perf_counter() - t0
+
+    # -- 14. the model zoo's training half ---------------------------------
+    log("phase 14: training: a float32 step card vs CPU, Qwen3-1.7B at full "
+        "width in bf16 (12 steps), the 100M example with checkpoints, "
+        "preemption and resume")
+    t0 = time.perf_counter()
+    report["train"] = phase_train(dev, card)
+    report["phases"]["train_s"] = time.perf_counter() - t0
 
     kernels = []
     for r in rows:

@@ -25,7 +25,9 @@ step, final norm, head). Per step:
                       TAF one device read included: the step's
                       `remaining`);
   * `wall_ms`      -- the step between CUDA events (median of 5);
-  * `idle`         -- 1 - device_ms / wall_ms.
+  * `idle`         -- 1 - device_ms / wall_ms;
+  * `top`          -- the ten kernels of most device time (name, count,
+                      device ms).
 
 With `--shards S` the plain and precise steps are profiled once more
 through the sharded serve step (`launch.steps.make_sharded_serve_step`, S
@@ -68,7 +70,7 @@ def _profile_step(step, dev) -> Dict:
         torch.cuda.synchronize(dev)
     kernels = gemms = 0
     device_us = 0.0
-    names = {}
+    names, rows = {}, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -77,10 +79,14 @@ def _profile_step(step, dev) -> Dict:
         kernels += e.count
         device_us += us
         names[e.key] = e.count
+        rows.append((e.key, e.count, us / 1e3))
         if any(g in e.key for g in GEMM_NAMES):
             gemms += e.count
+    rows.sort(key=lambda r: -r[2])
     return dict(kernels=kernels, gemm_kernels=gemms,
-                device_ms=device_us / 1e3, kernel_names=names)
+                device_ms=device_us / 1e3, kernel_names=names,
+                top=[dict(name=n[:120], count=c, device_ms=ms)
+                     for n, c, ms in rows[:10]])
 
 
 def profile(arch: str, batch: int, prompt_len: int,

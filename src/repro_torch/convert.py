@@ -13,7 +13,8 @@ carry on from one mid-run state.
 
 `lm_params` turns the parameter tree of any JAX model family (`Model.init`,
 layers stacked on leading axes) into the port's, so both packages compute
-on identical weights.
+on identical weights; `adamw_state` does the same for a JAX `AdamWState`,
+so both packages can carry on training from one mid-run state.
 """
 from __future__ import annotations
 
@@ -41,20 +42,26 @@ def _exact(a, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype)
 
 
-def lm_params(jax_params, cfg, *, device=None):
+def lm_params(jax_params, cfg, *, device=None, masters: bool = False):
     """The JAX LM's parameter tree of any family (arrays numpy can read,
     each layer stack on leading axes) as the port's parameters on `device`
     (None means cuda): a stack becomes a list of per-layer dicts (nested
     lists for the hybrid's (n_groups, mamba_per_group) stack, `None` where
     JAX has None), and each leaf is held as the port's `Model.init` holds
     it (`Model.hold`: the compute dtype, norm leaves in the param dtype,
-    the modules' float32 leaves in float32)."""
+    the modules' float32 leaves in float32). With `masters=True` each leaf
+    is kept as `Model.masters` keeps it (`Model.store`: the dtype JAX
+    stores it in), so it equals the JAX leaf exactly."""
     from .models import lm
     model = lm.build(cfg, device=device)
+    put = model.store if masters else model.hold
+    return _port_tree(jax_params, model, lambda name, a: put(
+        name, torch.from_numpy(np.array(a, np.float32))))
 
-    def leaf(name, a):
-        return model.hold(name, torch.from_numpy(np.array(a, np.float32)))
 
+def _port_tree(jax_tree, model, leaf):
+    """`leaf(name, array)` over a JAX parameter-shaped tree, its layer
+    stacks (`model.STACKS`) split into the port's per-layer lists."""
     def tree(node, path, index=()):
         if node is None:
             return None
@@ -66,7 +73,7 @@ def lm_params(jax_params, cfg, *, device=None):
             return {k: tree(v, path + (k,), index) for k, v in node.items()}
         return leaf(path[-1], np.asarray(node)[index] if index else node)
 
-    return tree(jax_params, ())
+    return tree(jax_tree, ())
 
 
 def _leaves(node):
@@ -106,3 +113,21 @@ def iact_state(state, *, device=None) -> iact.IACTState:
         values=torch.from_numpy(np.array(state.values)).to(dev),
         valid=_exact(state.valid, torch.bool, dev),
         next_slot=_exact(state.next_slot, torch.int32, dev))
+
+
+def adamw_state(state, cfg, *, device=None):
+    """A JAX `AdamWState` (step, m, v over the model's parameter tree) as
+    the port's `optim.adamw.AdamWState` on `device` (None means cuda):
+    the step an int32 0-d tensor, the moments float32 (exactly) in the
+    port's layer lists (`lm_params`' layout)."""
+    from .models import lm
+    from .optim import adamw
+    model = lm.build(cfg, device=device)
+    dev = model.device
+
+    def moments(tree):
+        return _port_tree(tree, model,
+                          lambda name, a: _exact(a, torch.float32, dev))
+
+    return adamw.AdamWState(step=_exact(state.step, torch.int32, dev),
+                            m=moments(state.m), v=moments(state.v))

@@ -1,21 +1,29 @@
-"""Step functions: prefill and serve (one-token decode) (port of the
-serving half of `repro.launch.steps`).
+"""Step functions: train_step (forward, backward and AdamW), prefill and
+serve (one-token decode) (port of `repro.launch.steps`).
 
 JAX jits these; eager PyTorch has nothing to compile, so the counterpart
 of "a knob move recompiles nothing" is that no caller builds a new step
 after construction: `builds()` counts every step built, and the serving
 tests and `obs_overhead` pin its difference across knob moves and tracing
-at 0. The train steps come with the training half of the model zoo
-(ROADMAP Queue 1 item 6b).
+at 0.
+
+A train step takes the masters (`Model.masters`, in the dtype JAX stores
+them in), runs the model's loss on `Model.use(masters)` and differentiates
+into the masters by `torch.autograd.grad`, as `jax.value_and_grad` over
+the JAX loss does; AdamW then updates masters, moments and step counter in
+place (the counterpart of the JAX step donating them) and returns them.
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..models.lm import Model, map_cache
 from ..obs import metrics as obs_metrics
+from ..optim import adamw
+from ..optim import schedule as sched
 
 _BUILDS = [0]
 
@@ -23,6 +31,100 @@ _BUILDS = [0]
 def builds() -> int:
     """Step functions built so far in this process."""
     return _BUILDS[0]
+
+
+def _replicated_constants(params):
+    """Inside a step over DTensor masters (placed by
+    `runtime.sharding.place`), the plain tensors the model makes (position
+    indices, masks, the online softmax's running max and sums, AdamW's
+    scalars) take part as replicated DTensors; elsewhere nothing changes."""
+    first = adamw.leaves(params)[0]
+    if hasattr(first, "device_mesh"):
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def loss_and_grads(model: Model, params, batch):
+    """(loss, metrics, grads) of `batch` at the masters `params`: the
+    loss and metrics detached, the grads a list in `adamw.leaves(params)`
+    order, each in its master's dtype (zeros for a leaf the loss does not
+    reach, as JAX's grad gives)."""
+    masters = adamw.leaves(params)
+    for t in masters:
+        if not t.requires_grad:
+            t.requires_grad_(True)
+    loss, metrics = model.loss(model.use(params), batch)
+    grads = torch.autograd.grad(loss, masters, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, masters)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
+                    schedule_fn: Optional[Callable] = None,
+                    schedule_kwargs: Optional[Dict] = None) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics): one
+    forward and backward over the whole batch and one AdamW step at the
+    learning rate `opt_cfg.lr * schedule_fn(step)`. Metrics (0-d tensors on
+    the device): `loss`, the family's `xent` / `aux_loss` / `mtp_loss`,
+    and `grad_norm` (before clipping)."""
+    schedule_fn = schedule_fn or sched.constant
+    schedule_kwargs = schedule_kwargs or {}
+    _BUILDS[0] += 1
+
+    def train_step(params, opt_state, batch):
+        with _replicated_constants(params):
+            loss, metrics, grads = loss_and_grads(model, params, batch)
+            lr_scale = schedule_fn(opt_state.step, **schedule_kwargs)
+            params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                                 params, lr_scale)
+        metrics = dict(metrics)
+        metrics.update(om)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_train_step_accum(model: Model, opt_cfg: adamw.AdamWConfig,
+                          accum_steps: int,
+                          schedule_fn: Optional[Callable] = None,
+                          schedule_kwargs: Optional[Dict] = None
+                          ) -> Callable:
+    """Gradient-accumulated train step: the global batch is split into
+    `accum_steps` microbatches of contiguous rows run one after another,
+    their float32 grads accumulated as g / accum_steps and their losses as
+    loss / accum_steps, then one AdamW step; activation memory drops about
+    accum_steps times. Metrics: `loss` and `grad_norm`."""
+    schedule_fn = schedule_fn or sched.constant
+    schedule_kwargs = schedule_kwargs or {}
+    _BUILDS[0] += 1
+
+    def train_step(params, opt_state, batch):
+        rows = len(batch["tokens"])
+        assert rows % accum_steps == 0, (rows, accum_steps)
+        mb = rows // accum_steps
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in adamw.leaves(params)]
+        total = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+        for i in range(accum_steps):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, _, grads = loss_and_grads(model, params, micro)
+            with torch.no_grad():
+                torch._foreach_add_(acc, torch._foreach_div(
+                    [g.float() for g in grads], accum_steps))
+            del grads
+            total = total + loss / accum_steps
+        lr_scale = schedule_fn(opt_state.step, **schedule_kwargs)
+        params, opt_state, om = adamw.update(opt_cfg, acc, opt_state,
+                                             params, lr_scale)
+        om["loss"] = total
+        return params, opt_state, om
+
+    return train_step
 
 
 def make_prefill_step(model: Model, max_len: int) -> Callable:

@@ -14,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 
 def dense_init(generator: torch.Generator, shape,
@@ -43,27 +44,69 @@ def embed_init(generator: torch.Generator, shape) -> torch.Tensor:
 NORM_LEAVES = ("scale", "bias")
 
 
-def holder(param_dtype: torch.dtype, compute_dtype: torch.dtype, device,
-           float32_leaves=()):
-    """The dtype rule of one model: `hold(name, tensor)` puts a freshly
-    drawn float32 leaf named `name` on `device` in the dtype the JAX
-    forward multiplies it in. A leaf of `float32_leaves` (each module's
-    table of leaves JAX keeps and uses in float32) stays float32; a norm
-    leaf is held in the param dtype; every other leaf is rounded to the
-    param dtype (JAX stores it there) and held in the compute dtype (its
-    `.astype(x.dtype)` at use, done once here)."""
-    def hold(name: str, t: torch.Tensor) -> torch.Tensor:
-        t = t.to(device)
-        if name in float32_leaves:
+class DtypeRule:
+    """The dtype rule of one model, in the two stages JAX applies it.
+
+    `store(name, t)` puts a freshly drawn float32 leaf named `name` on
+    `device` in the dtype JAX stores, differentiates and updates it in: a
+    leaf of `float32_leaves` (each module's table of leaves JAX keeps and
+    uses in float32) float32, every other leaf the param dtype. `use(name,
+    t)` is the cast at use: every leaf but a norm leaf (cast to float32
+    inside the norm) and a float32 leaf goes to the compute dtype (JAX's
+    `.astype(x.dtype)`). `use` is a differentiable `Tensor.to`, so the
+    stored (master) leaf receives the gradient, as the transpose of JAX's
+    `astype` gives it. `hold = use . store` is the serving form: the cast
+    done once at init instead of at every use."""
+
+    def __init__(self, param_dtype: torch.dtype, compute_dtype: torch.dtype,
+                 device, float32_leaves=()):
+        self.param_dtype, self.compute_dtype = param_dtype, compute_dtype
+        self.device, self.float32_leaves = device, tuple(float32_leaves)
+
+    def _cast_at_use(self, name: str) -> bool:
+        return name not in self.float32_leaves and name not in NORM_LEAVES
+
+    def store(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        t = t.to(self.device)
+        if name in self.float32_leaves:
             return t.to(torch.float32)
-        if name in NORM_LEAVES:
-            return t.to(param_dtype)
-        if t.dtype == compute_dtype != param_dtype:
+        return t.to(self.param_dtype)
+
+    def use(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.compute_dtype) if self._cast_at_use(name) else t
+
+    def hold(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        t = t.to(self.device)
+        if self._cast_at_use(name) \
+                and t.dtype == self.compute_dtype != self.param_dtype:
             # round in place: a full-width expert stack is gigabytes, and
             # the caller still holds `t`
-            return t.copy_(t.to(param_dtype))
-        return t.to(param_dtype).to(compute_dtype)
-    return hold
+            return t.copy_(t.to(self.param_dtype))
+        return self.use(name, self.store(name, t))
+
+
+def unshard(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`t` with dim `dim` whole on every rank: a DTensor sharded (or
+    partial) along it is redistributed to replicate there, for an op that
+    has no DTensor rule over a split dim (a gather along it); a plain
+    tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    dim = dim % t.ndim
+    places = [Replicate() if not isinstance(p, Shard) or p.dim == dim
+              else p for p in t.placements]
+    return t.redistribute(t.device_mesh, places)
+
+
+def remat(enabled: bool, fn, *args):
+    """`fn(*args)`, its activations recomputed in backward when `enabled`
+    and autograd records (`jax.checkpoint` around a layer under
+    `cfg.remat`); a plain call otherwise, so serving is unchanged."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def rmsnorm_params(d: int, hold):

@@ -9,18 +9,25 @@
   audio        -- whisper (`models.whisper`)
 
 `build(cfg, device=None)` returns a `Model` whose methods are the JAX
-`Model`'s bound functions: `init`, `hidden`, `init_cache`, `prefill` and
-`decode_step`. The layer loop is a Python loop over lists of per-layer
-parameter dicts (nested lists where JAX stacks two axes); the decode cache
-stacks the layers on leading axes, as the JAX model's vmapped caches do,
-and every step updates it in place.
+`Model`'s bound functions: `init`, `hidden`, `loss`, `init_cache`,
+`prefill` and `decode_step`. The layer loop is a Python loop over lists of
+per-layer parameter dicts (nested lists where JAX stacks two axes); the
+decode cache stacks the layers on leading axes, as the JAX model's vmapped
+caches do, and every step updates it in place.
 
-Weights are held in the dtype the JAX forward multiplies them in
-(`common.holder`): matrices, embeddings and every leaf JAX casts with
-`.astype(x.dtype)` at its use in `compute_dtype` (cast once here instead of
-at every use), norm scales in `param_dtype`, and the leaves each module
-lists in its `FLOAT32_LEAVES` (the MoE router, Mamba2's A_log / D /
-dt_bias, RWKV6's w0 / u) in float32.
+The dtype rule (`common.DtypeRule`) has JAX's two stages. `masters(g)`
+draws the weights in the dtype JAX stores and updates them in (float32
+by default, `param_dtype`), and `use(masters)` casts them as the JAX
+forward does at each use: matrices, embeddings and every leaf JAX casts
+with `.astype(x.dtype)` to `compute_dtype`, norm scales kept in
+`param_dtype`, and the leaves each module lists in its `FLOAT32_LEAVES`
+(the MoE router, Mamba2's A_log / D / dt_bias, RWKV6's w0 / u) float32.
+`init(g)` draws the same values already cast (`hold = use . store`, the
+serving form); `loss(use(masters), batch)` differentiates into the
+masters, as `jax.value_and_grad` over the JAX loss does. Under the loss
+each layer runs through `common.remat` when `cfg.remat` (`jax.checkpoint`
+in the JAX layer scans), and the head's cross-entropy goes by chunks of
+the sequence (`chunked_xent`), so the (B, S, V) logits are never held.
 
 Decode-time TAF (paper section 3.1.3 as a serving feature): with
 cfg.approx_decode = TAF on a transformer without MLA or MoE (JAX's
@@ -39,7 +46,7 @@ tensor write.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -129,6 +136,58 @@ FLOAT32_LEAVES = moe.FLOAT32_LEAVES + mamba2.FLOAT32_LEAVES \
     + rwkv6.FLOAT32_LEAVES
 
 
+def _chunk_nll(h, w, labels, mask):
+    """The masked negative log-likelihood summed over one chunk: float32
+    logits of `h @ w` (rounded in h's dtype first, as JAX's einsum)."""
+    logits = common.unshard((h @ w).float(), -1)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask)
+
+
+def chunked_xent(h: torch.Tensor, head_w: torch.Tensor, labels,
+                 mask: Optional[torch.Tensor] = None,
+                 chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without holding the (B, S, V) logits: (sum of the
+    masked nll, sum of the mask), both float32. The sequence goes in
+    chunks of `chunk` positions, halved until it divides S, summed chunk by
+    chunk in order (JAX's `lax.scan`); under autograd each chunk's logits
+    are recomputed in backward, so one chunk's are held at a time."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    while s % chunk != 0:
+        chunk //= 2
+    labels = torch.as_tensor(labels, device=h.device).long()
+    mask = (torch.ones((b, s), dtype=torch.float32, device=h.device)
+            if mask is None else mask.float())
+    w = head_w.to(h.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (h[:, sl], w, labels[:, sl], mask[:, sl])
+        total = total + common.remat(True, _chunk_nll, *args)
+        count = count + torch.sum(mask[:, sl])
+    return total, count
+
+
+def _mean_nll(h, head_w, labels) -> torch.Tensor:
+    total, count = chunked_xent(h, head_w, labels)
+    return total / torch.clamp(count, min=1.0)
+
+
+def map_params(fn: Callable, tree, name: str = ""):
+    """`fn(name, leaf)` over a parameter tree of dicts and (nested) layer
+    lists, `name` the leaf's own key; a None subtree stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_params(fn, v, name) for v in tree]
+    return fn(name, tree)
+
+
 def layer_view(stack: Dict, index) -> Dict:
     """One layer's cache: views of a stacked cache group at `index` (an int
     or a tuple of ints for nested stacks)."""
@@ -148,8 +207,38 @@ class Model:
         self.device = device_mod.resolve(device)
         self.pdt = _dtype(cfg.param_dtype)
         self.cdt = _dtype(cfg.compute_dtype)
-        self.hold = common.holder(self.pdt, self.cdt, self.device,
-                                  FLOAT32_LEAVES)
+        self.rule = common.DtypeRule(self.pdt, self.cdt, self.device,
+                                     FLOAT32_LEAVES)
+        self.hold, self.store = self.rule.hold, self.rule.store
+
+    def init(self, generator: torch.Generator) -> Dict:
+        """Parameters drawn from `generator` (on its device), with the JAX
+        package's init scales, on the model's device, held in the dtype
+        the JAX forward multiplies each in (the serving form)."""
+        return self._draw(generator, self.hold)
+
+    def masters(self, generator: torch.Generator) -> Dict:
+        """The same draw as `init`, in the same order, in the dtype JAX
+        stores each leaf in (`DtypeRule.store`): the tree a train step
+        differentiates and AdamW updates."""
+        return self._draw(generator, self.store)
+
+    def use(self, params) -> Dict:
+        """`params` (masters) cast as the JAX forward casts each leaf at
+        its use, differentiably: `use(masters(g))` equals `init(g)`."""
+        return map_params(self.rule.use, params)
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """(loss, metrics) of `batch` (tokens, labels and the frontend's
+        inputs) on `params` in their use form: the mean next-token
+        cross-entropy (`xent`), plus what the family adds."""
+        x = self._hidden(params, batch, self.cfg.remat)
+        out = _mean_nll(x, params["head"], batch["labels"])
+        return out, {"xent": out}
+
+    def hidden(self, params, batch) -> torch.Tensor:
+        """(B, S, d) final hidden states of `batch["tokens"]`."""
+        return self._hidden(params, batch, False)
 
     @property
     def taf_enabled(self) -> bool:
@@ -160,14 +249,14 @@ class Model:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _embed_init(self, generator) -> torch.Tensor:
+    def _embed_init(self, generator, hold) -> torch.Tensor:
         cfg = self.cfg
-        return self.hold("embed", common.embed_init(
+        return hold("embed", common.embed_init(
             generator, (cfg.padded_vocab_size, cfg.d_model)))
 
-    def _head_init(self, generator) -> torch.Tensor:
+    def _head_init(self, generator, hold) -> torch.Tensor:
         cfg = self.cfg
-        return self.hold("head", common.dense_init(
+        return hold("head", common.dense_init(
             generator, (cfg.d_model, cfg.padded_vocab_size)))
 
     def _head_w(self, params) -> torch.Tensor:
@@ -212,15 +301,13 @@ class Transformer(Model):
             ("dense_blocks", "dense", self.n_dense),
             ("moe_blocks", "moe", self.n_moe)) if n]
 
-    def init(self, generator: torch.Generator) -> Dict:
-        """Parameters drawn from `generator` (on its device), with the JAX
-        package's init scales, on the model's device."""
-        cfg, hold = self.cfg, self.hold
-        p: Dict = {"embed": self._embed_init(generator),
+    def _draw(self, generator: torch.Generator, hold) -> Dict:
+        cfg = self.cfg
+        p: Dict = {"embed": self._embed_init(generator, hold),
                    "final_norm": common.norm_params(cfg.norm, cfg.d_model,
                                                     hold)}
         if not cfg.tie_embeddings:
-            p["head"] = self._head_init(generator)
+            p["head"] = self._head_init(generator, hold)
         if self.n_dense:
             p["dense_blocks"] = [blocks.init_block(generator, cfg, hold)
                                  for _ in range(self.n_dense)]
@@ -244,19 +331,59 @@ class Transformer(Model):
             x = torch.cat([patches, x], dim=1)
         return x
 
-    def hidden(self, params, batch) -> torch.Tensor:
+    def _hidden_aux(self, params, batch, remat: bool):
         """(B, S, d) final hidden states of `batch["tokens"]` (after the
-        vlm's patch prefix)."""
+        vlm's patch prefix) and the MoE aux loss: the float32 sum over
+        the layers, stack by stack (a dense layer adds 0)."""
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=self.device)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+
+        def layer(lp, h):
+            return blocks.block_forward(lp, cfg, h, positions,
+                                        approx_attn=cfg.approx_attention,
+                                        approx_ffn=cfg.approx_ffn)
+
         for pk, _ in self._stacks():
+            stack_aux = torch.zeros((), dtype=torch.float32,
+                                    device=self.device)
             for lp in params[pk]:
-                x, _ = blocks.block_forward(lp, cfg, x, positions,
-                                            approx_attn=cfg.approx_attention,
-                                            approx_ffn=cfg.approx_ffn)
-        return common.apply_norm(cfg.norm, params["final_norm"], x,
-                                 cfg.norm_eps)
+                x, a = common.remat(remat, layer, lp, x)
+                if a is not None:
+                    stack_aux = stack_aux + a
+            aux = aux + stack_aux
+        x = common.apply_norm(cfg.norm, params["final_norm"], x,
+                              cfg.norm_eps)
+        return x, aux
+
+    def _hidden(self, params, batch, remat: bool) -> torch.Tensor:
+        return self._hidden_aux(params, batch, remat)[0]
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """The next-token cross-entropy on the text positions (the vlm's
+        patch prefix dropped) plus the MoE aux loss; with MTP, plus
+        `mtp_loss_coef` times the loss of predicting token t+2 from
+        block(proj([h_t ; emb(token_t+1)]))."""
+        cfg = self.cfg
+        x, aux = self._hidden_aux(params, batch, cfg.remat)
+        if cfg.frontend == "vision_patches":
+            x = x[:, batch["patch_embeds"].shape[1]:]
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        head = self._head_w(params)
+        out = _mean_nll(x, head, labels)
+        metrics = {"xent": out, "aux_loss": aux}
+        if cfg.mtp:
+            emb_next = params["embed"][self._tokens(batch["tokens"])]
+            cat = torch.cat([x[:, :-1], emb_next[:, 1:]], dim=-1)
+            hm = cat @ params["mtp"]["proj"]
+            positions = torch.arange(hm.shape[1], device=self.device)
+            hm, _ = blocks.block_forward(params["mtp"]["block"], cfg, hm,
+                                         positions)
+            mtp_loss = _mean_nll(hm, head, labels[:, 1:])
+            metrics["mtp_loss"] = mtp_loss
+            out = out + cfg.mtp_loss_coef * mtp_loss
+        return out + aux, metrics
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict:
         cache = {ck: blocks.init_block_cache(
@@ -416,29 +543,35 @@ class Hybrid(Model):
         super().__init__(cfg, device)
         self.n_groups, self.mpg, self.tail = blocks.hybrid_layout(cfg)
 
-    def init(self, generator: torch.Generator) -> Dict:
+    def _draw(self, generator: torch.Generator, hold) -> Dict:
         cfg = self.cfg
-        return {"embed": self._embed_init(generator),
-                "layers": blocks.init_hybrid(generator, cfg, self.hold),
+        return {"embed": self._embed_init(generator, hold),
+                "layers": blocks.init_hybrid(generator, cfg, hold),
                 "final_norm": common.norm_params(cfg.norm, cfg.d_model,
-                                                 self.hold),
-                "head": self._head_init(generator)}
+                                                 hold),
+                "head": self._head_init(generator, hold)}
 
-    def hidden(self, params, batch) -> torch.Tensor:
+    def _hidden(self, params, batch, remat: bool) -> torch.Tensor:
+        """Under `remat` each Mamba2 sublayer is recomputed in backward
+        (the JAX model checkpoints the mixers, not the shared block)."""
         cfg = self.cfg
         x = params["embed"][self._tokens(batch["tokens"])]
         positions = torch.arange(x.shape[1], device=self.device)
         layers = params["layers"]
+
+        def mixer(mp, h):
+            return blocks.mamba_sublayer(mp, cfg, h,
+                                         approx_ffn=cfg.approx_ffn)
+
         for group in layers["main"]:
             for mp in group:
-                x = blocks.mamba_sublayer(mp, cfg, x,
-                                          approx_ffn=cfg.approx_ffn)
+                x = common.remat(remat, mixer, mp, x)
             x, _ = blocks.block_forward(layers["shared_attn"], cfg, x,
                                         positions,
                                         approx_attn=cfg.approx_attention,
                                         approx_ffn=cfg.approx_ffn)
         for mp in layers["tail"] or ():
-            x = blocks.mamba_sublayer(mp, cfg, x, approx_ffn=cfg.approx_ffn)
+            x = mixer(mp, x)
         return common.apply_norm(cfg.norm, params["final_norm"], x,
                                  cfg.norm_eps)
 
@@ -519,30 +652,40 @@ class Rwkv(Model):
 
     STACKS = {("layers",): 1}
 
-    def init(self, generator: torch.Generator) -> Dict:
-        cfg, hold = self.cfg, self.hold
-        return {"embed": self._embed_init(generator),
+    def _draw(self, generator: torch.Generator, hold) -> Dict:
+        cfg = self.cfg
+        return {"embed": self._embed_init(generator, hold),
                 "ln_in": common.norm_params("ln", cfg.d_model, hold),
                 "layers": [rwkv6.init_layer(generator, cfg, hold)
                            for _ in range(cfg.n_layers)],
                 "final_norm": common.norm_params("ln", cfg.d_model, hold),
-                "head": self._head_init(generator)}
+                "head": self._head_init(generator, hold)}
 
     def init_cache(self, batch_size: int, max_len: int = 0) -> Dict:
         return rwkv6.init_cache(self.cfg, self.cfg.n_layers, batch_size,
                                 self.cdt, self.device)
 
-    def _run(self, params, tokens, cache) -> torch.Tensor:
+    def _run(self, params, tokens, cache, remat: bool = False,
+             write: bool = True) -> torch.Tensor:
+        """The layers from the state in `cache`; with `write` each
+        layer's new state is written into the cache in place (prefill,
+        decode), else the cache is only read (the loss: autograd saved
+        the state it read)."""
         cfg = self.cfg
         x = params["embed"][tokens]
         x = common.layernorm(params["ln_in"], x, cfg.norm_eps)
         for l, lp in enumerate(params["layers"]):
-            x = rwkv6.layer_forward(lp, cfg, x, layer_view(cache, l))
+            view = layer_view(cache, l)
+            x, state = common.remat(remat, rwkv6.layer_forward, lp, cfg, x,
+                                    view)
+            if write:
+                rwkv6.write_state(view, state)
         return common.layernorm(params["final_norm"], x, cfg.norm_eps)
 
-    def hidden(self, params, batch) -> torch.Tensor:
+    def _hidden(self, params, batch, remat: bool) -> torch.Tensor:
         tokens = self._tokens(batch["tokens"])
-        return self._run(params, tokens, self.init_cache(tokens.shape[0]))
+        return self._run(params, tokens, self.init_cache(tokens.shape[0]),
+                         remat=remat, write=False)
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         tokens = self._tokens(batch["tokens"])

@@ -14,7 +14,7 @@ decode step is the same layer on one token.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -148,21 +148,23 @@ def channel_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  cache: Dict) -> torch.Tensor:
+                  state: Dict) -> Tuple[torch.Tensor, Dict]:
     """One RWKV block over a sequence, carrying the segment state: reads
-    this layer's `cache` views and writes the new state into them in
-    place."""
+    this layer's `state` ({tm_x, cm_x, wkv}) and returns (x, the new
+    state), writing nothing (autograd saves the state it read; the
+    caller that keeps a cache writes it with `write_state`). A
+    single-token step is the same math with S=1."""
     h = common.layernorm(p["ln1"], x, cfg.norm_eps)
-    att, tm_x, wkv = time_mix(p["tm"], cfg, h, cache["tm_x"].to(x.dtype),
-                              cache["wkv"])
+    att, tm_x, wkv = time_mix(p["tm"], cfg, h, state["tm_x"].to(x.dtype),
+                              state["wkv"])
     x = x + att
     h2 = common.layernorm(p["ln2"], x, cfg.norm_eps)
-    ffn, cm_x = channel_mix(p["cm"], cfg, h2, cache["cm_x"].to(x.dtype))
-    cache["tm_x"].copy_(tm_x)
-    cache["cm_x"].copy_(cm_x)
-    cache["wkv"].copy_(wkv)
-    return x + ffn
+    ffn, cm_x = channel_mix(p["cm"], cfg, h2, state["cm_x"].to(x.dtype))
+    return x + ffn, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
 
 
-# a single-token step is the same math with S=1 (the state makes it O(1))
-layer_decode = layer_forward
+def write_state(cache: Dict, state: Dict) -> None:
+    """Write a layer's new state into its cache views in place (cast to
+    the cache's dtypes)."""
+    for k, t in state.items():
+        cache[k].copy_(t)

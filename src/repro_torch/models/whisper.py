@@ -75,41 +75,46 @@ class Whisper(lm.Model):
 
     STACKS = {("enc_blocks",): 1, ("dec_blocks",): 1}
 
-    def init(self, generator: torch.Generator) -> Dict:
-        cfg, hold = self.cfg, self.hold
+    def _draw(self, generator: torch.Generator, hold) -> Dict:
+        cfg = self.cfg
         return {
-            "embed": self._embed_init(generator),
+            "embed": self._embed_init(generator, hold),
             "enc_blocks": [_init_enc_block(generator, cfg, hold)
                            for _ in range(cfg.n_layers)],
             "dec_blocks": [_init_dec_block(generator, cfg, hold)
                            for _ in range(cfg.n_layers)],
             "enc_norm": common.norm_params("ln", cfg.d_model, hold),
             "dec_norm": common.norm_params("ln", cfg.d_model, hold),
-            "head": self._head_init(generator),
+            "head": self._head_init(generator, hold),
         }
 
-    def encode(self, params, frames) -> torch.Tensor:
-        """The encoder memory (B, S_enc, d) of `frames`."""
+    def encode(self, params, frames, remat: bool = False) -> torch.Tensor:
+        """The encoder memory (B, S_enc, d) of `frames`; under `remat`
+        each block is recomputed in backward."""
         cfg = self.cfg
         x = torch.as_tensor(frames, device=self.device).to(self.cdt)
         x = x + common.sinusoidal_positions(
             x.shape[1], cfg.d_model, self.device).to(self.cdt)[None]
         positions = torch.arange(x.shape[1], device=self.device)
         for lp in params["enc_blocks"]:
-            x = _enc_block(lp, cfg, x, positions)
+            x = common.remat(remat, _enc_block, lp, cfg, x, positions)
         return common.layernorm(params["enc_norm"], x, cfg.norm_eps)
 
-    def hidden(self, params, batch) -> torch.Tensor:
+    def _hidden(self, params, batch, remat: bool) -> torch.Tensor:
         cfg = self.cfg
-        memory = self.encode(params, batch["frames"])
+        memory = self.encode(params, batch["frames"], remat)
         x = params["embed"][self._tokens(batch["tokens"])]
         positions = torch.arange(x.shape[1], device=self.device)
-        for lp in params["dec_blocks"]:
-            h = common.layernorm(lp["ln1"], x, cfg.norm_eps)
-            x = x + attention.forward(lp["self_attn"], cfg, h, positions,
+
+        def block(lp, h, mem):
+            hh = common.layernorm(lp["ln1"], h, cfg.norm_eps)
+            h = h + attention.forward(lp["self_attn"], cfg, hh, positions,
                                       causal=True,
                                       approx=cfg.approx_attention)
-            x = _dec_tail(lp, cfg, x, memory, approx_ffn=cfg.approx_ffn)
+            return _dec_tail(lp, cfg, h, mem, approx_ffn=cfg.approx_ffn)
+
+        for lp in params["dec_blocks"]:
+            x = common.remat(remat, block, lp, x, memory)
         return common.layernorm(params["dec_norm"], x, cfg.norm_eps)
 
     def init_cache(self, batch_size: int, max_len: int) -> Dict:

@@ -6,7 +6,8 @@ Recovery flow after losing hosts (or gaining them back):
      that fits n devices (model axis preserved when possible -- TP degree is
      a property of the weight layout; the data axis absorbs elasticity).
   2. rebuild the specs for the new mesh (runtime.sharding).
-  3. restore the state onto it (checkpointing comes with training).
+  3. restore the state onto it (`checkpoint.CheckpointManager.restore`
+     with the new mesh and specs).
 The global batch is kept constant by rescaling gradient-accumulation steps
 (`accum_steps_for`), so training dynamics are unchanged across reshapes.
 

@@ -892,3 +892,83 @@ class TestZooOnCard:
                                     layers=2)
         assert not res["decode_taf"] and res["n_layers"] == 2
         assert res["plain"]["kernels"] > 0 and "precise" not in res
+
+
+@pytest.mark.cuda
+class TestTrainOnCard:
+    """The training half on the card against the port on the CPU, on the
+    same float32 masters (the CPU draw moved to the card), TF32 off: every
+    family's loss and gradients at the smoke sizes, a train step, the
+    driver with resume, and the profiler module."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    @staticmethod
+    def _setup(arch):
+        import dataclasses
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.data import DataConfig, SyntheticLM
+        from repro_torch.launch import train
+        from repro_torch.models import build
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32", remat=True)
+        cpu = build(cfg, device="cpu")
+        masters = cpu.masters(torch.Generator().manual_seed(0))
+        seq = 32 if cfg.moe is not None else 16
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=seq, global_batch=2)).batch(0)
+        batch = train.add_frontend_stub(batch, cfg,
+                                        np.random.RandomState(0))
+        return cfg, cpu, masters, build(cfg, device="cuda"), \
+            _to(masters, torch.device("cuda")), batch
+
+    @pytest.mark.parametrize("arch", ZOO + ("qwen3-1.7b", "deepseek-7b"))
+    def test_loss_and_grads_match_the_cpu(self, arch):
+        from repro_torch.launch import steps
+        _, cpu, p, card, pc, batch = self._setup(arch)
+        la, _, ga = steps.loss_and_grads(cpu, p, batch)
+        lb, _, gb = steps.loss_and_grads(card, pc, batch)
+        assert abs(float(la) - float(lb)) <= 1e-5 * abs(float(la))
+        for a, b in zip(ga, gb):
+            n = float(a.double().norm())
+            d = float((a.double() - b.cpu().double()).norm())
+            assert d <= 1e-4 * n if n > 0 else d == 0
+
+    def test_train_step_matches_the_cpu(self):
+        from repro_torch.launch import steps
+        from repro_torch.optim import adamw
+        _, cpu, p, card, pc, batch = self._setup("qwen3-1.7b")
+        ocfg = adamw.AdamWConfig(lr=1e-3)
+        pa, _, ma = steps.make_train_step(cpu, ocfg)(p, adamw.init(p), batch)
+        pb, _, mb = steps.make_train_step(card, ocfg)(pc, adamw.init(pc),
+                                                      batch)
+        assert abs(float(ma["loss"]) - float(mb["loss"])) <= \
+            1e-5 * abs(float(ma["loss"]))
+        assert abs(float(ma["grad_norm"]) - float(mb["grad_norm"])) <= \
+            1e-4 * float(ma["grad_norm"])
+        for a, b in zip(adamw.leaves(pa), adamw.leaves(pb)):
+            assert float((a - b.cpu()).abs().max()) <= 2 * ocfg.lr + 1e-6
+
+    def test_driver_trains_and_resumes_on_the_card(self, tmp_path):
+        from repro_torch.launch import train
+        common = ["--arch", "deepseek-7b", "--smoke", "--batch", "4",
+                  "--seq-len", "32", "--log-every", "100"]
+        full = train.main(common + ["--steps", "20"])
+        train.main(common + ["--steps", "10", "--ckpt-dir", str(tmp_path),
+                             "--ckpt-every", "10"])
+        resumed = train.main(common + ["--steps", "20", "--ckpt-dir",
+                                       str(tmp_path), "--resume"])
+        assert np.mean(full[-5:]) < np.mean(full[:5])
+        np.testing.assert_allclose(resumed[-1], full[-1], rtol=1e-4)
+
+    def test_train_profile_profiles_a_step(self):
+        from repro_torch.benchmarks import train_profile
+        res = train_profile.profile("qwen3-1.7b", batch=2, seq_len=64,
+                                    layers=2)
+        assert res["kernels"] > 0 and res["wall_ms"] > 0
+        assert 0 < res["peak_gb"] < 80

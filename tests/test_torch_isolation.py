@@ -204,3 +204,42 @@ def test_serving_entry_points_default_to_cuda(no_gpu, capsys):
                        "--prompt-len", "4", "--device", "cpu"])
     assert toks.shape == (4, 2)
     capsys.readouterr()
+
+
+def test_training_entry_points_default_to_cuda(no_gpu, tmp_path, capsys):
+    """The training half's entry points -- `launch.train`, the 100M
+    example, `Model.masters` (through `build`), `convert.lm_params(...,
+    masters=True)` and `convert.adamw_state` -- run on cuda unless asked
+    for the CPU; the optimizer, schedules, data, checkpoints and specs
+    follow the tensors they are given (specs: the meta device)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.examples import train_100m
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    args = ["--arch", "qwen3-1.7b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq-len", "8", "--log-every", "100"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_mod.main(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_100m.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    cfg = get_smoke_config("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg).masters(torch.Generator().manual_seed(0))
+    model = build(cfg, device="cpu")
+    masters = model.masters(torch.Generator().manual_seed(0))
+    jax_like = {"embed": np.zeros((4, 2), np.float32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_params(jax_like, cfg, masters=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.adamw_state(adamw.AdamWState(np.int32(0), jax_like,
+                                             jax_like), cfg)
+    state = adamw.init(masters)
+    assert state.step.device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in adamw.leaves(state.m))
+    meta = specs.train_batch_specs(cfg, ShapeConfig("t", 8, 2, "train"))
+    assert all(t.device.type == "meta" for t in meta.values())
+    assert len(train_mod.main(args + ["--device", "cpu"])) == 2
+    capsys.readouterr()

@@ -436,7 +436,9 @@ def test_rwkv6_wkv_scan_matches_jax():
 # the engine
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "zamba2-7b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "zamba2-7b", "rwkv6-1.6b",
+                                  "deepseek-v3-671b", "starcoder2-3b",
+                                  "qwen1.5-4b"])
 def test_engine_streams_equal_jax(arch):
     """The port engine and the JAX engine on the same weights and the
     request trace of tests/test_serving.py (3 slots, 7 requests, lane
