@@ -168,6 +168,24 @@ failure could still exit 0):
      within rtol 1e-4 of the uninterrupted run's). The kernel launch
      counts read 0 across the phase.
 
+  15. the port's last modules on the card: (a) approxlint
+     (`repro_torch.analysis.run_lint(device="cuda")`) over all four
+     groups, after each masked knob of K1-K4 (K2 `rsd_threshold`, K3
+     `threshold`, K1 / K4 `fraction`) is captured once in a CUDA graph with
+     the knob in a device tensor and replayed at another value (each
+     replay equals an eager call there: masks bit for bit, values within
+     phase 3's tolerances): no rule crash, 0 findings, exactly the three
+     subjects JAX's lint allowlists, and K1-K4 launched by the lint; (b)
+     `launch.dryrun` and `launch.roofline` of Qwen3-1.7B's train cell at
+     phase 14's batch 8 x seq 2048 and its decode cell at phase 11's batch
+     4 and cache of 144 on one card: the predicted peak against phase 14's
+     measured one (the train cell must fit), the roofline's bound against
+     phase 14's median step and phase 11's decode device time (each
+     measured time must be at least its bound), and olmoe-1b-7b
+     decode_32k on the 16x16 fake mesh with its collective bytes by kind;
+     (c) the driver's `roofline` and `lint` keys and the gate against the
+     port's BENCH_lint.json.
+
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
 0.25, masked ini/fini/random at fractions up to one that drops every
@@ -651,8 +669,10 @@ def phase_runner(dev, card):
         log(f"  {name},{value},{derived}")
 
     keys = [k for k in bench_run.MODULES
-            if k not in ("ffn", "kernel", "costmodel", "qos", "obs")]
-    # (phase 10 runs costmodel, phase 11 qos and obs)
+            if k not in ("ffn", "kernel", "costmodel", "qos", "obs", "lint",
+                         "roofline")]
+    # (phase 10 runs costmodel, phase 11 qos and obs, phase 15 lint and
+    # roofline)
     results, errors = bench_run.run_modules(keys, rep, device=dev, full=True,
                                             artifacts_dir=BENCH_DIR)
     check(not errors, f"runner modules raised: {errors}")
@@ -1082,7 +1102,8 @@ def phase_serving(dev, card):
         log(f"  decode step {label}: {row['kernels']} CUDA kernels "
             f"({row['gemm_kernels']} products), device "
             f"{row['device_ms']:.3f} ms, host {row['host_ms']:.3f} ms, "
-            f"wall {row['wall_ms']:.3f} ms, idle {row['idle']:.3f}")
+            f"wall {row['wall_ms']:.3f} ms, idle {row['idle']:.3f}; "
+            f"kernels in each profile {row['kernel_counts']}")
     # a skipped layer runs exactly one kernel, the residual add of its
     # memoized delta: the skipped step's count is the step's fixed kernels
     # (embedding, detector step, final norm, the head's one product) plus
@@ -1091,12 +1112,21 @@ def phase_serving(dev, card):
     log(f"  skipped step: {fixed} fixed kernels + 1 a layer "
         f"({prof['skipped']['kernels']} at {n} layers, "
         f"{prof['skipped_short']['kernels']} at {n_short})")
-    check(prof["precise"]["gemm_kernels"] >= 7 * n
-          and prof["skipped"]["gemm_kernels"] <= 1
-          and prof["skipped_short"]["gemm_kernels"] <= 1
-          and prof["skipped"]["kernels"] == n + fixed
-          and fixed < prof["plain"]["kernels"] / n,
-          f"a skipped layer launched more than its delta's add: {prof}")
+    counts = {k: (prof[k]["kernels"], prof[k]["gemm_kernels"])
+              for k in ("plain", "precise", "skipped", "skipped_short")}
+    for cond, what in (
+            (prof["precise"]["gemm_kernels"] >= 7 * n,
+             f"the precise step ran fewer than {7 * n} products"),
+            (prof["skipped"]["gemm_kernels"] <= 1
+             and prof["skipped_short"]["gemm_kernels"] <= 1,
+             "a skipped step ran more than the head's product"),
+            (prof["skipped"]["kernels"] == n + fixed,
+             f"the skipped step ran other than {n + fixed} kernels"),
+            (fixed < prof["plain"]["kernels"] / n,
+             "the skipped step's fixed kernels outnumber a plain layer's")):
+        check(cond, f"{what}: (kernels, products) per step {counts}, "
+                    f"kernels in each profile "
+                    f"{ {k: prof[k]['kernel_counts'] for k in counts} }")
     out["step_profile"] = {k: {kk: vv for kk, vv in v.items()
                                if kk != "kernel_names"}
                            if isinstance(v, dict) else v
@@ -1398,11 +1428,14 @@ def phase_sharded(dev, card, ctx):
         log(f"  decode step {label} (batch {SHARD_SLOTS}): {row['kernels']} "
             f"CUDA kernels ({row['gemm_kernels']} products), device "
             f"{row['device_ms']:.3f} ms, host {row['host_ms']:.3f} ms, wall "
-            f"{row['wall_ms']:.3f} ms, idle {row['idle']:.3f}")
+            f"{row['wall_ms']:.3f} ms, idle {row['idle']:.3f}; kernels in "
+            f"each profile {row['kernel_counts']}")
     # each shard runs its own decode step: about SHARDS x the kernels
     check(prof["sharded_plain"]["kernels"]
           > (SHARDS - 1) * prof["plain"]["kernels"],
-          "a sharded step did not run every shard's decode")
+          f"a sharded step did not run every shard's decode: "
+          f"{prof['sharded_plain']['kernels']} kernels against "
+          f"{prof['plain']['kernels']} unsharded")
     out["step_profile"] = {k: {kk: vv for kk, vv in v.items()
                                if kk != "kernel_names"}
                            if isinstance(v, dict) else v
@@ -1950,6 +1983,168 @@ def phase_train(dev, card):
     check(not any(launches.values()), f"a kernel launched in phase 14: "
           f"{launches}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dry run, the roofline and approxlint on the card
+# ---------------------------------------------------------------------------
+
+TOOLS_DIR = os.path.join(HERE, "chiprun_out", "bench_tools")
+# the results the `roofline` driver key reads (git-ignored)
+TORCH_RESULTS = os.path.join(HERE, "results", "torch")
+# the subjects JAX's run_lint allowlists on its tree (.approxlint.json)
+LINT_ALLOWLISTED = ("kernels.perforated_matmul.perfo",
+                    "kernels.perforated_attention.perfo",
+                    "regions.perforated_loop.skip")
+
+
+def tools_lint(dev, card):
+    """(a) approxlint over all four groups on the card: each kernel's
+    masked knob probed by CUDA-graph replay (traced), then `run_lint`
+    with the launch counts set to 0 just before and read just after."""
+    from repro_torch.analysis import findings, lint, rules, targets
+    from repro_torch.kernels import ops
+    verdicts = {}
+    for t in targets.kernel_knob_targets("cuda"):
+        if t.graph:
+            res = rules.probe_target(t, "cuda")
+            verdicts[t.subject] = res.verdict
+            log(f"  (a) CUDA-graph replay {t.subject} at "
+                f"{t.card_values}: {res.verdict}"
+                + (f" ({res.error or res.diff_excerpt})"
+                   if not res.clean else ""))
+    check(all(v == "traced" for v in verdicts.values()),
+          f"a masked kernel knob is not traced on the card: {verdicts}")
+    allow = findings.Allowlist.load(findings.default_allowlist_path(HERE))
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    rep = lint.run_lint(allowlist=allow, device=dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    doc = rep.to_json()
+    s = doc["summary"]
+    allowed = sorted(a["finding"]["subject"] for a in doc["allowlisted"])
+    log(f"  (a) run_lint(device=cuda), all groups: {s['total']} findings "
+        f"({s['errors']} errors, {s['warnings']} warnings), "
+        f"{s['allowlisted']} allowlisted {allowed}, rule crashes "
+        f"{rep.errors}; {wall:.2f} s; kernel launches {launches} [{card}]")
+    for line in rep.render_text().splitlines()[:12]:
+        log(f"      {line}")
+    check(not rep.errors, f"a lint rule crashed: {rep.errors}")
+    check(s["total"] == s["errors"] == s["warnings"] == 0,
+          f"the lint is not clean on the card: {rep.render_text()}")
+    check(allowed == sorted(LINT_ALLOWLISTED),
+          f"allowlisted subjects {allowed}, want {sorted(LINT_ALLOWLISTED)}")
+    check(all(launches[k] > 0 for k in ops.KERNELS),
+          f"the lint did not reach every kernel: {launches}")
+    return dict(summary=s, allowlisted=allowed, wall_s=wall,
+                launches=launches, replay=verdicts)
+
+
+def tools_roofline(dev, card, report):
+    """(b) the dry run and the roofline of the two cells phases 14 and 11
+    measure, held against their measurements, and one 16x16 cell."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+    one = {"data": 1, "model": 1}
+    train = report["train"]["full_width"]
+    plain = report["serving"]["step_profile"]["plain"]
+    cells = (
+        ("train", ShapeConfig(f"train_b{TRAIN_BATCH}_s{TRAIN_SEQ}",
+                              TRAIN_SEQ, TRAIN_BATCH, "train"),
+         train["median_wall_ms"], train["peak_gb"],
+         "phase 14's median step wall"),
+        ("decode", ShapeConfig(f"decode_b{SERVE_BATCH}_s{SERVE_PROMPT + 16}",
+                               SERVE_PROMPT + 16, SERVE_BATCH, "decode"),
+         plain["device_ms"], None, "phase 11's decode step device time"),
+    )
+    out = {}
+    for sub in ("dryrun", "roofline"):
+        os.makedirs(os.path.join(TORCH_RESULTS, sub), exist_ok=True)
+    for label, shape, measured_ms, peak_gb, what in cells:
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(TRAIN_ARCH, shape.name, False, shape=shape,
+                                mesh_shape=one, device=dev)
+        roof = roofline.analyze(TRAIN_ARCH, shape.name, shape=shape,
+                                record=rec)
+        for sub, doc in (("dryrun", rec), ("roofline", roof)):
+            with open(os.path.join(TORCH_RESULTS, sub,
+                                   f"{TRAIN_ARCH}__{shape.name}.json"),
+                      "w") as f:
+                json.dump(doc, f, indent=1)
+        bound_ms = roof["bound_s"] * 1e3
+        pred_gb = rec["per_device_bytes"] / 1e9
+        log(f"  (b) {TRAIN_ARCH} {shape.kind} batch {shape.global_batch} x "
+            f"seq {shape.seq_len} on one card: traced in "
+            f"{time.perf_counter() - t0:.1f} s, {rec['ops']} ops; predicted "
+            f"peak {pred_gb:.2f} GB (arguments "
+            f"{rec['memory']['argument_bytes'] / 1e9:.2f} + step "
+            f"{rec['memory']['temp_bytes'] / 1e9:.2f}), fits 80 GB: "
+            f"{rec['fits']}"
+            + (f"; measured peak {peak_gb:.2f} GB, ratio "
+               f"{pred_gb / peak_gb:.3f}" if peak_gb else ""))
+        log(f"      FLOPs {rec['hlo_flops_per_device']:.4g} (tensor core "
+            f"{rec['flops_by_class']['tensor_core']:.4g}, float32 "
+            f"{rec['flops_by_class']['float32']:.4g}), bytes "
+            f"{rec['hlo_bytes_per_device']:.4g}; compute "
+            f"{roof['compute_s'] * 1e3:.3f} ms, memory "
+            f"{roof['memory_s'] * 1e3:.3f} ms -> bound {bound_ms:.3f} ms "
+            f"({roof['dominant']}); {what} {measured_ms:.3f} ms, "
+            f"bound / measured {bound_ms / measured_ms:.3f} [{card}]")
+        check(measured_ms >= bound_ms,
+              f"{label}: measured {measured_ms} ms below the roofline bound "
+              f"{bound_ms} ms: the count is wrong")
+        if label == "train":
+            check(rec["fits"], f"the train cell is predicted not to fit: "
+                  f"{pred_gb} GB")
+        out[label] = dict(dryrun=rec, roofline=roof, measured_ms=measured_ms,
+                          measured_peak_gb=peak_gb, bound_ms=bound_ms)
+    # one cell of the production 16x16 mesh, on rank 0 of a fake group of
+    # 256 (a process of its own: phase 12's group is this one's default)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "olmoe-1b-7b", "--shape", "decode_32k", "--single-pod",
+         "--device", "cuda"], check=True, timeout=600, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True)
+    rec = json.loads(proc.stdout[proc.stdout.index("{"):])
+    coll = rec["collectives"]
+    log(f"  (b) olmoe-1b-7b decode_32k on the 16x16 fake mesh: "
+        f"{rec['status']}, {time.perf_counter() - t0:.1f} s; per device "
+        f"{rec['per_device_bytes'] / 2**30:.2f} GiB, "
+        f"{rec['hlo_flops_per_device']:.4g} FLOPs; collectives "
+        f"{coll['counts']}, bytes by kind {coll['bytes_by_kind']}, by axis "
+        f"{coll['bytes_by_axis']} over {coll['links']}")
+    check(rec["status"] == "ok", f"the 16x16 cell: {rec}")
+    out["olmoe_16x16"] = rec
+    return out
+
+
+def phase_tools(dev, card, report):
+    """Phase 15: (a) approxlint on the card, (b) the dry run and roofline
+    against phases 14 and 11, (c) `run --only roofline,lint` and the
+    BENCH_lint.json gate."""
+    from repro_torch.benchmarks import run as bench_run
+    t0 = time.perf_counter()
+    out = {"lint": tools_lint(dev, card)}
+    out["roofline"] = tools_roofline(dev, card, report)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    results, errors = bench_run.run_modules(
+        ["roofline", "lint"], lambda n_, v_, d_="": log(f"  {n_},{v_},{d_}"),
+        device=dev, artifacts_dir=TOOLS_DIR)
+    check(not errors, f"runner modules raised: {errors}")
+    stamp_card(TOOLS_DIR, card)
+    fails = bench_run.check_regression(
+        TOOLS_DIR, os.path.join(bench_run.BASELINES, "BENCH_lint.json"))
+    for f in fails:
+        log(f"  regression FAIL {f}")
+    if not fails:
+        log(f"  regression gate OK: {os.path.relpath(TOOLS_DIR, HERE)}")
+    out["runner_roofline"] = results["roofline"]
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 15 wall {out['wall_s']:.1f} s [{card}]")
+    return out, fails
 
 
 def main():
@@ -2500,6 +2695,14 @@ def main():
     report["train"] = phase_train(dev, card)
     report["phases"]["train_s"] = time.perf_counter() - t0
 
+    # -- 15. the dry run, the roofline and approxlint on the card -------
+    log("phase 15: approxlint on the card (CUDA-graph replay of K1-K4's "
+        "knobs), the dry run and roofline against phases 14 and 11, "
+        "run --only roofline,lint and its gate")
+    t0 = time.perf_counter()
+    report["tools"], tools_fails = phase_tools(dev, card, report)
+    report["phases"]["tools_s"] = time.perf_counter() - t0
+
     kernels = []
     for r in rows:
         t_ops = r["ops"] / PEAK_F32_FLOPS * 1e3
@@ -2551,7 +2754,7 @@ def main():
         json.dump(report, f, indent=1, default=str)
     log(f"phases (s): {json.dumps(report['phases'])}")
     gate = (report["figures"]["gate_failures"] + predict_fails + serve_fails
-            + shard_fails)
+            + shard_fails + tools_fails)
     check(not gate, f"regression gate: {len(gate)} check(s) failed")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ Profiles:
                float32 outside the tensor cores (the rate K2 and K3 compute
                at; K1 and K4 take three TF32 products per float32
                operation on the tensor cores, which the profile does not
-               model), 3.35 TB/s HBM3, NVLink 450 GB/s each way.
+               model), 3.35 TB/s HBM3, NVLink 450 GB/s each way. The
+               roofline adds the dense bf16 / fp16 tensor-core rate, 989
+               TFLOP/s, and 50 GB/s a card between nodes (a DGX H100's
+               400 Gb/s NDR InfiniBand port per card).
                `dispatch_s` is the median of three `measure_machine`
                readings on an H100 80GB HBM3 at a 700 W power limit
                (`chip_smoke.py` phase 7), each the median of 100 calls of
@@ -65,6 +68,11 @@ MACHINES: Dict[str, MachineProfile] = {
 }
 
 DEFAULT_MACHINE = H100
+
+# the roofline's (`launch.roofline`) other rates, by profile: dense bf16 /
+# fp16 tensor-core FLOP/s, and bytes/s a device over links between nodes
+TENSOR_CORE_FLOPS: Dict[str, float] = {H100: 989e12}
+INTERNODE_BW: Dict[str, float] = {H100: 50e9}
 
 # substrate name (repro_torch.core.substrate) -> machine profile name
 SUBSTRATE_MACHINES: Dict[str, str] = {

@@ -43,9 +43,13 @@ tolerance; ratios taken from walls only have to stay above
 ``(1 - noise) * baseline`` (default --noise 0.8: a 5x slowdown fails; the
 gate catches order-of-magnitude regressions, not jitter between hosts).
 
+`lint` runs approxlint over every target group on ``--device`` and, with
+``--artifacts``, writes ``BENCH_lint.json``; `roofline` reads the dry-run
+and roofline records under results/torch/ (written by
+`repro_torch.launch.dryrun` / `roofline` / `roofline_all`).
+
 A module that raises prints an ``ERROR`` row, the other modules still run,
-and the process then exits 1. The JAX runner's `lint` and `roofline` are
-not ported yet; naming one is an error that says so.
+and the process then exits 1.
 """
 from __future__ import annotations
 
@@ -64,8 +68,8 @@ from ..obs import trace as obs_trace
 from . import (approx_ffn_sweep, costmodel, fig3_table_memory,
                fig6_best_speedup, fig7_cg_sweep, fig8c_items_per_thread,
                fig10c_rsd_behavior, fig11c_hierarchy,
-               fig12c_kmeans_convergence, kernel_micro, obs_overhead,
-               pareto_refine, qos_serving)
+               fig12c_kmeans_convergence, kernel_micro, lint, obs_overhead,
+               pareto_refine, qos_serving, roofline_table)
 
 MODULES = {
     "fig3": fig3_table_memory,
@@ -81,13 +85,8 @@ MODULES = {
     "costmodel": costmodel,
     "qos": qos_serving,
     "obs": obs_overhead,
-}
-
-# keys of the JAX runner that the port does not have yet, and the ROADMAP
-# Queue 1 item that ports each
-NOT_PORTED = {
-    "roofline": "Queue 1 item 6b (the XLA-only tools)",
-    "lint": "Queue 1 item 7 (analysis lint)",
+    "lint": lint,
+    "roofline": roofline_table,
 }
 
 
@@ -109,13 +108,10 @@ def substrate_support() -> Dict[str, set]:
 def select(only: Optional[str], substrate: Optional[str] = None
            ) -> List[str]:
     """The module keys `--only` names (all by default), validated: an
-    unknown or not-yet-ported key, or a substrate a selected module cannot
-    measure, raises ValueError before any module runs."""
+    unknown key, or a substrate a selected module cannot measure, raises
+    ValueError before any module runs."""
     keys = [k.strip() for k in only.split(",")] if only else list(MODULES)
     for key in keys:
-        if key in NOT_PORTED:
-            raise ValueError(f"module {key!r} is not ported yet "
-                             f"(ROADMAP {NOT_PORTED[key]})")
         if key not in MODULES:
             raise ValueError(f"unknown module {key!r} "
                              f"(choose from: {','.join(MODULES)})")
@@ -195,6 +191,15 @@ _BASELINE_CHECKS = {
                   "parity.perfo"),
         "close": ("front.n_front", "front.hypervolume", "front.best_error",
                   "front.best_speedup"),
+        "atleast": (),
+    },
+    # approxlint must stay CLEAN, and the allowlist may only grow through
+    # a reviewed baseline bump (the JAX rules): a new finding, a crashed
+    # rule, or a new allow entry all drift from the committed counts.
+    "BENCH_lint.json": {
+        "exact": ("metric", "summary.total", "summary.errors",
+                  "summary.warnings", "summary.allowlisted"),
+        "close": (),
         "atleast": (),
     },
     # kernel microbenchmarks: oracle / pipeline parity and the rebuild

@@ -16,7 +16,11 @@ one skipped layer launches, `(skipped - skipped_short) / (n_layers -
 SHORT_LAYERS)`, apart from the step's fixed kernels (embedding, detector
 step, final norm, head). Per step:
 
-  * `kernels`      -- the CUDA kernels the step ran (`torch.profiler`);
+  * `kernels`      -- the CUDA kernels the step ran (`torch.profiler`;
+                      the step is profiled `PROFILES` times and the
+                      profile with the most kernels is kept: on a long
+                      step the profiler can lose some kernels' records);
+  * `kernel_counts` -- each of those profiles' kernel counts, in order;
   * `gemm_kernels` -- those of them that are matrix products (cuBLAS
                       gemm / gemv): the head's one product at a fully
                       skipped step, none of any layer's;
@@ -59,6 +63,7 @@ from ..qos import set_decode_threshold
 
 GEMM_NAMES = ("gemm", "gemv", "Gemm", "Gemv", "nvjet")
 SHORT_LAYERS = 2
+PROFILES = 3
 
 
 def _profile_step(step, dev) -> Dict:
@@ -164,7 +169,9 @@ def profile(arch: str, batch: int, prompt_len: int,
            "prompt_len": prompt_len, "device": device_mod.name(dev)}
     for label, step in steps:
         step()                                   # warm
-        row = _profile_step(step, dev)
+        rows = [_profile_step(step, dev) for _ in range(PROFILES)]
+        row = max(rows, key=lambda r: r["kernels"])
+        row["kernel_counts"] = [r["kernels"] for r in rows]
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         step()

@@ -294,7 +294,8 @@ def _run_batched(app: ApproxApp, specs: Sequence[ApproxSpec], repeats: int,
 
 def run_specs(app: ApproxApp, specs: Sequence[ApproxSpec], repeats: int = 1,
               jobs: int = 1, *,
-              substrate: Optional[str] = None) -> List[AppResult]:
+              substrate: Optional[str] = None,
+              lint: bool = False) -> List[AppResult]:
     """Evaluate specs with best-of-`repeats` timing, dispatching to the
     app's batched runner (chunks of `jobs`) or a thread pool when jobs > 1.
     The single parallel-dispatch path shared by sweep and the autotuners.
@@ -302,8 +303,22 @@ def run_specs(app: ApproxApp, specs: Sequence[ApproxSpec], repeats: int = 1,
     `substrate` ("host" / "cuda") scopes the ambient execution substrate
     for the whole evaluation (see `core/substrate.py`); apps that pinned one
     at construction are unaffected.
+
+    `lint=True` runs approxlint's A001 grouping check over THESE specs
+    before anything executes (host-side only): specs that differ only in a
+    quality knob but would not share a batched evaluation raise ValueError
+    instead of silently running one evaluation per grid point.
     """
     specs = list(specs)
+    if lint:
+        from ..analysis.rules import check_spec_grouping
+        findings = check_spec_grouping(
+            specs, subject_prefix=f"app.{app.name or 'specs'}")
+        if findings:
+            raise ValueError(
+                "approxlint found recompile leaks in the spec population: "
+                + "; ".join(f"{f.rule} {f.subject}: {f.message}"
+                            for f in findings))
 
     def _one(s: ApproxSpec) -> AppResult:
         # per-spec span (thread-safe: the tracer locks appends and tags

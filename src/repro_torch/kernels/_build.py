@@ -146,6 +146,16 @@ def operand(t: torch.Tensor) -> torch.Tensor:
     return aligned(t.float())
 
 
+def knob_operand(value, n_lanes: int, device) -> torch.Tensor:
+    """A quality knob (a number, a 0-d or an (L,) tensor) as the (L,)
+    float32 device tensor a kernel reads it from: a tensor on `device`
+    passes through as a view, so the knob is launch data and never a
+    compile-time or host-side constant (lint rule A001)."""
+    return torch.as_tensor(value, dtype=torch.float32,
+                           device=device).reshape(max(n_lanes, 1)
+                                                  ).contiguous()
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -185,8 +185,7 @@ def schedule(x: torch.Tensor, block_rows: int, table_size: int, threshold
                          f"N={n}")
     dev = x.device
     xf = _build.operand(x)
-    thr = torch.as_tensor(threshold, dtype=torch.float32,
-                          device=dev).reshape(1)
+    thr = _build.knob_operand(threshold, 0, dev)
     i32 = dict(dtype=torch.int32, device=dev)
     mask = torch.empty((n // block_rows,), **i32)
     lst = torch.empty((n // block_rows,), **i32)
@@ -225,8 +224,7 @@ def iact_rowfn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
         raise ValueError(why)
     n_l = max(lanes, 1)
     xf, w1f, w2f = (_build.operand(t) for t in (x, w1, w2))
-    thr = torch.as_tensor(threshold, dtype=torch.float32,
-                          device=dev).reshape(n_l).contiguous()
+    thr = _build.knob_operand(threshold, lanes, dev)
     i32 = dict(dtype=torch.int32, device=dev)
     y = torch.empty((n_l, n, d_out), dtype=torch.float32, device=dev)
     mask = torch.empty((n_l, n // block_rows), **i32)

@@ -147,29 +147,16 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, sq, d = q.shape[-4:]
     hkv, skv = k.shape[-3], k.shape[-2]
     nkv = skv // block_kv
-    kept_np = None
-    if fraction is None:
-        kept_np = np.arange(nkv) if perfo is None else kept_indices(nkv,
-                                                                   perfo)
-        if len(kept_np) == 0:
-            raise ValueError("perforation dropped every KV block")
+    if fraction is None and perfo is not None \
+            and len(kept_indices(nkv, perfo)) == 0:
+        raise ValueError("perforation dropped every KV block")
     if q.device.type != "cuda":
         fn = plain_lanes if lanes else plain
         return fn(q, k, v, causal=causal, block_kv=block_kv, perfo=perfo,
                   fraction=fraction, scale=scale)
     _check_kernel_geometry(q, k, v, block_q, block_kv)
     dev = q.device
-    if fraction is not None:
-        kept, _ = _enumeration(nkv, None, np.arange(nkv), dev)  # every block
-        frac = (fraction.to(device=dev, dtype=torch.float32)
-                if isinstance(fraction, torch.Tensor) else
-                torch.full((), float(fraction), dtype=torch.float32,
-                           device=dev))
-        # (nkv,), or (L, nkv): one liveness vector per lane
-        live = traced_execute_mask(nkv, perfo, frac[..., None]
-                                   if lanes else frac).to(torch.int32)
-    else:
-        kept, live = _enumeration(nkv, perfo, kept_np, dev)
+    kept, live = launch_operands(nkv, perfo, fraction, lanes, dev)
     scale = scale if scale is not None else float(1.0 / np.sqrt(d))
     qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
     n_l = max(lanes, 1)
@@ -184,6 +171,27 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     COUNTER.launched(lanes)
     _build.check("perforated_attention", err)
     return o if lanes else o[0]
+
+
+def launch_operands(nkv: int, perfo: Optional[PerforationParams],
+                    fraction, lanes: int, dev: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the KV blocks the kernel enumerates, their int32 liveness) on
+    `dev`. Masked mode (`fraction` a number or a tensor): every block, with
+    liveness built on the device from the fraction ((nkv,), or (L, nkv)
+    for L lanes), so the fraction is launch data. Structural mode: the
+    kept blocks, all live."""
+    if fraction is not None:
+        kept, _ = _enumeration(nkv, None, np.arange(nkv), dev)  # every block
+        frac = (fraction.to(device=dev, dtype=torch.float32)
+                if isinstance(fraction, torch.Tensor) else
+                torch.full((), float(fraction), dtype=torch.float32,
+                           device=dev))
+        live = traced_execute_mask(nkv, perfo, frac[..., None]
+                                   if lanes else frac).to(torch.int32)
+        return kept, live
+    kept_np = np.arange(nkv) if perfo is None else kept_indices(nkv, perfo)
+    return _enumeration(nkv, perfo, kept_np, dev)
 
 
 # the enumerated KV blocks and their all-ones liveness on the device, built

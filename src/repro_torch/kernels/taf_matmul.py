@@ -139,8 +139,7 @@ def taf_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
     n_l = max(lanes, 1)
     xf = _build.operand(x)
     wf = _build.operand(w)
-    thr = torch.as_tensor(rsd_threshold, dtype=torch.float32,
-                          device=dev).reshape(n_l).contiguous()
+    thr = _build.knob_operand(rsd_threshold, lanes, dev)
     y = torch.empty((n_l, m, n), dtype=torch.float32, device=dev)
     mask = torch.empty((n_l, num_i, num_j), dtype=torch.int32, device=dev)
     partials = torch.empty((2 * n_l * (n // cols),), dtype=torch.float64,

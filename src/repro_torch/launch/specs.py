@@ -22,6 +22,26 @@ from ..runtime import sharding as shardlib
 META = torch.device("meta")
 
 
+class MetaDraw:
+    """A stand-in for a `torch.Generator` on the meta device (which torch
+    does not have): `Model.init` / `masters` given one draw nothing and
+    return the parameter tree's shapes and dtypes on meta, from a model
+    that `meta_model` placed there."""
+
+    device = META
+
+
+def meta_model(model: Model) -> Model:
+    """A copy of `model` whose tensors (params drawn with `MetaDraw`,
+    caches, the constants its steps make) live on the meta device."""
+    meta = copy.copy(model)
+    meta.device = META
+    meta.rule = copy.copy(model.rule)
+    meta.rule.device = META
+    meta.hold, meta.store = meta.rule.hold, meta.rule.store
+    return meta
+
+
 def _sds(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
@@ -69,9 +89,7 @@ def decode_specs(model: Model, cfg: ModelConfig,
     """(the cache of one serve step, its tokens), on the meta device: the
     model's own `init_cache` run by a copy of it placed on meta."""
     b, s = shape.global_batch, shape.seq_len
-    meta = copy.copy(model)
-    meta.device = META
-    return meta.init_cache(b, s), _sds((b,), torch.int32)
+    return meta_model(model).init_cache(b, s), _sds((b,), torch.int32)
 
 
 def batch_shardings(mesh, batch: Dict[str, Any]) -> Dict[str, Any]:

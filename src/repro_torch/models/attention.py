@@ -64,9 +64,9 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = common.split_heads(q, cfg.n_heads, hd).transpose(1, 2)
+    k = common.split_heads(k, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = common.split_heads(v, cfg.n_kv_heads, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = common.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = common.rmsnorm(p["k_norm"], k, cfg.norm_eps)

@@ -22,6 +22,8 @@ def dense_init(generator: torch.Generator, shape,
     """Truncated-normal fan-in init: a standard normal cut at +-2, times
     1/sqrt(fan_in) (the JAX package's scales), float32 on the generator's
     device (a model's `hold` moves and casts it)."""
+    if generator.device.type == "meta":  # a shape-only draw (specs.MetaDraw)
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     fan_in = shape[0] if len(shape) >= 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
@@ -30,6 +32,8 @@ def dense_init(generator: torch.Generator, shape,
 
 
 def embed_init(generator: torch.Generator, shape) -> torch.Tensor:
+    if generator.device.type == "meta":  # a shape-only draw (specs.MetaDraw)
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     t = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return t.mul_(0.02)
@@ -97,6 +101,29 @@ def unshard(t: torch.Tensor, dim: int) -> torch.Tensor:
     places = [Replicate() if not isinstance(p, Shard) or p.dim == dim
               else p for p in t.placements]
     return t.redistribute(t.device_mesh, places)
+
+
+def split_dim(t: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """`t` with dim `dim` split into `sizes` (row-major). A DTensor split
+    along that dim over a mesh dim whose ranks do not divide `sizes[0]` is
+    made whole along it first (DTensor splits no sharded dim unevenly); a
+    plain tensor is only reshaped."""
+    dim %= t.ndim
+    if hasattr(t, "placements"):
+        from torch.distributed.tensor import Shard
+        if any(isinstance(p, Shard) and p.dim % t.ndim == dim
+               and sizes[0] % t.device_mesh.size(md)
+               for md, p in enumerate(t.placements)):
+            t = unshard(t, dim)
+    shape = tuple(t.shape)
+    return t.reshape(shape[:dim] + tuple(sizes) + shape[dim + 1:])
+
+
+def split_heads(t: torch.Tensor, n_heads: int, head_dim: int
+                ) -> torch.Tensor:
+    """(B, S, n_heads * head_dim) -> (B, S, n_heads, head_dim)
+    (`split_dim` of the last dim)."""
+    return split_dim(t, -1, (n_heads, head_dim))
 
 
 def remat(enabled: bool, fn, *args):
@@ -201,8 +228,46 @@ def sinusoidal_positions(seq_len: int, d: int, device=None) -> torch.Tensor:
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with float32 products and sums (XLA's
-    `preferred_element_type=float32` on narrower inputs)."""
+    `preferred_element_type=float32` on narrower inputs). Two DTensors
+    split over their batch dims (and whole over the two product dims)
+    multiply shard by shard: an operand whole along a batch dim the other
+    splits takes the other's split (a local slice), then each device runs
+    its own batched product, with no collective (DTensor's batched
+    product would flatten the batch dims first, which it refuses when they
+    are split over different mesh dims)."""
+    places = _batch_split(a, b)
+    if places is not None:
+        from torch.distributed.tensor import DTensor
+        mesh = a.device_mesh
+        a, b = (t if tuple(t.placements) == places
+                else t.redistribute(mesh, places) for t in (a, b))
+        out = torch.matmul(a.to_local().float(), b.to_local().float())
+        shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+        return DTensor.from_local(out, mesh, places, run_check=False,
+                                  shape=shape, stride=torch.empty(
+                                      shape, device="meta").stride())
     return torch.matmul(a.float(), b.float())
+
+
+def _batch_split(a, b):
+    """The placements two DTensors take for a shard-by-shard product, or
+    None: on each mesh dim both whole, or one or both split alike over a
+    batch dim (never over the two product dims)."""
+    if not (hasattr(a, "placements") and hasattr(b, "placements")) or \
+            a.ndim != b.ndim or a.ndim < 3 or \
+            a.shape[:-2] != b.shape[:-2] or a.device_mesh != b.device_mesh:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pa, pb in zip(a.placements, b.placements):
+        ps = [p for p in (pa, pb) if not isinstance(p, Replicate)]
+        if any(not isinstance(p, Shard) or p.dim % a.ndim >= a.ndim - 2
+               for p in ps) or len(set(ps)) > 1:
+            return None
+        out.append(ps[0] if ps else Replicate())
+    if not any(isinstance(p, Shard) for p in out):
+        return None
+    return tuple(out)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -237,11 +302,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq = -(-sq // q_chunk)
     nkv = -(-skv // kv_chunk)
     sq_p, skv_p = nq * q_chunk, nkv * kv_chunk
-    qp = torch.nn.functional.pad(q, (0, 0, 0, sq_p - sq))
-    kp = torch.nn.functional.pad(k, (0, 0, 0, skv_p - skv))
-    vp = torch.nn.functional.pad(v, (0, 0, 0, skv_p - skv))
-    kvpos_p = torch.nn.functional.pad(kv_pos, (0, skv_p - skv),
-                                      value=2 ** 30)  # padding: always masked
+    # pad to whole chunks (only when a chunk is ragged: DTensor's pad
+    # redistributes even by 0)
+    pad = torch.nn.functional.pad
+    qp = pad(q, (0, 0, 0, sq_p - sq)) if sq_p > sq else q
+    kp, vp = ((pad(k, (0, 0, 0, skv_p - skv)), pad(v, (0, 0, 0, skv_p - skv)))
+              if skv_p > skv else (k, v))
+    kvpos_p = pad(kv_pos, (0, skv_p - skv),
+                  value=2 ** 30)  # padding: always masked
     if rep > 1:
         kp = kp.repeat_interleave(rep, dim=1)
         vp = vp.repeat_interleave(rep, dim=1)
@@ -311,7 +379,7 @@ def decode_attention(q, k, v, *, valid_len: int,
     dv = v.shape[-1]
     group = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = q.reshape(b, hkv, group, d)
+    qg = split_dim(q, 1, (hkv, group)).reshape(b, hkv, group, d)
     logits = _dot_f32(qg, k.transpose(-1, -2)) * scale       # (B,Hkv,G,S)
     mask = torch.arange(skv, device=q.device) < valid_len
     if keep_mask is not None:

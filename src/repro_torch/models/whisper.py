@@ -55,9 +55,11 @@ def _cross_attention(p, cfg: ModelConfig, x, memory):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     sm = memory.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = (memory @ p["wk"]).reshape(b, sm, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = (memory @ p["wv"]).reshape(b, sm, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = common.split_heads(x @ p["wq"], cfg.n_heads, hd).transpose(1, 2)
+    k = common.split_heads(memory @ p["wk"], cfg.n_kv_heads,
+                           hd).transpose(1, 2)
+    v = common.split_heads(memory @ p["wv"], cfg.n_kv_heads,
+                           hd).transpose(1, 2)
     ctx = common.chunked_attention(q, k, v, causal=False)
     return ctx.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 

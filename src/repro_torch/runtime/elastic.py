@@ -49,7 +49,8 @@ def require_world(n_devices: int, device=None) -> int:
         raise RuntimeError(
             f"{n_devices} device(s) asked for but the process group has "
             f"world size {world}; {how}")
-    if dist.get_backend() != backend:
+    # "fake" is the dry run's process group (`launch.dryrun.fake_world`)
+    if dist.get_backend() not in (backend, "fake"):
         raise RuntimeError(
             f"the process group's backend is {dist.get_backend()}, but "
             f"{device_mod.resolve(device).type} tensors need {backend}")

@@ -48,8 +48,12 @@ with `qos=` the control plane actuates, canaries and updates per shard
 same host logic on the same queue, prefills and decodes only its own
 shards' lanes, and one `all_gather` a tick (the new tokens with the
 `remaining` rows, and both logits on a canary tick) gives every rank the
-same view, so the QoS plane runs identically everywhere. The `lint=`
-pass comes with the analysis lint (ROADMAP Queue 1 item 7) and raises.
+same view, so the QoS plane runs identically everywhere.
+
+`lint=True` runs approxlint over what the engine will serve, at
+construction: the QoS policy ladder (A004, its raw entries checked against
+this model's structural TAF params) and the layout of every leaf already
+placed (A005); a finding raises ValueError.
 """
 from __future__ import annotations
 
@@ -69,7 +73,6 @@ from ..obs import recorder as obs_recorder
 from ..obs import trace
 from ..obs.metrics import percentile as _percentile
 
-LINT_ITEM = "ROADMAP Queue 1 item 7 (analysis lint)"
 # the families whose prompts carry a stubbed frontend's embeddings
 FRONTEND_INPUTS = {"vlm": "patch_embeds", "audio": "frames"}
 
@@ -174,9 +177,6 @@ class ServingEngine:
                  max_len: int = 256, prompt_len: int = 32, qos=None,
                  mesh=None, devices: Optional[int] = None,
                  shards: Optional[int] = None, lint: bool = False):
-        if lint:
-            raise NotImplementedError(
-                f"the engine's lint pass is not ported yet ({LINT_ITEM})")
         if model.cfg.family in FRONTEND_INPUTS:
             raise ValueError(
                 f"{model.cfg.name}: the engine prefills prompts of tokens "
@@ -268,6 +268,21 @@ class ServingEngine:
                 qos.enable_sharding(self.n_shards)
             else:
                 self._serve_exact = steps_mod.make_serve_step(exact_model)
+
+        if lint:
+            from ..analysis import rules as lint_rules
+            findings = []
+            if qos is not None:
+                t = model.cfg.approx_decode.taf
+                findings += lint_rules.check_policy_document(
+                    qos.policy.to_json(), subject="engine.policy",
+                    model_taf=(t.history_size, t.prediction_size))
+            findings += lint_rules.check_engine_placement(self)
+            if findings:
+                raise ValueError(
+                    "approxlint found serving misconfigurations: "
+                    + "; ".join(f"{f.rule} {f.subject}: {f.message}"
+                                for f in findings))
 
     @property
     def knob_log(self) -> List[tuple]:

@@ -55,7 +55,8 @@ def test_gate_passes_on_the_baselines_themselves(dirs):
     assert run.check_regression(art, base) == []
     assert sorted(os.listdir(base)) == ["BENCH_costmodel.json",
                                         "BENCH_ffn.json", "BENCH_kernel.json",
-                                        "BENCH_obs.json", "BENCH_qos.json"]
+                                        "BENCH_lint.json", "BENCH_obs.json",
+                                        "BENCH_qos.json"]
 
 
 @pytest.mark.parametrize("artifact,key,value,rule", [
@@ -106,10 +107,10 @@ def test_gate_reports_missing_and_unreadable_artifacts(dirs):
 
 def test_gate_refuses_a_baseline_with_no_rule(dirs, tmp_path):
     base, art = dirs
-    _write(os.path.join(base, "BENCH_lint.json"), {"metric": "lint"})
-    _write(os.path.join(art, "BENCH_lint.json"), {"metric": "lint"})
+    _write(os.path.join(base, "BENCH_unruled.json"), {"metric": "x"})
+    _write(os.path.join(art, "BENCH_unruled.json"), {"metric": "x"})
     fails = run.check_regression(art, base)
-    assert fails == ["BENCH_lint.json: no check rules registered in "
+    assert fails == ["BENCH_unruled.json: no check rules registered in "
                      "repro_torch.benchmarks.run._BASELINE_CHECKS"]
     empty = tmp_path / "empty"
     empty.mkdir()
@@ -160,10 +161,6 @@ def test_committed_baselines_name_an_h100_and_hold_the_jax_front():
 
 @pytest.mark.parametrize("only,message", [
     ("fig3,fig99", "unknown module 'fig99'"),
-    ("qos,lint", "module 'lint' is not ported yet (ROADMAP Queue 1 item 7"),
-    ("fig3,roofline", "module 'roofline' is not ported yet"),
-    ("lint", "Queue 1 item 7"),
-    ("roofline", "Queue 1 item 6"),
     ("obs,qos,fig99", "unknown module 'fig99'"),
 ])
 def test_only_refuses_unknown_and_jax_only_keys(capsys, only, message):
@@ -171,7 +168,48 @@ def test_only_refuses_unknown_and_jax_only_keys(capsys, only, message):
         run.main(["--device", "cpu", "--only", only])
     assert e.value.code == 2
     assert message in capsys.readouterr().err
-    assert set(run.NOT_PORTED) == set(jrun.MODULES) - set(run.MODULES)
+    assert set(run.MODULES) == set(jrun.MODULES)   # every key is ported
+
+
+@pytest.fixture
+def small_records(tmp_path, monkeypatch):
+    """results/torch/ stand-in holding one dry-run and one roofline record
+    of a tiny one-device cell (the qwen3 smoke config, decode at batch 2
+    and 16 positions)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, report, roofline
+    cfg = get_smoke_config("qwen3-1.7b")
+    shape = ShapeConfig("tiny", 16, 2, "decode")
+    rec = dryrun.lower_cell("qwen3-1.7b", "tiny", False, cfg, shape=shape,
+                            mesh_shape={"data": 1, "model": 1},
+                            device="cpu")
+    roof = roofline.analyze("qwen3-1.7b", "tiny", cfg, shape=shape,
+                            record=rec)
+    for sub, doc in (("dryrun", rec), ("roofline", roof)):
+        (tmp_path / sub).mkdir()
+        _write(str(tmp_path / sub / "qwen3-1.7b__tiny.json"), doc)
+    monkeypatch.setattr(report, "RESULTS", str(tmp_path))
+    return rec, roof
+
+
+@pytest.mark.parametrize("only", ["lint", "roofline", "fig3,roofline",
+                                  "roofline,lint"])
+def test_only_runs_the_roofline_and_lint_keys(capsys, small_records, only):
+    """The two keys the JAX runner had first run on the CPU: `lint` over
+    every target group (clean, the three allowlisted subjects) and
+    `roofline` over the records under results/torch/."""
+    rec, roof = small_records
+    assert run.main(["--device", "cpu", "--only", only]) == 0
+    out = capsys.readouterr().out
+    if "lint" in only:
+        assert "lint_pass," in out and "findings=0 allowlisted=3" in out
+        assert "lint_rule_crash" not in out
+    if "roofline" in only:
+        assert "dryrun_matrix,1,ok=1,skipped=0,failed=0" in out
+        assert f"roofline,qwen3-1.7b/tiny/baseline,dominant=" \
+               f"{roof['dominant']}" in out
+    assert "ERROR" not in out
 
 
 @pytest.mark.parametrize("substrate,only,deaf", [

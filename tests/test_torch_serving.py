@@ -217,9 +217,22 @@ def test_sharding_raises_naming_what_it_needs():
 
 
 def test_lint_raises_naming_its_item():
+    """`lint=True` lints what the engine will serve: an unsharded engine
+    with no QoS has nothing to lint and builds; a one-rank sharded engine
+    given parameters that are not tensors raises, naming rule A005."""
+    import torch.distributed as dist
+    from repro_torch.runtime import elastic
     model = build(get_smoke_config("qwen3-1.7b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ServingEngine(model, {}, lint=True)
+    ServingEngine(model, {}, lint=True)
+    started = elastic.init_single("cpu")
+    try:
+        with pytest.raises(ValueError, match="A005 serving.engine.params"):
+            ServingEngine(model, {"embed": np.zeros((4, 4), np.float32)},
+                          slots=2, max_len=16, prompt_len=4, devices=1,
+                          lint=True)
+    finally:
+        if started:     # leave the test worker with no process group
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("taf", ["memo(out:2:4:50.0)", "memo(out:2:4:0.5)"])
