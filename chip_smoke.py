@@ -184,7 +184,13 @@ failure could still exit 0):
      measured time must be at least its bound), and olmoe-1b-7b
      decode_32k on the 16x16 fake mesh with its collective bytes by kind;
      (c) the driver's `roofline` and `lint` keys and the gate against the
-     port's BENCH_lint.json.
+     port's BENCH_lint.json; (d) every applicable (arch x shape x mesh)
+     cell of the dry run on the card's torch, cut for a quick check (full
+     width, the roofline's smallest depth variant, short shapes; an
+     arch's cells a process, 8 at once, `tests/_dryrun_cells.py`): torch's
+     version,
+     each cell's status and wall, the count of ok cells, which must be all
+     64.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -2121,10 +2127,61 @@ def tools_roofline(dev, card, report):
     return out
 
 
+SHORT_JOBS = 8          # dry-run cells traced at once in (d)
+SHORT_TIMEOUT = 120     # seconds a cell of (d) may take
+SHORT_WALL = 600        # seconds all of (d) may take
+
+
+def tools_short_matrix(card):
+    """(d) every applicable cell of the dry run on the card's torch, cut
+    for a quick check (`launch.dryrun.short_cell`: full width, the
+    roofline's smallest depth variant, short shapes) on a "cuda" mesh, an
+    arch's cells in a process of their own, SHORT_JOBS at a time
+    (`tests/_dryrun_cells.py`, which the CPU tests of the same matrix
+    use); any FAILED or TIMEOUT cell fails the phase."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _dryrun_cells as dc
+    from repro_torch.configs import list_archs
+    t0 = time.perf_counter()
+    recs = dc.trace_by_arch(list_archs(), "cuda", jobs=SHORT_JOBS,
+                            cell_timeout=SHORT_TIMEOUT)
+    wall = time.perf_counter() - t0
+    cells = []
+    for (arch, shape, multi), rec in sorted(recs.items()):
+        ok = rec["status"] == "ok"
+        cells.append({"arch": arch, "shape": shape,
+                      "mesh": "2x16x16" if multi else "16x16",
+                      "status": rec["status"],
+                      "wall_s": round(rec.get("lower_s", 0)
+                                      + rec.get("compile_s", 0), 1),
+                      "gib": rec["per_device_bytes"] / 2 ** 30 if ok
+                      else None,
+                      "error": (rec.get("error") or "")[-300:]})
+    n = {}
+    for c in cells:
+        n[c["status"]] = n.get(c["status"], 0) + 1
+    want = len(dc.cells(list_archs()))
+    log(f"  (d) torch {torch.__version__}: {len(cells)} cells cut for a "
+        f"quick check, an arch a process, {SHORT_JOBS} at a time, in "
+        f"{wall:.1f} s [{card}]")
+    for c in cells:
+        log(f"      {c['status']:7s} {c['arch']}/{c['shape']}/{c['mesh']} "
+            f"{c['wall_s']:.1f} s"
+            + (f" {c['error'][-160:]}" if c["status"] != "ok" else ""))
+    log(f"  (d) ok {n.get('ok', 0)} of {want}: {json.dumps(n)}")
+    check(n.get("ok", 0) == want == len(cells),
+          f"dry-run cells that did not trace on the card: {json.dumps(n)}")
+    check(wall <= SHORT_WALL, f"(d) took {wall:.1f} s, over {SHORT_WALL} s")
+    return dict(torch=torch.__version__, counts=n, wall_s=wall,
+                cells=cells)
+
+
 def phase_tools(dev, card, report):
     """Phase 15: (a) approxlint on the card, (b) the dry run and roofline
     against phases 14 and 11, (c) `run --only roofline,lint` and the
-    BENCH_lint.json gate."""
+    BENCH_lint.json gate, (d) every applicable dry-run cell cut for a
+    quick check."""
     from repro_torch.benchmarks import run as bench_run
     t0 = time.perf_counter()
     out = {"lint": tools_lint(dev, card)}
@@ -2142,6 +2199,7 @@ def phase_tools(dev, card, report):
     if not fails:
         log(f"  regression gate OK: {os.path.relpath(TOOLS_DIR, HERE)}")
     out["runner_roofline"] = results["roofline"]
+    out["short_matrix"] = tools_short_matrix(card)
     out["wall_s"] = time.perf_counter() - t0
     log(f"  phase 15 wall {out['wall_s']:.1f} s [{card}]")
     return out, fails
@@ -2698,7 +2756,8 @@ def main():
     # -- 15. the dry run, the roofline and approxlint on the card -------
     log("phase 15: approxlint on the card (CUDA-graph replay of K1-K4's "
         "knobs), the dry run and roofline against phases 14 and 11, "
-        "run --only roofline,lint and its gate")
+        "run --only roofline,lint and its gate, every dry-run cell cut "
+        "for a quick check")
     t0 = time.perf_counter()
     report["tools"], tools_fails = phase_tools(dev, card, report)
     report["phases"]["tools_s"] = time.perf_counter() - t0

@@ -21,7 +21,10 @@ For each cell:
 Memory: `argument_bytes` are the local shards the step is given; the
 step's own storages are tracked from allocation to release (a finalizer on
 each storage), `temp_bytes` is their largest live total and
-`per_device_bytes` the two summed. A cell fits when that is under one
+`per_device_bytes` the two summed; `temp_by_phase` is that largest total
+in each phase of the step (`PHASES`: forward, backward, the gradients laid
+out, the optimizer's update), each of which grows by a fixed amount a
+layer where the step's own peak need not. A cell fits when that is under one
 H100's 80 GB. Outputs are written into the arguments (the train step
 updates masters and moments in place, the serve step its cache), so
 `alias_bytes` counts those and `output_bytes` only the new ones.
@@ -31,7 +34,14 @@ Where the JAX dry run differs:
     from unrolled small-depth lowerings. The port's layers are a Python
     loop, traced trip by trip: the count is the full depth's, and `detail`
     holds one layer's FLOPs of each layer type from the same trace (each op
-    is charged to the layer whose parameter it last read).
+    is charged to the layer whose parameter it last read). The port's
+    roofline composes as JAX's does (`roofline.composed_cost`, on this
+    module's traces of the small-depth variants).
+  * DTensor runs the step op by op, planning each op's layout from its
+    operands' where GSPMD plans the program; the models write the
+    redistributions a sharded step needs (`models.common`), and DTensor's
+    own planning computes on host tensors that no device runs (not
+    counted).
   * The stand-ins are meta tensors and not a `FakeTensorMode`'s fake
     tensors (which are meta tensors underneath): DTensor computes a strided
     shard's offsets on real index tensors, which a fake mode would make
@@ -55,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -85,6 +96,11 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 HBM_BYTES = 80e9          # one H100's device memory
 NODE_CARDS = 8            # cards of one NVLink node (a DGX H100)
+# a step's phases, for its memory: before its first backward, in a
+# backward (recomputed activations included), after it until the
+# optimizer's first foreach op (the gradients laid out as their masters),
+# and from that op on
+PHASES = ("forward", "backward", "gradients", "update")
 
 # _c10d_functional op -> the collective kind JAX's HLO count names
 COLLECTIVES = {
@@ -156,9 +172,52 @@ class DeviceCount(TorchDispatchMode):
         self._seen: set = set()
         self.live = 0
         self.peak = 0
+        # the peak of live bytes in each of `PHASES`
+        self.phase_peak = dict.fromkeys(PHASES, 0)
+        self._backward = self._update = False
         # filled by `count_step`: the argument, new-output and written-
         # argument bytes of the step
         self.arguments = self.out_bytes = self.alias_bytes = 0
+        self._planning = 0
+        self._unwrapped: List[List[Tuple[Any, str, Any]]] = []
+
+    # -- DTensor's own planning -----------------------------------------------
+    # The first time DTensor meets an op's placements it plans the op's
+    # sharding, and the plan computes shard sizes and offsets on small host
+    # tensors (a later call finds the plan cached): no device runs those ops,
+    # so nothing is counted while DTensor plans.
+    _PLANNERS = ("propagate", "propagate_op_sharding",
+                 "propagate_op_sharding_non_cached")
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+        prop = DTensor._op_dispatcher.sharding_propagator
+        saved = []
+        for name in self._PLANNERS:
+            fn = getattr(prop, name, None)
+            if fn is None:
+                continue
+            saved.append((prop, name, prop.__dict__.get(name)))
+            setattr(prop, name, self._planning_call(fn))
+        self._unwrapped.append(saved)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for prop, name, own in reversed(self._unwrapped.pop()):
+            if own is None:
+                delattr(prop, name)
+            else:
+                setattr(prop, name, own)
+        return super().__exit__(*exc)
+
+    def _planning_call(self, fn):
+        def call(*args, **kwargs):
+            self._planning += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._planning -= 1
+        return call
 
     # -- memory ---------------------------------------------------------------
     def hold_arguments(self, tensors: Sequence[torch.Tensor]) -> int:
@@ -172,11 +231,20 @@ class DeviceCount(TorchDispatchMode):
                 total += st.nbytes()
         return total
 
+    def _phase(self, name: str) -> str:
+        if torch._C._current_graph_task_id() != -1:
+            self._backward = True
+            return "backward"
+        if not self._backward:
+            return "forward"
+        self._update = self._update or name.startswith("_foreach")
+        return "update" if self._update else "gradients"
+
     def _free(self, key: int, nbytes: int) -> None:
         self._seen.discard(key)
         self.live -= nbytes
 
-    def _track(self, out) -> None:
+    def _track(self, out, name: str) -> None:
         for t in _tensors(out):
             st = t.untyped_storage()
             key = id(st)
@@ -186,6 +254,8 @@ class DeviceCount(TorchDispatchMode):
             nbytes = st.nbytes()
             self.live += nbytes
             self.peak = max(self.peak, self.live)
+            phase = self._phase(name)
+            self.phase_peak[phase] = max(self.phase_peak[phase], self.live)
             weakref.finalize(st, self._free, key, nbytes)
 
     # -- counting -------------------------------------------------------------
@@ -223,7 +293,7 @@ class DeviceCount(TorchDispatchMode):
                 return first
             return NotImplemented
         out = func(*args, **kwargs)
-        if func.namespace == "prim" or any(
+        if self._planning or func.namespace == "prim" or any(
                 isinstance(t, FakeTensor)
                 for t in _tensors(args) + _tensors(out)):
             # DTensor's sharding propagation runs the op once on fake
@@ -245,7 +315,7 @@ class DeviceCount(TorchDispatchMode):
                 axis = self.axes.get(group, group)
                 self.axis_bytes[axis] = self.axis_bytes.get(axis, 0) + b
                 self.bytes += b + sum(_read_bytes(t) for t in _tensors(args))
-            self._track(out)
+            self._track(out, name)
             return out
         self._charge(args)
         ins = _tensors(args) + _tensors(list(kwargs.values()))
@@ -279,7 +349,7 @@ class DeviceCount(TorchDispatchMode):
             if owner is not None:
                 for t in _tensors(out):
                     self.owners[t] = owner
-        self._track(out)
+        self._track(out, name)
         return out
 
     @property
@@ -322,7 +392,7 @@ def _local(t: torch.Tensor, mesh, spec):
 
 
 def _place(tree, mesh, specs):
-    if mesh is None:
+    if mesh is None or tree is None:   # an empty stack (a hybrid's tail)
         return tree
     if isinstance(tree, dict):
         return {k: _place(v, mesh, specs[k]) for k, v in tree.items()}
@@ -555,6 +625,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "memory": {"argument_bytes": count.arguments,
                    "output_bytes": count.out_bytes,
                    "temp_bytes": count.peak,
+                   "temp_by_phase": dict(count.phase_peak),
                    "alias_bytes": count.alias_bytes,
                    "code_bytes": 0},
         "per_device_bytes": per_device,
@@ -577,6 +648,32 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     return rec
 
 
+def short_cell(cfg: ModelConfig, shape: ShapeConfig
+               ) -> Tuple[ModelConfig, ShapeConfig]:
+    """A cell cut for a quick check that it traces: full width, depth cut
+    to the JAX roofline's smallest variant (one layer; one dense and one
+    MoE layer where there are leading dense layers; the hybrid's period,
+    each layer type once), and short shapes: train 256 x 256 (the vlm's
+    256 text tokens after its patches), prefill 32 x 512, decode 128 x
+    512 (batch 1 for `long_500k`), on the same mesh."""
+    if cfg.family == "moe" and cfg.moe.n_dense_layers > 0:
+        cut = dataclasses.replace(cfg, n_layers=2, moe=dataclasses.replace(
+            cfg.moe, n_dense_layers=1))
+    elif cfg.family == "hybrid":
+        cut = dataclasses.replace(cfg, n_layers=cfg.hybrid.attn_period)
+    else:
+        cut = dataclasses.replace(cfg, n_layers=1)
+    if shape.kind == "train":
+        short = ShapeConfig(shape.name, 256 + cfg.n_patch_tokens, 256,
+                            "train")
+    elif shape.kind == "prefill":
+        short = ShapeConfig(shape.name, 512, 32, "prefill")
+    else:
+        short = ShapeConfig(shape.name, 512, min(shape.global_batch, 128),
+                            "decode")
+    return cut, short
+
+
 def status_matrix(archs: Optional[Sequence[str]] = None,
                   shapes: Optional[Sequence[str]] = None
                   ) -> Dict[Tuple[str, str, str], str]:
@@ -596,6 +693,9 @@ def status_matrix(archs: Optional[Sequence[str]] = None,
 def run_all(multi_pod_only: bool = False, single_pod_only: bool = False,
             archs=None, shapes=None, results_dir: Optional[str] = None,
             device=None) -> Dict[str, int]:
+    """Every cell of `archs` x `shapes` x the meshes, one after another,
+    each record written to
+    <results_dir>/<arch>__<shape>__<single|multi>.json."""
     results_dir = results_dir or RESULTS_DIR
     os.makedirs(results_dir, exist_ok=True)
     meshes = []

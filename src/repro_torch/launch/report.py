@@ -43,6 +43,10 @@ def load(subdir: str, results: Optional[str] = None) -> List[dict]:
     return recs
 
 
+# a composed record's memory may leave the answer open (`roofline.fits`)
+_FITS = {True: "yes", False: "no", None: "undecided"}
+
+
 def _gib(b):
     return b / 2 ** 30
 
@@ -58,7 +62,7 @@ def dryrun_table(results: Optional[str] = None) -> str:
             out.append(
                 f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
                 f"{_gib(r['per_device_bytes']):.2f} | "
-                f"{'yes' if r['fits'] else 'no'} | "
+                f"{_FITS[r['fits']]} | "
                 f"{r['hlo_flops_per_device'] / 1e9:.1f} | "
                 f"{r['collectives']['total_bytes_per_device'] / 1e6:.1f} | "
                 f"{colls} | {r['compile_s']} |")

@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..models import common
 from ..models.lm import Model, map_cache
 from ..obs import metrics as obs_metrics
 from ..optim import adamw
@@ -50,17 +51,28 @@ def loss_and_grads(model: Model, params, batch):
     """(loss, metrics, grads) of `batch` at the masters `params`: the
     loss and metrics detached, the grads a list in `adamw.leaves(params)`
     order, each in its master's dtype (zeros for a leaf the loss does not
-    reach, as JAX's grad gives)."""
+    reach, as JAX's grad gives) and, for DTensor masters, its master's
+    layout: DTensor leaves a gradient in whatever layout its last op
+    chose, often sums pending over both mesh dims, and AdamW's in-place
+    updates of the moments do not sum those first."""
     masters = adamw.leaves(params)
     for t in masters:
         if not t.requires_grad:
             t.requires_grad_(True)
     loss, metrics = model.loss(model.use(params), batch)
     grads = torch.autograd.grad(loss, masters, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _laid_out_as(g, p)
              for g, p in zip(grads, masters)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
+
+
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """`g` redistributed to `p`'s placements where both are DTensors."""
+    if hasattr(g, "placements") and tuple(g.placements) != tuple(
+            p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
@@ -144,7 +156,9 @@ def make_serve_step(model: Model) -> Callable:
 
     def serve_step(params, cache, tokens, pos: int):
         logits, new_cache = model.decode_step(params, cache, tokens, pos)
-        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        # DTensor has no argmax over a split vocab dim
+        next_tokens = torch.argmax(common.unshard(logits, -1),
+                                   dim=-1).to(torch.int32)
         return next_tokens, logits, new_cache
 
     return serve_step

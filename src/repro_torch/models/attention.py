@@ -110,22 +110,20 @@ def _decode_keep_mask(skv: int, params: PerforationParams,
     return torch.as_tensor(keep, device=device)
 
 
-def _attend(p, q, k, v, b: int, s: int, causal: bool,
+def _attend(p, q, k, v, causal: bool,
             approx: Optional[ApproxSpec]):
     kk, vv, kv_pos = _maybe_perforate_kv(k, v, approx)
     ctx = common.chunked_attention(q, kk, vv, causal=causal,
                                    kv_positions=kv_pos)
-    ctx = ctx.transpose(1, 2).reshape(b, s, -1)
-    return ctx @ p["wo"]
+    return common.merge_dims(ctx.transpose(1, 2), 2) @ p["wo"]
 
 
 def forward(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
             causal: bool = True,
             approx: Optional[ApproxSpec] = None) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill)."""
-    b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    return _attend(p, q, k, v, b, s, causal, approx)
+    return _attend(p, q, k, v, causal, approx)
 
 
 def init_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
@@ -161,10 +159,10 @@ def prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
             approx: Optional[ApproxSpec] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward that also fills cache[..., 0:S, :] in place."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _attend(p, q, k, v, b, s, True, approx)
+    out = _attend(p, q, k, v, True, approx)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
@@ -184,7 +182,6 @@ def _decode_step_int8(p, cfg: ModelConfig, q, k, v, x, cache: Dict,
       logits[.., s] = (q . k_int8[s]) * k_scale[s]
       ctx = sum_s (p[s] * v_scale[s]) * v_int8[s]
     """
-    b = x.shape[0]
     kq, ks = _quantize_kv(k)
     vq, vs = _quantize_kv(v)
     for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
@@ -196,7 +193,7 @@ def _decode_step_int8(p, cfg: ModelConfig, q, k, v, x, cache: Dict,
     group = hq // hkv
     skv = ck.shape[2]
     scale = 1.0 / (d ** 0.5)
-    qg = q.reshape(b, hkv, group, d)
+    qg = common.split_dim(q, 1, (hkv, group))[:, :, :, 0]
     logits = common._dot_f32(qg, ck.to(q.dtype).transpose(-1, -2))
     logits = logits * cks[:, :, None, :, 0].float() * scale
     mask = torch.arange(skv, device=x.device) <= pos
@@ -207,9 +204,8 @@ def _decode_step_int8(p, cfg: ModelConfig, q, k, v, x, cache: Dict,
     l = pr.sum(dim=-1, keepdim=True)
     pv = (pr * cvs[:, :, None, :, 0].float()).to(q.dtype)
     ctx = common._dot_f32(pv, cv.to(q.dtype)) / torch.clamp(l, min=1e-30)
-    ctx = ctx.reshape(b, hq, 1, d).to(x.dtype)
-    ctx = ctx.transpose(1, 2).reshape(b, 1, -1)
-    return ctx @ p["wo"], cache
+    ctx = common.merge_dims(ctx, 1)[:, :, None].to(x.dtype)
+    return common.merge_dims(ctx.transpose(1, 2), 2) @ p["wo"], cache
 
 
 def decode_step(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict, pos: int,
@@ -217,7 +213,6 @@ def decode_step(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict, pos: int,
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode: x (B, 1, d); writes the cache at `pos` (a host
     int), attends to [0, pos]. Linear in cache length."""
-    b = x.shape[0]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
     if cfg.kv_cache_dtype == "int8":
@@ -230,5 +225,4 @@ def decode_step(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict, pos: int,
                                       approx.perforation, x.device)
     ctx = common.decode_attention(q, cache["k"], cache["v"],
                                   valid_len=pos + 1, keep_mask=keep_mask)
-    ctx = ctx.transpose(1, 2).reshape(b, 1, -1)
-    return ctx @ p["wo"], cache
+    return common.merge_dims(ctx.transpose(1, 2), 2) @ p["wo"], cache

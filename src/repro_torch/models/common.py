@@ -103,20 +103,159 @@ def unshard(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t.redistribute(t.device_mesh, places)
 
 
+def settle(t: torch.Tensor) -> torch.Tensor:
+    """`t` with its partial sums summed: a DTensor partial over a mesh dim
+    (the output of a product split along its contraction, and what is
+    added to it: the residual stream) is replicated there (an all-reduce);
+    anything else is returned as it is. DTensor keeps a sum pending
+    through linear ops, and a reshape of such a tensor, or its gradient,
+    can take a layout DTensor cannot view back."""
+    if not hasattr(t, "placements") or not any(
+            p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
+
+
+def pin_grad(t: torch.Tensor) -> torch.Tensor:
+    """`t`, whose gradient is redistributed to `t`'s own placements in
+    backward before it reaches the op that made `t` (a DTensor's; a plain
+    tensor is returned as it is). A view that DTensor could take forward
+    only in one layout (a split or merged dim made whole first) otherwise
+    gets a gradient in the layout the ops after it chose, which DTensor
+    may refuse to view back."""
+    if not hasattr(t, "placements"):
+        return t
+    return _PinGrad.apply(t)
+
+
+class _PinGrad(torch.autograd.Function):
+    """Identity forward; backward redistributes the gradient to the
+    forward placements (a partial sum's gradient is whole)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh = t.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """`table[tokens]`, the embedding rows of `tokens`. A DTensor table
+    keeps its vocab split over each mesh dim that does not split the
+    tokens, and each device reads its own tokens' rows from its shard of
+    the vocab: a token outside the shard reads a zero row, so the rows are
+    a partial sum there, summed over the vocab's ranks (an all-reduce of
+    the rows, not a gather of the table). The table's other splits (FSDP's)
+    are gathered as a weight is. The table's gradient is each device's
+    rows scattered into its shard, a partial sum over the ranks that split
+    the tokens. DTensor's own indexing of a split vocab dim moves the
+    table to a split of its other dim instead, some versions' backward
+    scatter refuses the layout their rules give the rows' gradient, and
+    its vocab-parallel embedding (`MaskPartial`) fails to reduce in
+    others."""
+    if not hasattr(table, "placements"):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = table.device_mesh
+    if not hasattr(tokens, "placements"):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    vocab = [isinstance(p, Shard) and p.dim == 0 and not isinstance(q, Shard)
+             for p, q in zip(table.placements, tokens.placements)]
+    keep = [Shard(0) if v else Replicate() for v in vocab]
+    if list(table.placements) != keep:
+        table = table.redistribute(mesh, keep)
+    local = table.to_local(grad_placements=[
+        Partial() if isinstance(q, Shard) else p
+        for p, q in zip(keep, tokens.placements)])
+    ids = tokens.to_local()
+    if any(vocab):
+        lo = compute_local_shape_and_global_offset(
+            table.shape, mesh, keep)[1][0]
+        inside = (ids >= lo) & (ids < lo + local.shape[0])
+        rows = local[(ids - lo).clamp(0, local.shape[0] - 1)] \
+            * inside.unsqueeze(-1).to(local.dtype)
+    else:
+        rows = local[ids]
+    shape = tuple(tokens.shape) + tuple(table.shape[1:])
+    return settle(_from_local(rows, mesh, [
+        Partial() if v else q for v, q in zip(vocab, tokens.placements)],
+        shape))
+
+
+def along(fn, t: torch.Tensor, dims, *others):
+    """`fn(t, *others)` for an op that works along the dims `dims` (an int
+    or a tuple) and keeps `t`'s others, on which its results lead (a
+    cumulative sum or a pad along a dim, a gather along it with an index
+    shaped as `t` but there, MoE routing within each group): DTensors run
+    it on their local shards, made whole along `dims` first and `others`
+    laid out as `t`, and each result keeps `t`'s placements. DTensor has no
+    rule for some such ops or their backward, its gather's backward
+    allocates the whole gathered tensor on every device, and its sum of
+    two gradients laid out differently needs a redistribution some
+    versions lack. Plain tensors run `fn` as they are."""
+    if not hasattr(t, "placements"):
+        return fn(t, *others)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    for dim in (dims if isinstance(dims, tuple) else (dims,)):
+        t = unshard(t, dim)
+    mesh = t.device_mesh
+    local = []
+    for o in others:
+        if not hasattr(o, "placements"):
+            o = DTensor.from_local(o, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if list(o.placements) != list(t.placements):
+            o = o.redistribute(mesh, t.placements)
+        local.append(o.to_local())
+    split = {p.dim % t.ndim for p in t.placements if isinstance(p, Shard)}
+
+    def wrap(out):
+        return _from_local(out, mesh, t.placements, [
+            t.shape[d] if d in split else n
+            for d, n in enumerate(out.shape)])
+
+    out = fn(t.to_local(), *local)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _uneven(t: torch.Tensor, extent: int) -> bool:
+    """Whether some dim of `t`'s mesh has ranks that do not divide
+    `extent`: DTensor cannot view a dim of that extent split over them
+    into or out of another (nor the gradient that comes back so split)."""
+    return any(extent % n for n in t.device_mesh.shape)
+
+
 def split_dim(t: torch.Tensor, dim: int, sizes) -> torch.Tensor:
     """`t` with dim `dim` split into `sizes` (row-major). A DTensor split
     along that dim over a mesh dim whose ranks do not divide `sizes[0]` is
-    made whole along it first (DTensor splits no sharded dim unevenly); a
-    plain tensor is only reshaped."""
+    made whole along it first (DTensor splits no sharded dim unevenly);
+    where some ranks do not divide `sizes[0]`, its gradient comes back in
+    the layout it leaves (`pin_grad`). A plain tensor is only reshaped."""
     dim %= t.ndim
-    if hasattr(t, "placements"):
-        from torch.distributed.tensor import Shard
-        if any(isinstance(p, Shard) and p.dim % t.ndim == dim
-               and sizes[0] % t.device_mesh.size(md)
-               for md, p in enumerate(t.placements)):
-            t = unshard(t, dim)
     shape = tuple(t.shape)
-    return t.reshape(shape[:dim] + tuple(sizes) + shape[dim + 1:])
+    out_shape = shape[:dim] + tuple(sizes) + shape[dim + 1:]
+    if not hasattr(t, "placements"):
+        return t.reshape(out_shape)
+    from torch.distributed.tensor import Shard
+    if any(isinstance(p, Shard) and p.dim % t.ndim == dim
+           and sizes[0] % t.device_mesh.size(md)
+           for md, p in enumerate(t.placements)):
+        t = unshard(t, dim)
+    out = t.reshape(out_shape)
+    return pin_grad(out) if _uneven(t, sizes[0]) else out
 
 
 def split_heads(t: torch.Tensor, n_heads: int, head_dim: int
@@ -124,6 +263,137 @@ def split_heads(t: torch.Tensor, n_heads: int, head_dim: int
     """(B, S, n_heads * head_dim) -> (B, S, n_heads, head_dim)
     (`split_dim` of the last dim)."""
     return split_dim(t, -1, (n_heads, head_dim))
+
+
+def merge_dims(t: torch.Tensor, dim: int, n: int = 2) -> torch.Tensor:
+    """`t` with dims `dim` .. `dim + n - 1` merged into one (row-major), the
+    counterpart of `split_dim`. DTensor flattens a split dim only when it
+    is the first of the merged dims and its ranks divide it: a DTensor split
+    otherwise along a merged dim is made whole along it first, then split
+    again along the merged dim where its ranks divide that dim's extent (a
+    local slice). Where some ranks do not divide the first merged dim, its
+    gradient comes back in the layout it leaves (`pin_grad`). A plain
+    tensor is only reshaped."""
+    dim %= t.ndim
+    shape = tuple(t.shape)
+    out_shape = shape[:dim] + (math.prod(shape[dim:dim + n]),) \
+        + shape[dim + n:]
+    if not hasattr(t, "placements"):
+        return t.reshape(out_shape)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    places, resplit = list(t.placements), []
+    for md, p in enumerate(places):
+        if isinstance(p, Shard) and dim <= p.dim % t.ndim < dim + n and (
+                p.dim % t.ndim != dim or shape[dim] % mesh.size(md)):
+            places[md] = Replicate()
+            if out_shape[dim] % mesh.size(md) == 0:
+                resplit.append(md)
+    if places != list(t.placements):
+        t = t.redistribute(mesh, places)
+    # a local shard that is a strided view (an expand, a slice) cannot be
+    # viewed across its dims
+    out = t.contiguous().reshape(out_shape)
+    if resplit:
+        places = list(out.placements)
+        for md in resplit:
+            places[md] = Shard(dim)
+        out = out.redistribute(mesh, places)
+    return pin_grad(out) if _uneven(t, shape[dim]) else out
+
+
+def shard_einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum(equation, *operands)`; DTensor operands multiply shard
+    by shard (`by_shard`, each index the output keeps free to stay split).
+    DTensor's own einsum flattens the batch indices into one dim first,
+    which it refuses when they are split over different mesh dims or
+    unevenly, and reshapes local shards that are strided views. Plain
+    operands run `torch.einsum` as they are."""
+    out_idx = equation.replace(" ", "").split("->")[1]
+    return by_shard(lambda *ts: torch.einsum(equation, *ts), equation,
+                    *operands, free=out_idx)
+
+
+def by_shard(fn, spec: str, *operands, free: str):
+    """`fn(*operands)` for a function that works within each slice of the
+    indices in `free`: `spec` names each operand's and each result's dims
+    as an einsum equation does ("bshp,hp->bshp,bhp"), and `fn` mixes no
+    two slices of a `free` index. DTensor operands run shard by shard:
+    for each mesh dim, the `free` index the first DTensor operand is split
+    along there (else the first such index of another operand) splits
+    every operand that carries it, as a local slice, and the operands split
+    there along any other index are made whole (an all-gather, as FSDP's
+    weights are); each device runs `fn` on its local shards, with no
+    collective, and each result is split as its indices say. An operand
+    whole where the others split an index it lacks gets, on each device,
+    the part of its gradient that device's slice gives: a partial sum.
+    Plain operands run `fn` as they are."""
+    placed = [o for o in operands if hasattr(o, "placements")]
+    if not placed:
+        return fn(*operands)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ins, outs = (part.split(",") for part in spec.replace(" ", "")
+                 .split("->"))
+    mesh = placed[0].device_mesh
+    order = sorted(range(len(operands)),
+                   key=lambda i: not hasattr(operands[i], "placements"))
+    split = []                     # the index each mesh dim splits, or None
+    for md in range(mesh.ndim):
+        idx = None
+        for i in order:
+            o = operands[i]
+            p = o.placements[md] if hasattr(o, "placements") else None
+            if isinstance(p, Shard) and ins[i][p.dim % o.ndim] in free:
+                idx = ins[i][p.dim % o.ndim]
+                break
+        split.append(idx)
+    local = []
+    for o, sub in zip(operands, ins):
+        if not hasattr(o, "placements"):
+            o = DTensor.from_local(o, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = [Shard(sub.index(ix)) if ix is not None and ix in sub
+                else Replicate() for ix in split]
+        if list(o.placements) != want:
+            o = o.redistribute(mesh, want)
+        local.append(o.to_local(grad_placements=[
+            Partial() if ix is not None and ix not in sub else p
+            for ix, p in zip(split, want)]))
+    result = fn(*local)
+    sizes = {ix: n for o, sub in zip(operands, ins)
+             for ix, n in zip(sub, o.shape)}
+
+    def wrap(out, sub):
+        return _from_local(out, mesh, [
+            Shard(sub.index(ix)) if ix is not None and ix in sub
+            else Replicate() for ix in split], [
+            sizes.get(ix, n) for ix, n in zip(sub, out.shape)])
+
+    if isinstance(result, tuple):
+        return tuple(wrap(r, sub) for r, sub in zip(result, outs))
+    return wrap(result, outs[0])
+
+
+def _from_local(local: torch.Tensor, mesh, places, shape) -> torch.Tensor:
+    """The DTensor of global `shape` laid out by `places` whose local shard
+    is `local` (made dense first when it is a strided view: DTensor takes
+    its local shard to lie in memory as its global strides say)."""
+    from torch.distributed.tensor import DTensor
+    order = sorted(range(local.ndim), key=lambda d: local.stride(d))
+    step = 1
+    for d in order:
+        if local.numel() == 0 or (local.shape[d] > 1
+                                  and local.stride(d) != step):
+            local = local.contiguous()
+            order = range(local.ndim - 1, -1, -1)
+            break
+        step *= local.shape[d]
+    strides, step = [0] * local.ndim, 1
+    for d in order:
+        strides[d] = step
+        step *= max(shape[d], 1)
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=tuple(shape), stride=tuple(strides))
 
 
 def remat(enabled: bool, fn, *args):
@@ -141,9 +411,13 @@ def rmsnorm_params(d: int, hold):
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    # `xf` feeds the variance and the output: each use's gradient comes
+    # back in `xf`'s layout before the two are added (under FSDP they can
+    # come back in layouts whose sum needs a shard turned partial)
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    xv = pin_grad(xf)
+    var = torch.mean(xv * xv, dim=-1, keepdim=True)
+    out = pin_grad(xf) * torch.rsqrt(var + eps) * p["scale"].float()
     return out.to(x.dtype)
 
 
@@ -281,7 +555,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the END of the KV timeline. `kv_positions` (a static numpy array, herded
     KV-block perforation) gives each KV row's original timeline position;
     the causal mask compares against those instead of contiguous indices.
+    DTensors run shard by shard (`_attention_by_shard`).
     """
+    if hasattr(q, "placements"):
+        return _attention_by_shard(q, k, v, causal=causal, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk, scale=scale,
+                                   kv_positions=kv_positions)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[-1]
@@ -342,6 +621,38 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.where((l > 0.5)[..., None], out, 0.0)
         outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=2)[:, :, :sq]
+
+
+def _attention_by_shard(q, k, v, **kw) -> torch.Tensor:
+    """`chunked_attention` of DTensors q, k, v, each device on its own
+    shards: attention mixes no batch row or head with another, so with q,
+    k and v split alike over batch and heads (and whole over sequence and
+    head dims) each device runs the plain chunked attention on its local
+    shards, with no collective (GSPMD's plan). q is made whole along any
+    other split (and its partial sums summed); k and v take q's split, as
+    local slices, after their heads are repeated to q's where q's heads are
+    split over ranks that do not split theirs alike. DTensor run op by op
+    would plan every chunk pair's ops (millions at 32k) and refuses some of
+    them: the pad of a ragged chunk, the flattened batch dims of a product
+    split over two mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    places = [p if isinstance(p, Shard) and p.dim % 4 < 2 else Replicate()
+              for p in q.placements]
+    if list(q.placements) != places:
+        q = q.redistribute(mesh, places)
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1 and any(
+            isinstance(p, Shard) and p.dim % 4 == 1
+            and (k.shape[1] % mesh.size(md) or q.shape[1] % mesh.size(md))
+            for md, p in enumerate(places)):
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    k, v = (t if list(t.placements) == places else t.redistribute(mesh, places)
+            for t in (k, v))
+    out = chunked_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    return _from_local(out, mesh, places, shape)
 
 
 def full_attention(q, k, v, *, causal: bool = True,

@@ -138,10 +138,13 @@ FLOAT32_LEAVES = moe.FLOAT32_LEAVES + mamba2.FLOAT32_LEAVES \
 
 def _chunk_nll(h, w, labels, mask):
     """The masked negative log-likelihood summed over one chunk: float32
-    logits of `h @ w` (rounded in h's dtype first, as JAX's einsum)."""
-    logits = common.unshard((h @ w).float(), -1)
+    logits of `h @ w` (rounded in h's dtype first, as JAX's einsum). The
+    head's gradient from each chunk comes back in the head's layout
+    (`pin_grad`), so the chunks' (and MTP's) gradients add alike."""
+    logits = common.unshard((h @ common.pin_grad(w)).float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    gold = common.along(lambda lg, lb: torch.gather(lg, -1, lb), logits, -1,
+                        labels[..., None])[..., 0]
     return torch.sum((logz - gold) * mask)
 
 
@@ -324,7 +327,7 @@ class Transformer(Model):
         return p
 
     def _embed(self, params, batch) -> torch.Tensor:
-        x = params["embed"][self._tokens(batch["tokens"])]
+        x = common.embed_rows(params["embed"], self._tokens(batch["tokens"]))
         if self.cfg.frontend == "vision_patches":   # the stubbed ViT's output
             patches = torch.as_tensor(batch["patch_embeds"],
                                       device=self.device).to(self.cdt)
@@ -374,7 +377,8 @@ class Transformer(Model):
         out = _mean_nll(x, head, labels)
         metrics = {"xent": out, "aux_loss": aux}
         if cfg.mtp:
-            emb_next = params["embed"][self._tokens(batch["tokens"])]
+            emb_next = common.embed_rows(params["embed"],
+                                         self._tokens(batch["tokens"]))
             cat = torch.cat([x[:, :-1], emb_next[:, 1:]], dim=-1)
             hm = cat @ params["mtp"]["proj"]
             positions = torch.arange(hm.shape[1], device=self.device)
@@ -495,7 +499,7 @@ class Transformer(Model):
         already (the sharded step reads every shard's at once); None reads
         it here."""
         cfg = self.cfg
-        x = params["embed"][tokens[:, None].long()]
+        x = common.embed_rows(params["embed"], tokens[:, None].long())
         taf = cache.get("taf") if self.taf_enabled else None
         for pk, ck in self._stacks():
             kv = cache[ck]
@@ -555,7 +559,7 @@ class Hybrid(Model):
         """Under `remat` each Mamba2 sublayer is recomputed in backward
         (the JAX model checkpoints the mixers, not the shared block)."""
         cfg = self.cfg
-        x = params["embed"][self._tokens(batch["tokens"])]
+        x = common.embed_rows(params["embed"], self._tokens(batch["tokens"]))
         positions = torch.arange(x.shape[1], device=self.device)
         layers = params["layers"]
 
@@ -605,7 +609,7 @@ class Hybrid(Model):
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
-        x = params["embed"][self._tokens(batch["tokens"])]
+        x = common.embed_rows(params["embed"], self._tokens(batch["tokens"]))
         cache = self.init_cache(x.shape[0], batch["max_len"])
 
         def mixer(mp, mc, h):
@@ -624,7 +628,7 @@ class Hybrid(Model):
     def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
-        x = params["embed"][tokens[:, None].long()]
+        x = common.embed_rows(params["embed"], tokens[:, None].long())
 
         def mixer(mp, mc, h):
             h, state = blocks.mamba_sublayer_decode(mp, cfg, h, mc)
@@ -672,7 +676,7 @@ class Rwkv(Model):
         decode), else the cache is only read (the loss: autograd saved
         the state it read)."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = common.embed_rows(params["embed"], tokens)
         x = common.layernorm(params["ln_in"], x, cfg.norm_eps)
         for l, lp in enumerate(params["layers"]):
             view = layer_view(cache, l)

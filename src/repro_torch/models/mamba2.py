@@ -85,30 +85,30 @@ def _ssd_chunked(xh, dt, A, B, C, chunk: int):
     nc = S // chunk
     rep = H // G
 
-    xs = xh.reshape(b, nc, chunk, H, P)
-    dts = dt.reshape(b, nc, chunk, H)
-    Bs = B.reshape(b, nc, chunk, G, N)
-    Cs = C.reshape(b, nc, chunk, G, N)
+    xs = common.split_dim(xh, 1, (nc, chunk))
+    dts = common.split_dim(dt, 1, (nc, chunk))
+    Bs = common.split_dim(B, 1, (nc, chunk))
+    Cs = common.split_dim(C, 1, (nc, chunk))
 
     dA = dts * A                                             # (b,nc,l,H) <= 0
-    cum = torch.cumsum(dA, dim=2)                            # within-chunk
+    cum = common.along(lambda t: torch.cumsum(t, dim=2), dA, 2)  # a chunk
     # intra-chunk (attention-like) term: decay(i,j) = exp(cum_i - cum_j)
     li = torch.arange(chunk, device=xh.device)
     causal = li[:, None] >= li[None, :]
     dec = torch.exp(torch.clamp(cum[:, :, :, None, :] - cum[:, :, None, :, :],
                                 -60.0, 0.0))                 # (b,nc,i,j,H)
     dec = torch.where(causal[None, None, :, :, None], dec, 0.0)
-    CB = torch.einsum("bnigN,bnjgN->bnijg", Cs, Bs)          # (b,nc,i,j,G)
+    CB = common.shard_einsum("bnigN,bnjgN->bnijg", Cs, Bs)   # (b,nc,i,j,G)
     CB = CB.repeat_interleave(rep, dim=4) if rep > 1 else CB
     scores = CB * dec * dts[:, :, None, :, :]                # dt_j factor
-    y_intra = torch.einsum("bnijh,bnjhp->bnihp", scores, xs)
+    y_intra = common.shard_einsum("bnijh,bnjhp->bnihp", scores, xs)
 
     # chunk state: sum_j exp(cum_last - cum_j) dt_j B_j x_j
     last = cum[:, :, -1:, :]                                 # (b,nc,1,H)
     decay_to_end = torch.exp(torch.clamp(last - cum, -60.0, 0.0))
     Bh = Bs.repeat_interleave(rep, dim=3) if rep > 1 else Bs
-    state_c = torch.einsum("bnlh,bnlhN,bnlhp->bnhpN", decay_to_end * dts,
-                           Bh, xs)
+    state_c = common.shard_einsum("bnlh,bnlhN,bnlhp->bnhpN",
+                                  decay_to_end * dts, Bh, xs)
 
     # inter-chunk loop: the state ENTERING each chunk (pre-decay)
     chunk_decay = torch.exp(torch.clamp(last[:, :, 0, :], -60.0, 0.0))
@@ -122,8 +122,9 @@ def _ssd_chunked(xh, dt, A, B, C, chunk: int):
     # inter-chunk contribution: y_j += C_j exp(cum_j) h_in
     Ch = Cs.repeat_interleave(rep, dim=3) if rep > 1 else Cs
     in_decay = torch.exp(torch.clamp(cum, -60.0, 0.0))
-    y_inter = torch.einsum("bnlhN,bnhpN,bnlh->bnlhp", Ch, h_ins, in_decay)
-    return (y_intra + y_inter).reshape(b, S, H, P), h
+    y_inter = common.shard_einsum("bnlhN,bnhpN,bnlh->bnlhp", Ch, h_ins,
+                                  in_decay)
+    return common.merge_dims(y_intra + y_inter, 1), h
 
 
 def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
@@ -139,11 +140,11 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
     xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xs = xbc[..., :d_in]
     gn = s.n_groups * s.d_state
-    B = xbc[..., d_in:d_in + gn].reshape(bsz, S, s.n_groups, s.d_state)
-    C = xbc[..., d_in + gn:].reshape(bsz, S, s.n_groups, s.d_state)
+    B = common.split_dim(xbc[..., d_in:d_in + gn], 2, (s.n_groups, s.d_state))
+    C = common.split_dim(xbc[..., d_in + gn:], 2, (s.n_groups, s.d_state))
     dt_f = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                               # (H,) negative
-    xh = xs.reshape(bsz, S, nh, s.head_dim)
+    xh = common.split_dim(xs, 2, (nh, s.head_dim))
     # pad S to a whole number of SSD chunks (dt=0 on padding => identity)
     chunk = min(s.chunk_size, S)
     pad = (-S) % chunk
@@ -156,7 +157,7 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
     y, h_final = _ssd_chunked(xh_p.float(), dt_f, A, B_p.float(),
                               C_p.float(), chunk)
     y = y[:, :S] + xh.float() * p["D"][None, None, :, None]
-    y = y.reshape(bsz, S, d_in).to(x.dtype)
+    y = common.merge_dims(y, 2).to(x.dtype)
     y = common.rmsnorm(p["norm"], y * common.silu(z), cfg.norm_eps)
     out = y @ p["w_out"]
     if not return_state:
@@ -191,27 +192,27 @@ def decode_step(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     """O(1) recurrent step. x: (B, 1, d_model). Returns (out, the new
     {conv, ssm} state); the caller writes it into its cache."""
     s, d_in, nh = _dims(cfg)
-    bsz = x.shape[0]
     proj = x @ p["w_in"]
     z, xbc, dt = _split_proj(cfg, proj)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                    state=cache["conv"])
     xs = xbc[..., :d_in]
     gn = s.n_groups * s.d_state
-    B = xbc[..., d_in:d_in + gn].reshape(bsz, s.n_groups, s.d_state)
-    C = xbc[..., d_in + gn:].reshape(bsz, s.n_groups, s.d_state)
+    B = common.split_dim(xbc[:, 0, d_in:d_in + gn], 1,
+                         (s.n_groups, s.d_state))
+    C = common.split_dim(xbc[:, 0, d_in + gn:], 1, (s.n_groups, s.d_state))
     rep = nh // s.n_groups
     Bh = B.repeat_interleave(rep, dim=1) if rep > 1 else B   # (b,H,N)
     Ch = C.repeat_interleave(rep, dim=1) if rep > 1 else C
     dt_f = F.softplus(dt[:, 0].float() + p["dt_bias"])       # (b,H)
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dt_f * A[None, :])                     # (b,H)
-    xh = xs[:, 0].reshape(bsz, nh, s.head_dim).float()
-    h = cache["ssm"] * decay[:, :, None, None] + torch.einsum(
+    xh = common.split_dim(xs[:, 0], 1, (nh, s.head_dim)).float()
+    h = cache["ssm"] * decay[:, :, None, None] + common.shard_einsum(
         "bh,bhN,bhp->bhpN", dt_f, Bh.float(), xh)
-    y = torch.einsum("bhN,bhpN->bhp", Ch.float(), h)
+    y = common.shard_einsum("bhN,bhpN->bhp", Ch.float(), h)
     y = y + xh * p["D"][None, :, None]
-    y = y.reshape(bsz, 1, d_in).to(x.dtype)
+    y = common.merge_dims(y, 1)[:, None].to(x.dtype)
     y = common.rmsnorm(p["norm"], y * common.silu(z), cfg.norm_eps)
     out = y @ p["w_out"]
     return out, {"conv": conv_state.to(cache["conv"].dtype), "ssm": h}

@@ -42,10 +42,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
 
 def _queries(p, cfg: ModelConfig, x, positions):
     m = cfg.mla
-    b, s, _ = x.shape
     cq = common.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
-    q = (cq @ p["w_uq"]).reshape(
-        b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = common.split_heads(cq @ p["w_uq"], cfg.n_heads,
+                           m.qk_nope_head_dim + m.qk_rope_head_dim)
     q = q.transpose(1, 2)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = common.apply_rope(q[..., m.qk_nope_head_dim:], positions,
@@ -69,21 +68,25 @@ def _expand_kv(p, cfg: ModelConfig, ckv, k_rope):
     m = cfg.mla
     b, s, _ = ckv.shape
     h = cfg.n_heads
-    k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
-    v = (ckv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim).transpose(1, 2)
+    # ckv feeds two products: each one's gradient comes back in ckv's
+    # layout before they are added
+    k_nope = common.split_heads(common.pin_grad(ckv) @ p["w_uk"], h,
+                                m.qk_nope_head_dim)
+    v = common.split_heads(common.pin_grad(ckv) @ p["w_uv"], h,
+                           m.v_head_dim).transpose(1, 2)
     k_rope_b = k_rope.expand(b, h, s, m.qk_rope_head_dim)
     k = torch.cat([k_nope.transpose(1, 2), k_rope_b], dim=-1)
     return k, v
 
 
 def _attend(p, cfg: ModelConfig, x, positions, causal: bool):
-    b, s, _ = x.shape
-    q = _queries(p, cfg, x, positions)
-    ckv, k_rope = _latent(p, cfg, x, positions)
+    # x feeds two products (with FSDP weights under training): each one's
+    # gradient comes back in x's layout before they are added
+    q = _queries(p, cfg, common.pin_grad(x), positions)
+    ckv, k_rope = _latent(p, cfg, common.pin_grad(x), positions)
     k, v = _expand_kv(p, cfg, ckv, k_rope)
     ctx = common.chunked_attention(q, k, v, causal=causal)
-    ctx = ctx.transpose(1, 2).reshape(b, s, -1)
-    return ctx @ p["wo"], ckv, k_rope
+    return common.merge_dims(ctx.transpose(1, 2), 2) @ p["wo"], ckv, k_rope
 
 
 def forward(p, cfg: ModelConfig, x: torch.Tensor, positions,
@@ -127,7 +130,6 @@ def decode_step(p, cfg: ModelConfig, x, cache, pos: int,
     `preferred_element_type`); positions after `pos` are masked with
     -1e30."""
     m = cfg.mla
-    b = x.shape[0]
     h = cfg.n_heads
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = _queries(p, cfg, x, positions)                        # (B,H,1,qk)
@@ -140,22 +142,22 @@ def decode_step(p, cfg: ModelConfig, x, cache, pos: int,
     k_rope = cache["k_rope"].to(x.dtype)[:, 0]                # (B,S,rd)
     skv = ckv.shape[1]
     # absorb W_uk into the query: (R, H*nope) -> (H, nope, R)
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
-    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope, w_uk)     # (B,H,1,R)
-    logits = torch.einsum("bhqr,bsr->bhqs", q_lat.float(), ckv.float())
-    logits = logits + torch.einsum("bhqd,bsd->bhqs", q_rope.float(),
-                                   k_rope.float())
+    w_uk = common.split_dim(p["w_uk"], 1, (h, m.qk_nope_head_dim))
+    q_lat = common.shard_einsum("bhqd,rhd->bhqr", q_nope, w_uk)  # (B,H,1,R)
+    logits = common.shard_einsum("bhqr,bsr->bhqs", q_lat.float(),
+                                 ckv.float())
+    logits = logits + common.shard_einsum("bhqd,bsd->bhqs", q_rope.float(),
+                                          k_rope.float())
     logits = logits / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
     mask = torch.arange(skv, device=x.device) <= pos
     logits = torch.where(mask, logits, -1e30)
     mx = logits.amax(dim=-1, keepdim=True)
     pr = torch.exp(logits - mx)
     l = pr.sum(dim=-1, keepdim=True)
-    ctx_lat = torch.einsum("bhqs,bsr->bhqr", pr.to(x.dtype).float(),
-                           ckv.float())
+    ctx_lat = common.shard_einsum("bhqs,bsr->bhqr",
+                                  pr.to(x.dtype).float(), ckv.float())
     ctx_lat = (ctx_lat / torch.clamp(l, min=1e-30)).to(x.dtype)
     # absorb W_uv on the way out: (R, H*dv) -> (H, R, dv)
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
-    ctx = torch.einsum("bhqr,rhd->bhqd", ctx_lat, w_uv)      # (B,H,1,dv)
-    ctx = ctx.transpose(1, 2).reshape(b, 1, -1)
-    return ctx @ p["wo"], cache
+    w_uv = common.split_dim(p["w_uv"], 1, (h, m.v_head_dim))
+    ctx = common.shard_einsum("bhqr,rhd->bhqd", ctx_lat, w_uv)  # (B,H,1,dv)
+    return common.merge_dims(ctx.transpose(1, 2), 2) @ p["wo"], cache

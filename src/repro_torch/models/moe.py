@@ -82,7 +82,10 @@ def route(logits: torch.Tensor, k: int, cap: int):
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # rank of each (token, slot) within its expert: the assignments before
     # it in the flattened (t, k) order
-    onehot = torch.nn.functional.one_hot(top_i.reshape(g, t * k), n_e)
+    # `one_hot` as a comparison: F.one_hot reads its input's range first
+    # where it has data, which a count of shapes alone cannot see
+    flat = top_i.reshape(g, t * k)
+    onehot = (flat[..., None] == torch.arange(n_e, device=flat.device)).long()
     before = torch.cumsum(onehot, dim=1) - onehot
     pos = torch.gather(before, 2, top_i.reshape(g, t * k, 1)).reshape(g, t, k)
     return top_i, top_w, pos, pos < cap, probs
@@ -114,12 +117,21 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     n_tokens = b * s
     assert n_tokens % group == 0, (n_tokens, group)
     g = n_tokens // group
-    xg = x.reshape(g, group, d)
+    # the tokens' partial sums summed, and each path's gradient brought
+    # back to their layout before the paths' gradients are added
+    x = common.settle(x)
+    xg = common.split_dim(common.merge_dims(common.pin_grad(x), 0), 0,
+                          (g, group))
 
-    logits = xg.float() @ router_w.float()
+    # xg feeds the router and the dispatch: each path's gradient comes back
+    # in xg's layout before they are added
+    logits = common.shard_einsum("gtd,de->gte", common.pin_grad(xg).float(),
+                                 router_w.float())
     k = min(m.experts_per_token, n_e)
     cap = _capacity(m, group)
-    top_i, top_w, pos, keep, probs = route(logits, k, cap)
+    # routing stays within each group: run it on the local groups
+    top_i, top_w, pos, keep, probs = common.along(
+        lambda lg: route(lg, k, cap), logits, (1, 2))
 
     # aux load-balance loss (Switch-style): E * sum_e f_e * P_e
     me = probs.mean(dim=(0, 1))
@@ -132,23 +144,29 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     # dispatch: each kept (token, slot) to row e * cap + pos of its group
     slot = (top_i * cap + pos).reshape(g, group * k)
     keep_f = keep.reshape(g, group * k)
-    src = xg.unsqueeze(2).expand(g, group, k, d).reshape(g, group * k, d)
+    src = common.merge_dims(
+        common.pin_grad(xg).unsqueeze(2).expand(g, group, k, d), 1)
     xe = torch.zeros((g, n_e * cap + 1, d), dtype=dt, device=x.device)
     # dropped slots land on the spare last row, which no expert reads
     dest = torch.where(keep_f, slot, n_e * cap)
     xe.scatter_(1, dest.unsqueeze(-1).expand(-1, -1, d), src)
-    xe = xe[:, :n_e * cap].reshape(g, n_e, cap, d)
+    xe = common.split_dim(xe[:, :n_e * cap], 1, (n_e, cap))
 
-    h = common.silu(torch.einsum("gecd,edf->gecf", xe, w_gate)) \
-        * torch.einsum("gecd,edf->gecf", xe, w_up)
-    ye = torch.einsum("gecf,efd->gecd", h, w_down).reshape(g, n_e * cap, d)
+    h = common.silu(common.shard_einsum("gecd,edf->gecf", xe, w_gate)) \
+        * common.shard_einsum("gecd,edf->gecf", xe, w_up)
+    ye = common.merge_dims(common.shard_einsum("gecf,efd->gecd", h, w_down),
+                           1)
 
     # combine: the kept slots' outputs, weighted in the compute dtype
     w_kept = (top_w * keep).to(dt).reshape(g, group * k, 1)
     got = torch.gather(ye, 1, torch.where(keep_f, slot, 0)
                        .unsqueeze(-1).expand(-1, -1, d))
     out = (got.float() * w_kept.float()).reshape(g, group, k, d).sum(2)
-    out = out.to(dt).reshape(b, s, d)
+    # (g, group) -> (b, s); the gradient comes back in this layout (DTensor
+    # flattens a gradient split over both dims into one it cannot split)
+    out = common.pin_grad(common.split_dim(common.merge_dims(out.to(dt), 0),
+                                           0, (b, s)))
     if m.n_shared_experts:
-        out = out + mlp.forward(p["shared"], cfg, x, "gated_silu")
+        out = out + mlp.forward(p["shared"], cfg, common.pin_grad(x),
+                                "gated_silu")
     return out, aux.float()

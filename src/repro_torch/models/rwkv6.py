@@ -99,7 +99,14 @@ def wkv_scan(r, k, v, w, u, state):
     """Recurrent WKV, token by token. r,k,v: (B,S,H,P); w: (B,S,H,P) decay
     in (0,1); u: (H,P) bonus; state: (B,H,P,P). S_t[h, i, j] accumulates
     k_i v_j; y_t = r_t . (S_{t-1} + u k v). Returns (y (B,S,H,P), the
-    final state)."""
+    final state). DTensors scan shard by shard over batch and heads
+    (`common.by_shard`): DTensor would run every token's ops one by one
+    and refuses their einsum's flattened batch dims."""
+    return common.by_shard(_wkv_loop, "bshp,bshp,bshp,bshp,hp,bhpq->"
+                           "bshp,bhpq", r, k, v, w, u, state, free="bh")
+
+
+def _wkv_loop(r, k, v, w, u, state):
     ys = []
     ub = u[None, :, :, None]
     for t in range(r.shape[1]):
@@ -114,7 +121,6 @@ def time_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """x: (B,S,d); x_prev: (B,d) the last token of the previous segment;
     state: (B,H,P,P). Returns (out, last_x, new_state)."""
     r_cfg, nh = _dims(cfg)
-    b, s, d = x.shape
     hp = r_cfg.head_dim
     xs = _token_shift(x, x_prev)
 
@@ -130,11 +136,12 @@ def time_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     dlora = torch.tanh(mixed("w") @ p["decay_A"]) @ p["decay_B"]
     w = torch.exp(-torch.exp(torch.clamp(p["w0"] + dlora.float(),
                                          -20.0, 3.0)))
-    y, new_state = wkv_scan(r.reshape(b, s, nh, hp).float(),
-                            k.reshape(b, s, nh, hp).float(),
-                            v.reshape(b, s, nh, hp).float(),
-                            w.reshape(b, s, nh, hp), p["u"], state)
-    y = y.reshape(b, s, d).to(x.dtype)
+    def heads(t):
+        return common.split_dim(t, 2, (nh, hp))
+
+    y, new_state = wkv_scan(heads(r).float(), heads(k).float(),
+                            heads(v).float(), heads(w), p["u"], state)
+    y = common.merge_dims(y, 2).to(x.dtype)
     y = common.layernorm(p["ln_x"], y, cfg.norm_eps)
     return (y * common.silu(g)) @ p["w_o"], x[:, -1, :], new_state
 

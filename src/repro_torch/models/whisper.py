@@ -52,16 +52,14 @@ def _enc_block(p, cfg: ModelConfig, x, positions):
 def _cross_attention(p, cfg: ModelConfig, x, memory):
     """Queries from the decoder's x; K/V from the encoder memory (no mask,
     no rotary embedding)."""
-    b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    sm = memory.shape[1]
     q = common.split_heads(x @ p["wq"], cfg.n_heads, hd).transpose(1, 2)
     k = common.split_heads(memory @ p["wk"], cfg.n_kv_heads,
                            hd).transpose(1, 2)
     v = common.split_heads(memory @ p["wv"], cfg.n_kv_heads,
                            hd).transpose(1, 2)
     ctx = common.chunked_attention(q, k, v, causal=False)
-    return ctx.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return common.merge_dims(ctx.transpose(1, 2), 2) @ p["wo"]
 
 
 def _dec_tail(p, cfg: ModelConfig, x, memory, approx_ffn=None):
@@ -105,7 +103,7 @@ class Whisper(lm.Model):
     def _hidden(self, params, batch, remat: bool) -> torch.Tensor:
         cfg = self.cfg
         memory = self.encode(params, batch["frames"], remat)
-        x = params["embed"][self._tokens(batch["tokens"])]
+        x = common.embed_rows(params["embed"], self._tokens(batch["tokens"]))
         positions = torch.arange(x.shape[1], device=self.device)
 
         def block(lp, h, mem):
@@ -133,7 +131,7 @@ class Whisper(lm.Model):
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
         memory = self.encode(params, batch["frames"])
-        x = params["embed"][self._tokens(batch["tokens"])]
+        x = common.embed_rows(params["embed"], self._tokens(batch["tokens"]))
         cache = self.init_cache(x.shape[0], batch["max_len"])
         cache["memory"][:, :memory.shape[1]].copy_(memory)
         for l, lp in enumerate(params["dec_blocks"]):
@@ -147,7 +145,7 @@ class Whisper(lm.Model):
     def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
-        x = params["embed"][tokens[:, None].long()]
+        x = common.embed_rows(params["embed"], tokens[:, None].long())
         memory = cache["memory"]
         for l, lp in enumerate(params["dec_blocks"]):
             h = common.layernorm(lp["ln1"], x, cfg.norm_eps)

@@ -1,0 +1,188 @@
+"""Shared code of the `test_torch_dryrun_cells_*.py` files, of
+`test_torch_cuda.py::TestDryRunOnCard` and of `chip_smoke.py` phase 15 (d):
+every applicable (arch x shape x mesh) cell of the dry run, cut for a
+quick check (`launch.dryrun.short_cell`: full width, the roofline's
+smallest depth variant, train 256 x 256, prefill 32 x 512, decode 128 x
+512), traced on a "cpu" mesh (the card's: "cuda").
+
+A file's cells run in one subprocess (the dry run's fake process group is
+the process's default group), each cell's failure recorded with its
+traceback. Each case asserts: status ok; params and active params equal
+to the JAX config cut the same way; argument bytes equal to the local
+shards of the placed leaves, summed here from the sharding rules alone;
+the record's keys those of the dry run's ok records.
+"""
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+
+import torch
+
+from repro_torch.configs import SHAPES, get_config, shape_applicable
+from repro_torch.launch import dryrun
+from repro_torch.launch import specs as specs_mod
+from repro_torch.models import build
+from repro_torch.optim import adamw
+from repro_torch.runtime import sharding
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+RECORD_KEYS = {"arch", "shape", "mesh", "chips", "kind", "status",
+               "lower_s", "compile_s", "memory", "per_device_bytes", "fits",
+               "hlo_flops_per_device", "hlo_bytes_per_device",
+               "flops_by_class", "dot_flops_per_device", "collectives",
+               "params", "active_params", "ops", "detail"}
+
+_TRACE = r"""
+import json, sys, traceback
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun
+out = {}
+for arch, shape, multi in json.loads(sys.argv[1]):
+    cfg, short = dryrun.short_cell(get_config(arch), SHAPES[shape])
+    try:
+        rec = dryrun.lower_cell(arch, shape, multi, cfg, shape=short,
+                                device=sys.argv[2])
+    except Exception:
+        rec = {"status": "FAILED", "error": traceback.format_exc()[-3000:]}
+    out[f"{arch}|{shape}|{int(multi)}"] = rec
+print("RESULT " + json.dumps(out))
+"""
+
+
+def cells(archs):
+    """The applicable cells of `archs`, as (arch, shape, multi_pod)."""
+    return [(a, s, m) for a in archs for s in SHAPES for m in (False, True)
+            if shape_applicable(get_config(a), SHAPES[s])[0]]
+
+
+def cell_id(cell):
+    arch, shape, multi = cell
+    return f"{arch}-{shape}-{'2x16x16' if multi else '16x16'}"
+
+
+def trace(cells_, timeout: float = 900.0, device: str = "cpu"):
+    """{cell: dry-run record} of `cells_`, traced in one subprocess on a
+    `device` mesh."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _TRACE, json.dumps(cells_),
+                        device],
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=timeout)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = [l for l in r.stdout.splitlines() if l.startswith("RESULT ")][-1]
+    out = json.loads(line[len("RESULT "):])
+    return {(a, s, bool(int(m))): rec for (a, s, m), rec in
+            ((k.split("|"), v) for k, v in out.items())}
+
+
+def trace_by_arch(archs, device: str, jobs: int = 8,
+                  cell_timeout: float = 120.0):
+    """{cell: dry-run record} of every applicable cell of `archs`, an
+    arch's cells traced in a subprocess of their own (`trace`), `jobs` at
+    a time. An arch whose subprocess runs past `cell_timeout` seconds a
+    cell gets TIMEOUT records, one that fails outside a cell FAILED ones."""
+    import concurrent.futures as cf
+
+    def one(arch):
+        cs = cells((arch,))
+        try:
+            return trace(cs, cell_timeout * len(cs), device)
+        except subprocess.TimeoutExpired:
+            return {c: {"status": "TIMEOUT", "error":
+                        f"over {cell_timeout * len(cs)} s"} for c in cs}
+        except AssertionError as e:
+            return {c: {"status": "FAILED", "error": str(e)} for c in cs}
+
+    out = {}
+    with cf.ThreadPoolExecutor(jobs) as pool:
+        for recs in pool.map(one, archs):
+            out.update(recs)
+    return out
+
+
+def _local_bytes(t, spec, mesh):
+    shape = list(t.shape)
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            names = entry if isinstance(entry, tuple) else (entry,)
+            n = math.prod(mesh[a] for a in names)
+            shape[d] = -(-shape[d] // n)
+    return math.prod(shape) * t.element_size()
+
+
+def _placed_bytes(tree, specs, mesh):
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(_placed_bytes(v, specs[k], mesh) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return sum(_placed_bytes(v, s, mesh) for v, s in zip(tree, specs))
+    return _local_bytes(tree, specs, mesh)
+
+
+def argument_bytes(arch, shape_name, multi):
+    """The bytes one device holds of the step's arguments, from the
+    sharding rules: each leaf's local shard (a split dim's extent over the
+    product of its mesh axes, rounded up), summed."""
+    cfg, shape = dryrun.short_cell(get_config(arch), SHAPES[shape_name])
+    # the dry run's mesh: the multi-pod (pod, data) axes as one of 32
+    mesh = {"data": 32 if multi else 16, "model": 16}
+    meta = specs_mod.meta_model(build(cfg, device="cpu"))
+    draw = specs_mod.MetaDraw()
+    if shape.kind == "train":
+        params = meta.masters(draw)
+        opt = list(adamw.init(params))
+        batch = specs_mod.train_batch_specs(cfg, shape)
+        return (_placed_bytes(params, sharding.param_specs(
+                    mesh, params, fsdp=cfg.fsdp), mesh)
+                + _placed_bytes(opt, sharding.opt_state_specs(
+                    mesh, opt, fsdp=cfg.fsdp), mesh)
+                + _placed_bytes(batch, specs_mod.batch_shardings(
+                    mesh, batch), mesh))
+    params = adamw.tree_map(lambda t: t.to(meta.cdt) if t.is_floating_point()
+                            else t, meta.init(draw))
+    total = _placed_bytes(params, sharding.param_specs(mesh, params), mesh)
+    if shape.kind == "prefill":
+        batch = specs_mod.prefill_batch_specs(cfg, shape)
+        return total + _placed_bytes(batch, specs_mod.batch_shardings(
+            mesh, batch), mesh)
+    cache, tokens = specs_mod.decode_specs(meta, cfg, shape)
+    total += _placed_bytes(cache, sharding.cache_specs(
+        mesh, cache, shape.global_batch), mesh)
+    return total + _placed_bytes({"tokens": tokens},
+                                 specs_mod.batch_shardings(
+                                     mesh, {"tokens": tokens}), mesh)
+
+
+def jax_counts(arch, shape_name):
+    """(params, active params) of the JAX config cut as `short_cell` cuts
+    the port's."""
+    from repro.configs import get_config as jax_config
+    cut, _ = dryrun.short_cell(get_config(arch), SHAPES[shape_name])
+    kw = {"n_layers": cut.n_layers}
+    jcfg = jax_config(arch)
+    if cut.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            jcfg.moe, n_dense_layers=cut.moe.n_dense_layers)
+    jcfg = dataclasses.replace(jcfg, **kw)
+    return jcfg.param_count(), jcfg.active_param_count()
+
+
+def check(records, cell):
+    """The assertions of one case."""
+    arch, shape, multi = cell
+    rec = records[cell]
+    assert rec["status"] == "ok", rec.get("error")
+    assert set(rec) == RECORD_KEYS
+    assert rec["mesh"] == ("2x16x16" if multi else "16x16")
+    assert rec["chips"] == (512 if multi else 256)
+    assert (rec["params"], rec["active_params"]) == jax_counts(arch, shape)
+    assert rec["memory"]["argument_bytes"] == argument_bytes(arch, shape,
+                                                             multi)
+    assert rec["hlo_flops_per_device"] > 0 and rec["hlo_bytes_per_device"] > 0
+    assert torch.isfinite(torch.tensor(rec["per_device_bytes"]))

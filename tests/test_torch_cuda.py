@@ -972,3 +972,43 @@ class TestTrainOnCard:
                                     layers=2)
         assert res["kernels"] > 0 and res["wall_ms"] > 0
         assert 0 < res["peak_gb"] < 80
+
+
+def _dryrun_cells():
+    """Every applicable (arch, shape, mesh) cell of the dry run."""
+    from repro_torch.configs import SHAPES, get_config, list_archs
+    from repro_torch.configs import shape_applicable
+    return [(a, s, m) for a in list_archs() for s in SHAPES
+            for m in ("16x16", "2x16x16")
+            if shape_applicable(get_config(a), SHAPES[s])[0]]
+
+
+@pytest.mark.cuda
+class TestDryRunOnCard:
+    """Every applicable dry-run cell traces with the card's torch: each cut
+    for a quick check (`launch.dryrun.short_cell`: full width, the
+    roofline's smallest depth variant, short shapes) on a "cuda" mesh, an
+    arch's cells in a process of their own, 8 at a time
+    (`tests/_dryrun_cells.py`, the CPU tests'
+    `test_torch_dryrun_cells_*.py` matrix)."""
+
+    @pytest.fixture(scope="class")
+    def rows(self):
+        import os
+        import sys
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (the dry run's mesh device is "
+                        "cuda)")
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import _dryrun_cells as dc
+        from repro_torch.configs import list_archs
+        recs = dc.trace_by_arch(list_archs(), "cuda")
+        return {(a, s, "2x16x16" if m else "16x16"): r
+                for (a, s, m), r in recs.items()}
+
+    @pytest.mark.parametrize("cell", _dryrun_cells(),
+                             ids=lambda c: "-".join(c))
+    def test_cell_traces(self, rows, cell):
+        row = rows[cell]
+        assert row["status"] == "ok", row["error"]
+        assert row["per_device_bytes"] > 0

@@ -1,0 +1,23 @@
+"""The dry run of deepseek-v3-671b's serving cells (MLA, leading dense and
+MoE layers): prefill and decode on the 16x16 and 2x16x16 meshes, cut for a
+quick check and traced on the CPU (`tests/_dryrun_cells.py` says what each
+case asserts; the train cells: `test_torch_dryrun_cells_mla_train.py`)."""
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _dryrun_cells as dc  # noqa: E402
+
+CELLS = [c for c in dc.cells(("deepseek-v3-671b",)) if c[1] != "train_4k"]
+
+
+@pytest.fixture(scope="module")
+def records():
+    return dc.trace(CELLS)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
+def test_cell_traces_with_the_rules_local_shards(records, cell):
+    dc.check(records, cell)

@@ -160,19 +160,50 @@ def test_dryrun_cli_prints_an_ok_record(tmp_path):
     assert rec["status"] == "ok" and rec["mesh"] == "16x16"
 
 
-_GLOO_STEP = r"""
-import dataclasses
+# the families whose model code runs the dry run's layout helpers, each at
+# smoke width on the (2 data x 4 model) mesh: name -> (arch, config
+# overrides); the 6-head cases split heads over 4 ranks unevenly
+GLOO_CASES = {
+    "deepseek-7b": ("deepseek-7b", {}),
+    "dense-6-heads": ("deepseek-7b", {"n_heads": 6, "n_kv_heads": 6,
+                                      "d_model": 96}),
+    "audio-6-heads": ("whisper-large-v3", {"n_heads": 6, "n_kv_heads": 6,
+                                           "d_model": 96}),
+    "moe": ("olmoe-1b-7b", {}),
+    "mla-moe-fsdp": ("deepseek-v3-671b", {"fsdp": True, "n_layers": 2}),
+    "hybrid": ("zamba2-7b", {}),
+    "rwkv6": ("rwkv6-1.6b", {}),
+}
+
+_CFG = r"""
+import copy, dataclasses, json, os
 from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as specs_mod
+ARCH, OVERRIDES = json.loads(os.environ["GLOO_CASE"])
+cfg = dataclasses.replace(get_smoke_config(ARCH), remat=False,
+                          compute_dtype='float32', **OVERRIDES)
+SHAPE = ShapeConfig('small', 16, 4, 'train')
+"""
+
+_GLOO_STEP = _CFG + r"""
+from torch.distributed.tensor import DTensor
 from repro_torch.launch import steps
 from repro_torch.models import build
 from repro_torch.optim import adamw
 from repro_torch.runtime import elastic, sharding
-cfg = dataclasses.replace(get_smoke_config('deepseek-7b'), remat=False,
-                          compute_dtype='float32')
 model = build(cfg, device='cpu')
 masters = model.masters(torch.Generator().manual_seed(0))
+rng = np.random.RandomState(0)
+tb = {k: torch.as_tensor(rng.standard_normal(tuple(v.shape))
+                         if v.is_floating_point() else
+                         rng.randint(0, cfg.vocab_size, tuple(v.shape))
+                         ).to(v.dtype)
+      for k, v in specs_mod.train_batch_specs(cfg, SHAPE).items()}
+step = steps.make_train_step(model, adamw.AdamWConfig())
+single = copy.deepcopy(masters)
+p1, _, _ = step(single, adamw.init(single), tb)
 mesh = elastic.make_mesh((2, 4), ('data', 'model'), device='cpu')
 opt = adamw.init(masters)
 pm = sharding.place(masters, mesh, sharding.param_specs(mesh, masters,
@@ -180,36 +211,39 @@ pm = sharding.place(masters, mesh, sharding.param_specs(mesh, masters,
 om = adamw.AdamWState(*sharding.place(list(opt), mesh,
                                       sharding.opt_state_specs(
                                           mesh, list(opt), fsdp=cfg.fsdp)))
-rng = np.random.RandomState(0)
-tb = {k: torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 16))
-                         .astype(np.int32)) for k in ('tokens', 'labels')}
 tb = sharding.place(tb, mesh, specs_mod.batch_shardings(mesh, tb))
-step = steps.make_train_step(model, adamw.AdamWConfig())
 c = dryrun.count_step(step, (pm, om, tb), dryrun._leaves([pm, list(om), tb]),
                       pm, mesh)
+def full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+err = max(float((full(a) - b).abs().max())
+          for a, b in zip(adamw.leaves(pm), adamw.leaves(p1)))
 emit({'flops': c.total_flops, 'dot': c.dot_flops, 'bytes': c.bytes,
       'counts': c.counts, 'coll': c.coll_bytes, 'axis': c.axis_bytes,
-      'args': c.arguments})
+      'args': c.arguments, 'param_err': err})
 """
 
-_FAKE_STEP = r"""
-import dataclasses, json
-from repro_torch.configs import get_smoke_config
-from repro_torch.configs.base import ShapeConfig
-from repro_torch.launch import dryrun
-cfg = dataclasses.replace(get_smoke_config('deepseek-7b'), remat=False,
-                          compute_dtype='float32')
-rec = dryrun.lower_cell('deepseek-7b', 'small', False, cfg,
-                        shape=ShapeConfig('small', 16, 4, 'train'),
+_FAKE_STEP = _CFG + r"""
+rec = dryrun.lower_cell(ARCH, 'small', False, cfg, shape=SHAPE,
                         mesh_shape={'data': 2, 'model': 4}, device='cpu')
 print("RESULT " + json.dumps(rec))
 """
 
 
-def test_fake_group_counts_equal_an_8_rank_gloo_run(tmp_path):
-    real = run_ranks(_GLOO_STEP, 8, tmp_path, timeout=300.0)[0]
-    fake = _run(_FAKE_STEP)
+def gloo_equals_fake(case: str, tmp_path) -> None:
+    """An 8-rank gloo train step of `GLOO_CASES[case]` on real DTensors
+    counts what the fake group's dry run of that cell counts, and updates
+    the masters as the one-process step does (1e-3)."""
+    os.environ["GLOO_CASE"] = json.dumps(GLOO_CASES[case])
+    try:
+        real = run_ranks(_GLOO_STEP, 8, tmp_path, timeout=300.0)
+        fake = _run(_FAKE_STEP)
+    finally:
+        os.environ.pop("GLOO_CASE", None)
     assert fake["status"] == "ok" and fake["chips"] == 8
+    for r in real:
+        assert r["param_err"] < 1e-3, (case, r["param_err"])
+    real = real[0]
     assert fake["hlo_flops_per_device"] == real["flops"]
     assert fake["dot_flops_per_device"] == real["dot"]
     assert fake["hlo_bytes_per_device"] == real["bytes"]
@@ -219,3 +253,8 @@ def test_fake_group_counts_equal_an_8_rank_gloo_run(tmp_path):
     assert sum(real["coll"].values()) > 0
     assert fake["collectives"]["links"] == {"data": "nvlink",
                                             "model": "nvlink"}
+
+
+@pytest.mark.parametrize("case", ["deepseek-7b"])
+def test_fake_group_counts_equal_an_8_rank_gloo_run(case, tmp_path):
+    gloo_equals_fake(case, tmp_path)

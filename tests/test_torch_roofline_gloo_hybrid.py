@@ -1,0 +1,15 @@
+"""The fake group's dry run against an 8-rank gloo train step on real DTensors
+(`test_torch_roofline.gloo_equals_fake`), for the hybrid (zamba2: Mamba2's
+chunked scan and shared attention)."""
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_roofline import gloo_equals_fake  # noqa: E402
+
+
+@pytest.mark.parametrize("case", ['hybrid'])
+def test_fake_group_counts_equal_an_8_rank_gloo_run(case, tmp_path):
+    gloo_equals_fake(case, tmp_path)
