@@ -188,9 +188,9 @@ failure could still exit 0):
      cell of the dry run on the card's torch, cut for a quick check (full
      width, the roofline's smallest depth variant, short shapes; an
      arch's cells a process, 8 at once, `tests/_dryrun_cells.py`): torch's
-     version,
-     each cell's status and wall, the count of ok cells, which must be all
-     64.
+     version, each cell's status and wall, the count of ok cells, which
+     must be all 64, each with its argument bytes (and a prefill's output
+     bytes: its cache laid out by `cache_specs`) the rules' local shards.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -2138,7 +2138,10 @@ def tools_short_matrix(card):
     roofline's smallest depth variant, short shapes) on a "cuda" mesh, an
     arch's cells in a process of their own, SHORT_JOBS at a time
     (`tests/_dryrun_cells.py`, which the CPU tests of the same matrix
-    use); any FAILED or TIMEOUT cell fails the phase."""
+    use); any FAILED or TIMEOUT cell fails the phase, and so does an ok
+    cell whose argument bytes (or, for a prefill, output bytes: the cache
+    laid out by `cache_specs` and the last logits) are not the local shards
+    the sharding rules give."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import _dryrun_cells as dc
@@ -2172,9 +2175,25 @@ def tools_short_matrix(card):
     log(f"  (d) ok {n.get('ok', 0)} of {want}: {json.dumps(n)}")
     check(n.get("ok", 0) == want == len(cells),
           f"dry-run cells that did not trace on the card: {json.dumps(n)}")
+    laid_out = []
+    for (arch, shape, multi), rec in sorted(recs.items()):
+        if rec["status"] != "ok":
+            continue
+        mem = rec["memory"]
+        want_args = dc.argument_bytes(arch, shape, multi)
+        want_out = (dc.output_bytes(arch, shape, multi)
+                    if rec["kind"] == "prefill" else mem["output_bytes"])
+        if (mem["argument_bytes"], mem["output_bytes"]) != (want_args,
+                                                            want_out):
+            laid_out.append(f"{arch}/{shape}/{multi}: arguments "
+                            f"{mem['argument_bytes']} vs {want_args}, "
+                            f"outputs {mem['output_bytes']} vs {want_out}")
+    log(f"  (d) layouts: {n.get('ok', 0) - len(laid_out)} cells' argument "
+        f"bytes (and prefill output bytes) equal to the rules' local shards")
+    check(not laid_out, f"cells not laid out by the rules: {laid_out}")
     check(wall <= SHORT_WALL, f"(d) took {wall:.1f} s, over {SHORT_WALL} s")
     return dict(torch=torch.__version__, counts=n, wall_s=wall,
-                cells=cells)
+                cells=cells, layout_faults=laid_out)
 
 
 def phase_tools(dev, card, report):

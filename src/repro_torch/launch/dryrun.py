@@ -16,7 +16,8 @@ For each cell:
     counts what one device runs: FLOPs (`analysis.cost.op_cost`) split into
     bf16 / fp16 products (tensor cores) and the rest, bytes moved at each
     dtype's size (views move none), each collective's output bytes by kind
-    and mesh axis, and the live bytes of device storages.
+    and mesh axis (and by the phase, dtype and shape of what it moves:
+    `collectives.by_shape`), and the live bytes of device storages.
 
 Memory: `argument_bytes` are the local shards the step is given; the
 step's own storages are tracked from allocation to release (a finalizer on
@@ -165,11 +166,16 @@ class DeviceCount(TorchDispatchMode):
         self.counts: Dict[str, int] = {}
         self.coll_bytes: Dict[str, int] = {}
         self.axis_bytes: Dict[str, int] = {}
+        # (phase, kind, mesh axis, dtype, shape) of each collective's
+        # result -> how many
+        self.coll_shapes: Dict[Tuple, int] = {}
         self.layers: Dict[Tuple[str, int], Dict[str, float]] = {}
         self.ops = 0
         self._owner: Optional[Tuple[str, int]] = None
         self._args: set = set()
-        self._seen: set = set()
+        self._seen: Dict[int, Tuple] = {}
+        # the live storages when the peak was reached
+        self._at_peak: Dict[int, Tuple] = {}
         self.live = 0
         self.peak = 0
         # the peak of live bytes in each of `PHASES`
@@ -241,7 +247,7 @@ class DeviceCount(TorchDispatchMode):
         return "update" if self._update else "gradients"
 
     def _free(self, key: int, nbytes: int) -> None:
-        self._seen.discard(key)
+        self._seen.pop(key, None)
         self.live -= nbytes
 
     def _track(self, out, name: str) -> None:
@@ -250,11 +256,14 @@ class DeviceCount(TorchDispatchMode):
             key = id(st)
             if key in self._args or key in self._seen:
                 continue
-            self._seen.add(key)
             nbytes = st.nbytes()
-            self.live += nbytes
-            self.peak = max(self.peak, self.live)
             phase = self._phase(name)
+            self._seen[key] = (phase, name, str(t.dtype).replace("torch.", ""),
+                               tuple(t.shape), nbytes)
+            self.live += nbytes
+            if self.live > self.peak:
+                self.peak = self.live
+                self._at_peak = dict(self._seen)
             self.phase_peak[phase] = max(self.phase_peak[phase], self.live)
             weakref.finalize(st, self._free, key, nbytes)
 
@@ -314,6 +323,11 @@ class DeviceCount(TorchDispatchMode):
                 group = group[0]
                 axis = self.axes.get(group, group)
                 self.axis_bytes[axis] = self.axis_bytes.get(axis, 0) + b
+                for t in _tensors(out):
+                    key = (self._phase(name), kind, axis,
+                           str(t.dtype).replace("torch.", ""),
+                           tuple(t.shape))
+                    self.coll_shapes[key] = self.coll_shapes.get(key, 0) + 1
                 self.bytes += b + sum(_read_bytes(t) for t in _tensors(args))
             self._track(out, name)
             return out
@@ -355,6 +369,36 @@ class DeviceCount(TorchDispatchMode):
     @property
     def total_flops(self) -> float:
         return self.flops["tensor_core"] + self.flops["float32"]
+
+    def peak_by_op(self, top: int = 12) -> List[Dict[str, Any]]:
+        """The storages live at the step's peak, by the phase and op that
+        made them and their dtype and shape, most bytes first (the
+        largest `top`; a storage a view of a larger one reads the view's
+        shape)."""
+        rows: Dict[Tuple, List[int]] = {}
+        for ph, op, dt, shape, nbytes in self._at_peak.values():
+            row = rows.setdefault((ph, op, dt, shape), [0, 0])
+            row[0] += 1
+            row[1] += nbytes
+        out = [{"phase": ph, "op": op, "dtype": dt, "shape": list(shape),
+                "count": n, "bytes": b}
+               for (ph, op, dt, shape), (n, b) in rows.items()]
+        return sorted(out, key=lambda r: -r["bytes"])[:top]
+
+    def by_shape(self) -> List[Dict[str, Any]]:
+        """The collectives by phase, kind, mesh axis and the dtype and
+        local shape of their result (the tensors they move), most bytes
+        first."""
+        return shape_rows(self.coll_shapes)
+
+
+def shape_rows(counts: Dict[Tuple, int]) -> List[Dict[str, Any]]:
+    """`DeviceCount.coll_shapes` as the record's rows, most bytes first."""
+    rows = [{"phase": ph, "kind": kind, "axis": axis, "dtype": dt,
+             "shape": list(shape), "count": n,
+             "bytes": n * math.prod(shape) * getattr(torch, dt).itemsize}
+            for (ph, kind, axis, dt, shape), n in counts.items() if n]
+    return sorted(rows, key=lambda r: -r["bytes"])
 
 
 # ----------------------------------------------------------------------------
@@ -509,10 +553,8 @@ def _step_inputs(model, cfg: ModelConfig, shape: ShapeConfig, mesh):
         if mesh is not None:
             params = _place(params, mesh, shardlib.param_specs(
                 ms, params, fsdp=cfg.fsdp))
-            opt = adamw.AdamWState(*_place(list(opt), mesh,
-                                           shardlib.opt_state_specs(
-                                               ms, list(opt),
-                                               fsdp=cfg.fsdp)))
+            opt = adamw.AdamWState(*_place(list(opt), mesh, list(
+                shardlib.opt_state_specs(ms, opt, fsdp=cfg.fsdp))))
             batch = _place(batch, mesh, specs_mod.batch_shardings(ms, batch))
         step = steps_mod.make_train_step(meta, adamw.AdamWConfig())
         return step, (params, opt, batch), _leaves([params, list(opt),
@@ -527,7 +569,7 @@ def _step_inputs(model, cfg: ModelConfig, shape: ShapeConfig, mesh):
         batch = specs_mod.prefill_batch_specs(cfg, shape)
         if mesh is not None:
             batch = _place(batch, mesh, specs_mod.batch_shardings(ms, batch))
-        step = steps_mod.make_prefill_step(meta, shape.seq_len)
+        step = steps_mod.make_prefill_step(meta, shape.seq_len, mesh)
         return step, (params, batch), _leaves([params, batch]), params
     if shape.kind == "decode":
         cache, tokens = specs_mod.decode_specs(model, cfg, shape)
@@ -626,6 +668,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                    "output_bytes": count.out_bytes,
                    "temp_bytes": count.peak,
                    "temp_by_phase": dict(count.phase_peak),
+                   "peak_by_op": count.peak_by_op(),
                    "alias_bytes": count.alias_bytes,
                    "code_bytes": 0},
         "per_device_bytes": per_device,
@@ -637,6 +680,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "collectives": {"counts": count.counts,
                         "bytes_by_kind": count.coll_bytes,
                         "bytes_by_axis": count.axis_bytes,
+                        "by_shape": count.by_shape(),
                         "links": links,
                         "total_bytes_per_device": sum(
                             count.coll_bytes.values())},

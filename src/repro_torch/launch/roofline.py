@@ -205,10 +205,16 @@ def composed_cost(arch: str, shape_name: str,
         return out
     for key in _COMPOSED:
         out[key] = _weighted([r[key] for r in recs], weights)
-    out["memory"] = dict(_weighted([r["memory"] for r in recs], weights))
+    out["memory"] = dict(_weighted([
+        {k: v for k, v in r["memory"].items() if k != "peak_by_op"}
+        for r in recs], weights))
     for key in ("argument_bytes", "output_bytes", "alias_bytes",
                 "code_bytes"):
         out["memory"].setdefault(key, 0)
+    # what holds the peak is read off the deepest variant's trace
+    deep = max(range(len(recs)), key=lambda i: variants[i][0].n_layers)
+    out["memory"]["peak_by_op"] = recs[deep]["memory"].get("peak_by_op", [])
+    out["memory"]["peak_by_op_layers"] = variants[deep][0].n_layers
     phases, temp, temp_max = _composed_peak(recs, weights)
     out["memory"].update(temp_by_phase=phases, temp_bytes=temp,
                          temp_bytes_max=temp_max)
@@ -216,6 +222,10 @@ def composed_cost(arch: str, shape_name: str,
             for k in ("counts", "bytes_by_kind", "bytes_by_axis")}
     coll["links"] = recs[0]["collectives"]["links"]
     coll["total_bytes_per_device"] = sum(coll["bytes_by_kind"].values())
+    coll["by_shape"] = dryrun.shape_rows(_weighted([{
+        (r["phase"], r["kind"], r["axis"], r["dtype"], tuple(r["shape"])):
+            r["count"] for r in rec["collectives"].get("by_shape", ())}
+        for rec in recs], weights))
     out["collectives"] = coll
     args = out["memory"]["argument_bytes"]
     out["per_device_bytes"] = args + temp

@@ -139,12 +139,15 @@ def make_train_step_accum(model: Model, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill_step(model: Model, max_len: int) -> Callable:
-    """(params, batch) -> (last logits (B, V), a cache of max_len)."""
+def make_prefill_step(model: Model, max_len: int, mesh=None) -> Callable:
+    """(params, batch) -> (last logits (B, V), a cache of max_len). With
+    `mesh`, the cache is made inside the step already laid out by the
+    sharding rules (`Model.init_cache`), as the JAX step's `out_shardings`
+    place it."""
     _BUILDS[0] += 1
 
     def prefill_step(params, batch):
-        return model.prefill(params, dict(batch, max_len=max_len))
+        return model.prefill(params, dict(batch, max_len=max_len), mesh=mesh)
 
     return prefill_step
 

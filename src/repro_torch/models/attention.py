@@ -127,23 +127,22 @@ def forward(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
-               dtype, device=None) -> Dict:
+               dtype, device=None, new=None) -> Dict:
     """The decode cache of `n_layers` layers, every leaf stacked on a
-    leading layer axis (the JAX model's vmapped per-layer caches)."""
+    leading layer axis (the JAX model's vmapped per-layer caches), each
+    leaf made by `new(shape, dtype)` (zeros on `device` by default)."""
+    new = new or common.leaf_maker(device)
     hd = cfg.resolved_head_dim
     shape = (n_layers, batch, cfg.n_kv_heads, max_len, hd)
     if cfg.kv_cache_dtype == "int8":
         sshape = (n_layers, batch, cfg.n_kv_heads, max_len, 1)
         return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.zeros(sshape, dtype=torch.bfloat16,
-                                   device=device),
-            "v_scale": torch.zeros(sshape, dtype=torch.bfloat16,
-                                   device=device),
+            "k": new(shape, torch.int8),
+            "v": new(shape, torch.int8),
+            "k_scale": new(sshape, torch.bfloat16),
+            "v_scale": new(sshape, torch.bfloat16),
         }
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": new(shape, dtype), "v": new(shape, dtype)}
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -158,7 +157,8 @@ def _quantize_kv(x: torch.Tensor):
 def prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
             approx: Optional[ApproxSpec] = None
             ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward that also fills cache[..., 0:S, :] in place."""
+    """Full-sequence forward that also fills cache[..., 0:S, :] in place
+    (a placed cache shard by shard: `common.write_rows`)."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, positions)
@@ -168,10 +168,10 @@ def prefill(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
         vq, vs = _quantize_kv(v)
         for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
                           ("v_scale", vs)):
-            cache[name][:, :, :s].copy_(val)
+            common.write_rows(cache[name], val, 2)
         return out, cache
-    cache["k"][:, :, :s].copy_(k)
-    cache["v"][:, :, :s].copy_(v)
+    common.write_rows(cache["k"], k, 2)
+    common.write_rows(cache["v"], v, 2)
     return out, cache
 
 
@@ -186,7 +186,7 @@ def _decode_step_int8(p, cfg: ModelConfig, q, k, v, x, cache: Dict,
     vq, vs = _quantize_kv(v)
     for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
                       ("v_scale", vs)):
-        cache[name][:, :, pos:pos + 1].copy_(val)
+        common.write_rows(cache[name], val, 2, pos)
     ck, cv, cks, cvs = (cache["k"], cache["v"], cache["k_scale"],
                         cache["v_scale"])
     hq, hkv, d = q.shape[1], ck.shape[1], q.shape[-1]
@@ -217,8 +217,8 @@ def decode_step(p, cfg: ModelConfig, x: torch.Tensor, cache: Dict, pos: int,
     q, k, v = _project_qkv(p, cfg, x, positions)
     if cfg.kv_cache_dtype == "int8":
         return _decode_step_int8(p, cfg, q, k, v, x, cache, pos)
-    cache["k"][:, :, pos:pos + 1].copy_(k)
-    cache["v"][:, :, pos:pos + 1].copy_(v)
+    common.write_rows(cache["k"], k, 2, pos)
+    common.write_rows(cache["v"], v, 2, pos)
     keep_mask = None
     if approx is not None and approx.technique == Technique.PERFORATION:
         keep_mask = _decode_keep_mask(cache["k"].shape[2],

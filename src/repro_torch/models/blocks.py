@@ -50,7 +50,9 @@ def block_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   approx_attn: Optional[ApproxSpec] = None,
                   approx_ffn: Optional[ApproxSpec] = None,
                   causal: bool = True) -> Tuple[torch.Tensor, object]:
-    """Returns (x, aux_loss); aux_loss is None for a dense block."""
+    """Returns (x, aux_loss); aux_loss is None for a dense block. FSDP's
+    weights are gathered for the block (`common.gather_fsdp`)."""
+    p = common.gather_fsdp(p, x)
     h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     attn_mod = mla if cfg.use_mla else attention
     x = x + attn_mod.forward(p["attn"], cfg, h, positions, causal=causal,
@@ -83,9 +85,10 @@ def block_decode(p: Dict, cfg: ModelConfig, x, cache, pos: int,
 
 
 def init_block_cache(cfg: ModelConfig, n_layers: int, batch: int,
-                     max_len: int, dtype, device=None) -> Dict:
+                     max_len: int, dtype, device=None, new=None) -> Dict:
     attn_mod = mla if cfg.use_mla else attention
-    return attn_mod.init_cache(cfg, n_layers, batch, max_len, dtype, device)
+    return attn_mod.init_cache(cfg, n_layers, batch, max_len, dtype, device,
+                               new)
 
 
 # ----------------------------------------------------------------------------

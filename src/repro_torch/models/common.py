@@ -9,8 +9,9 @@ its `scan_layers` is a Python loop in `models.lm`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +90,97 @@ class DtypeRule:
         return self.use(name, self.store(name, t))
 
 
+# ----------------------------------------------------------------------------
+# cache leaves
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafShape:
+    """A cache leaf's shape, dtype and fill value, nothing allocated: the
+    leaf maker a model's cache is built with to lay it out first (a leaf
+    of a tree, not a sequence)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    fill: float = 0
+
+
+def leaf_maker(device):
+    """The plain leaf maker of a cache: `new(shape, dtype, fill=0)`, a
+    tensor of `fill` on `device`."""
+    def new(shape, dtype, fill=0):
+        if fill:
+            return torch.full(shape, fill, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return new
+
+
+def placed_leaf(leaf: LeafShape, mesh, places, device) -> torch.Tensor:
+    """The DTensor of `leaf`'s shape laid out by `places` on `mesh`, filled
+    with `leaf.fill`: only this device's shard is allocated, on
+    `device`."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape = tuple(leaf.shape)
+    local_shape = compute_local_shape_and_global_offset(shape, mesh,
+                                                        places)[0]
+    local = leaf_maker(device)(tuple(local_shape), leaf.dtype, leaf.fill)
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=shape, stride=contiguous_strides(shape))
+
+
+def contiguous_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape` (computed, not read
+    off an allocation, which the dry run would count)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
+
+
+def write_rows(dst: torch.Tensor, src: torch.Tensor, dim: int,
+               start: int = 0) -> torch.Tensor:
+    """`dst`'s entries `start` .. `start + n` along `dim` set to `src` (n =
+    `src.shape[dim]`), in place, cast to `dst`'s dtype: a cache filled by a
+    prompt, or written at a decoded position. A DTensor `dst` is written
+    shard by shard: `src` is laid out as `dst` (whole along `dim` unless it
+    covers all of it there), so the write moves no more than that
+    redistribution (none where the layouts agree, a local slice where
+    `src` is whole), and each device copies the rows its shard holds.
+    DTensor's own copy into a slice of a split dim makes the slice whole:
+    it writes a temporary, and `dst` is left as it was. Plain tensors are
+    written as they are."""
+    n = src.shape[dim]
+    dim %= dst.ndim
+    if not hasattr(dst, "placements"):
+        dst[(slice(None),) * dim + (slice(start, start + n),)].copy_(src)
+        return dst
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = dst.device_mesh
+    if not hasattr(src, "placements"):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    part = start != 0 or n != dst.shape[dim]
+    want = [Replicate() if part and isinstance(p, Shard)
+            and p.dim % dst.ndim == dim else p for p in dst.placements]
+    if list(src.placements) != want:
+        src = src.redistribute(mesh, want)
+    d_loc, s_loc = dst.to_local(), src.to_local()
+    if not part:
+        d_loc.copy_(s_loc)
+        return dst
+    lo = compute_local_shape_and_global_offset(
+        dst.shape, mesh, dst.placements)[1][dim]
+    a, b = max(start, lo), min(start + n, lo + d_loc.shape[dim])
+    if b > a:
+        d_loc.narrow(dim, a - lo, b - a).copy_(s_loc.narrow(dim, a - start,
+                                                              b - a))
+    return dst
+
+
 def unshard(t: torch.Tensor, dim: int) -> torch.Tensor:
     """`t` with dim `dim` whole on every rank: a DTensor sharded (or
     partial) along it is redistributed to replicate there, for an op that
@@ -101,6 +193,37 @@ def unshard(t: torch.Tensor, dim: int) -> torch.Tensor:
     places = [Replicate() if not isinstance(p, Shard) or p.dim == dim
               else p for p in t.placements]
     return t.redistribute(t.device_mesh, places)
+
+
+def gather_fsdp(tree, x: torch.Tensor):
+    """`tree` (a layer's parameters: dicts and lists of tensors) with each
+    DTensor leaf made whole over the mesh dims that split `x`'s batch (its
+    dim 0): FSDP's gather of a layer's weights before it runs, as GSPMD
+    gathers a weight split over the data axes where it meets activations
+    split over them. DTensor's own product would instead move the
+    activations to the weight's split (the batch made whole on every
+    device, the product a partial sum over the data axes). A weight's
+    gradient goes back to its split as a reduce-scatter. Weights split
+    over no such dim, and plain trees, are returned as they are."""
+    if not hasattr(x, "placements"):
+        return tree
+    from torch.distributed.tensor import Replicate, Shard
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in x.placements]
+
+    def one(t):
+        if isinstance(t, dict):
+            return {k: one(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [one(v) for v in t]
+        if not hasattr(t, "placements"):
+            return t
+        places = [Replicate() if b and isinstance(p, Shard) else p
+                  for b, p in zip(batch, t.placements)]
+        if places == list(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, places)
+
+    return one(tree)
 
 
 def settle(t: torch.Tensor) -> torch.Tensor:
@@ -193,6 +316,53 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return settle(_from_local(rows, mesh, [
         Partial() if v else q for v, q in zip(vocab, tokens.placements)],
         shape))
+
+
+def logsumexp_pick(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp of `logits` over its last dim, `logits` at `labels`
+    there), each shaped as `labels`: a loss's log-partition and gold
+    logit. A DTensor split along the last dim (the head's vocab) keeps it
+    split, as GSPMD keeps it, and each device works on its own shard: its
+    largest logit, the all-reduced max of which is the shift; its sum of
+    shifted exponents, all-reduced into the partition; its logit at each
+    label its shard holds (zero at the others), all-reduced into the gold
+    logit. The gradient is the plain one (the shift is a constant). The
+    other dims keep their layout, `labels` laid out alike. DTensor's own
+    gather along a split dim fails in some versions, and making the vocab
+    whole holds a chunk's float32 logits whole on every device."""
+    if not hasattr(logits, "placements"):
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None])[..., 0])
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    logits = settle(logits)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [isinstance(p, Shard) and p.dim % logits.ndim == last
+             for p in logits.placements]
+    rest = [Replicate() if v else p for v, p in zip(vocab, logits.placements)]
+    if not hasattr(labels, "placements"):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    if list(labels.placements) != rest:
+        labels = labels.redistribute(mesh, rest)
+    shape = tuple(logits.shape[:-1])
+
+    def summed(local, op="sum"):
+        return _from_local(local, mesh, [
+            Partial(op) if v else p for v, p in zip(vocab, rest)],
+            shape).redistribute(mesh, rest)
+
+    lg = logits.to_local()
+    lo = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)[1][last]
+    m = summed(lg.detach().amax(dim=-1), "max").to_local()
+    s = summed(torch.exp(lg - m[..., None]).sum(dim=-1))
+    lb = labels.to_local() - lo
+    inside = (lb >= 0) & (lb < lg.shape[-1])
+    gold = torch.gather(lg, -1, lb.clamp(0, lg.shape[-1] - 1)[..., None])
+    gold = summed(gold[..., 0] * inside.to(lg.dtype))
+    return _from_local(m, mesh, rest, shape) + torch.log(s), gold
 
 
 def along(fn, t: torch.Tensor, dims, *others):
@@ -410,15 +580,25 @@ def rmsnorm_params(d: int, hold):
     return {"scale": hold("scale", torch.ones((d,)))}
 
 
-def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    # `xf` feeds the variance and the output: each use's gradient comes
-    # back in `xf`'s layout before the two are added (under FSDP they can
-    # come back in layouts whose sum needs a shard turned partial)
-    xf = x.float()
-    xv = pin_grad(xf)
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5,
+            pin: bool = False) -> torch.Tensor:
+    """RMS norm in float32. A DTensor input's partial sums are summed in its
+    own dtype first, and the output's gradient is summed there too before
+    it enters the norm's float32 backward (`pin_grad`): one all-reduce of
+    the compute dtype each way, as GSPMD sums the residual stream, where
+    DTensor would sum the float32 products inside the norm (several per
+    norm, at twice the bytes). With `pin`, each of the two uses of the
+    input (the variance and the output) also gets its gradient back in the
+    input's layout before the two are added: where they come back in
+    layouts whose sum DTensor cannot redistribute (MLA's query latent under
+    FSDP: a shard plus a partial sum), at the cost of an all-reduce of
+    each."""
+    xf = settle(x).float()
+    xv = pin_grad(xf) if pin else xf
     var = torch.mean(xv * xv, dim=-1, keepdim=True)
-    out = pin_grad(xf) * torch.rsqrt(var + eps) * p["scale"].float()
-    return out.to(x.dtype)
+    out = (pin_grad(xf) if pin else xf) * torch.rsqrt(var + eps) \
+        * p["scale"].float()
+    return pin_grad(out.to(x.dtype))
 
 
 def layernorm_params(d: int, hold):
@@ -427,12 +607,14 @@ def layernorm_params(d: int, hold):
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    """Layer norm in float32; a DTensor's partial sums, and its output's
+    gradient's, are summed in its own dtype (as `rmsnorm`'s)."""
+    xf = settle(x).float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * p["scale"].float() + p["bias"].float()
-    return out.to(x.dtype)
+    return pin_grad(out.to(x.dtype))
 
 
 def norm_params(kind: str, d: int, hold):
@@ -518,8 +700,8 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         out = torch.matmul(a.to_local().float(), b.to_local().float())
         shape = tuple(a.shape[:-1]) + (b.shape[-1],)
         return DTensor.from_local(out, mesh, places, run_check=False,
-                                  shape=shape, stride=torch.empty(
-                                      shape, device="meta").stride())
+                                  shape=shape,
+                                  stride=contiguous_strides(shape))
     return torch.matmul(a.float(), b.float())
 
 
@@ -629,30 +811,56 @@ def _attention_by_shard(q, k, v, **kw) -> torch.Tensor:
     k and v split alike over batch and heads (and whole over sequence and
     head dims) each device runs the plain chunked attention on its local
     shards, with no collective (GSPMD's plan). q is made whole along any
-    other split (and its partial sums summed); k and v take q's split, as
-    local slices, after their heads are repeated to q's where q's heads are
-    split over ranks that do not split theirs alike. DTensor run op by op
-    would plan every chunk pair's ops (millions at 32k) and refuses some of
-    them: the pad of a ragged chunk, the flattened batch dims of a product
-    split over two mesh dims."""
+    other split (and its partial sums summed); heads whole on every rank
+    of a mesh dim that splits neither them nor the batch (heads that do not
+    divide the model ranks, which `split_heads` leaves whole) are split
+    there too, padded with zero heads to a multiple of its ranks as GSPMD
+    pads them (dropped from the output, which comes back with its heads
+    whole), so that no device holds every head's chunk probabilities; k
+    and v take q's split, as local slices, after their heads are repeated
+    to q's where q's heads are split over ranks that do not split theirs
+    alike. DTensor run op by op would plan every chunk pair's ops
+    (millions at 32k) and refuses some of them: the pad of a ragged chunk,
+    the flattened batch dims of a product split over two mesh dims."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = q.device_mesh
     places = [p if isinstance(p, Shard) and p.dim % 4 < 2 else Replicate()
               for p in q.placements]
     if list(q.placements) != places:
         q = q.redistribute(mesh, places)
-    rep = q.shape[1] // k.shape[1]
+    heads, pad = q.shape[1], 0
+    whole = [md for md, p in enumerate(places) if isinstance(p, Replicate)]
+    if whole and heads > 1 and not any(
+            isinstance(p, Shard) and p.dim % 4 == 1 for p in places):
+        pad = -heads % mesh.size(whole[-1])
+        places[whole[-1]] = Shard(1)
+    rep = heads // k.shape[1]
     if rep > 1 and any(
             isinstance(p, Shard) and p.dim % 4 == 1
-            and (k.shape[1] % mesh.size(md) or q.shape[1] % mesh.size(md))
+            and (k.shape[1] % mesh.size(md) or heads % mesh.size(md))
             for md, p in enumerate(places)):
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
+    if pad:
+        q, k, v = (_pad_heads(t, pad) for t in (q, k, v))
     k, v = (t if list(t.placements) == places else t.redistribute(mesh, places)
             for t in (k, v))
+    if list(q.placements) != places:
+        q = q.redistribute(mesh, places)
     out = chunked_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
-    shape = tuple(q.shape[:3]) + (v.shape[-1],)
-    return _from_local(out, mesh, places, shape)
+    out = _from_local(out, mesh, places,
+                      tuple(q.shape[:3]) + (v.shape[-1],))
+    return unshard(out, 1)[:, :heads] if pad else out
+
+
+def _pad_heads(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """DTensor `t` (B, H, S, D) with `pad` zero heads after its own, its
+    heads made whole first (the padding on its local shards)."""
+    t = unshard(t, 1)
+    local = torch.nn.functional.pad(t.to_local(), (0, 0, 0, 0, 0, pad))
+    shape = list(t.shape)
+    shape[1] += pad
+    return _from_local(local, t.device_mesh, t.placements, shape)
 
 
 def full_attention(q, k, v, *, causal: bool = True,

@@ -138,13 +138,14 @@ FLOAT32_LEAVES = moe.FLOAT32_LEAVES + mamba2.FLOAT32_LEAVES \
 
 def _chunk_nll(h, w, labels, mask):
     """The masked negative log-likelihood summed over one chunk: float32
-    logits of `h @ w` (rounded in h's dtype first, as JAX's einsum). The
-    head's gradient from each chunk comes back in the head's layout
-    (`pin_grad`), so the chunks' (and MTP's) gradients add alike."""
-    logits = common.unshard((h @ common.pin_grad(w)).float(), -1)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = common.along(lambda lg, lb: torch.gather(lg, -1, lb), logits, -1,
-                        labels[..., None])[..., 0]
+    logits of `h @ w` (rounded in h's dtype first, as JAX's einsum), kept
+    in the head's vocab-split layout (`common.logsumexp_pick`). The
+    product runs shard by shard (`common.by_shard`: the vocab split as the
+    head's, the batch as h's, GSPMD's plan), so every chunk's (and MTP's)
+    head gradient comes back alike, a sum pending over the batch's ranks
+    that the chunks add to and that is summed once after the loss."""
+    logits = common.by_shard(torch.matmul, "bcd,dv->bcv", h, w, free="bcv")
+    logz, gold = common.logsumexp_pick(logits.float(), labels)
     return torch.sum((logz - gold) * mask)
 
 
@@ -163,7 +164,7 @@ def chunked_xent(h: torch.Tensor, head_w: torch.Tensor, labels,
     labels = torch.as_tensor(labels, device=h.device).long()
     mask = (torch.ones((b, s), dtype=torch.float32, device=h.device)
             if mask is None else mask.float())
-    w = head_w.to(h.dtype)
+    w = common.gather_fsdp(head_w, h).to(h.dtype)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(s // chunk):
@@ -269,6 +270,24 @@ class Model:
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """(B, V) float32 logits of the (B, d) hidden states `x`."""
         return (x @ self._head_w(params)).float()
+
+    def init_cache(self, batch_size: int, max_len: int = 0,
+                   mesh=None) -> Dict:
+        """A cache of zeros (the TAF thresholds their value) for
+        `batch_size` sequences of up to `max_len` positions, on the
+        model's device. With `mesh`, each leaf is a DTensor laid out by
+        the sharding rules (`runtime.sharding.cache_specs`, the JAX dry
+        run's `out_shardings` of a prefill), only this device's shard
+        allocated."""
+        if mesh is None:
+            return self._cache(batch_size, max_len,
+                               common.leaf_maker(self.device))
+        from ..runtime import sharding as shardlib
+        shapes = self._cache(batch_size, max_len, common.LeafShape)
+        specs = shardlib.cache_specs(mesh, shapes, batch_size)
+        return map_cache(lambda _p, leaf, spec: common.placed_leaf(
+            leaf, mesh, shardlib.placements(mesh, spec), self.device),
+            shapes, specs)
 
 
 # ============================================================================
@@ -380,7 +399,7 @@ class Transformer(Model):
             emb_next = common.embed_rows(params["embed"],
                                          self._tokens(batch["tokens"]))
             cat = torch.cat([x[:, :-1], emb_next[:, 1:]], dim=-1)
-            hm = cat @ params["mtp"]["proj"]
+            hm = cat @ common.gather_fsdp(params["mtp"]["proj"], cat)
             positions = torch.arange(hm.shape[1], device=self.device)
             hm, _ = blocks.block_forward(params["mtp"]["block"], cfg, hm,
                                          positions)
@@ -389,21 +408,22 @@ class Transformer(Model):
             out = out + cfg.mtp_loss_coef * mtp_loss
         return out + aux, metrics
 
-    def init_cache(self, batch_size: int, max_len: int) -> Dict:
+    def _cache(self, batch_size: int, max_len: int, new) -> Dict:
         cache = {ck: blocks.init_block_cache(
-            self.cfg, n, batch_size, max_len, self.cdt, self.device)
+            self.cfg, n, batch_size, max_len, self.cdt, new=new)
             for ck, n in (("dense", self.n_dense), ("moe", self.n_moe)) if n}
         if self.taf_enabled:
-            cache["taf"] = self._taf_init_cache(batch_size)
+            cache["taf"] = self._taf_init_cache(batch_size, new)
         return cache
 
-    def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, params, batch, mesh=None) -> Tuple[torch.Tensor, Dict]:
         """(last-position logits (B, V) float32, a fresh cache of
-        `batch["max_len"]` positions holding the prompt's K/V; the vlm's
-        prompt starts with its patch embeddings)."""
+        `batch["max_len"]` positions holding the prompt's K/V, laid out on
+        `mesh` when one is given (`init_cache`); the vlm's prompt starts
+        with its patch embeddings)."""
         cfg = self.cfg
         x = self._embed(params, batch)
-        cache = self.init_cache(x.shape[0], batch["max_len"])
+        cache = self.init_cache(x.shape[0], batch["max_len"], mesh)
         for pk, ck in self._stacks():
             for l, lp in enumerate(params[pk]):
                 x, _ = blocks.block_prefill(
@@ -417,26 +437,21 @@ class Transformer(Model):
     # decode
     # ------------------------------------------------------------------
 
-    def _taf_init_cache(self, batch_size: int) -> Dict:
-        cfg, dev = self.cfg, self.device
+    def _taf_init_cache(self, batch_size: int, new) -> Dict:
+        cfg = self.cfg
         t = cfg.approx_decode.taf
         n = cfg.n_layers
         hd = cfg.resolved_head_dim
         return {
             # the RSD threshold, one scalar per layer, as data the QoS plane
             # writes between ticks (never a rebuild)
-            "threshold": torch.full((n,), t.rsd_threshold,
-                                    dtype=torch.float32, device=dev),
-            "window": torch.zeros((n, t.history_size), dtype=torch.float32,
-                                  device=dev),
-            "filled": torch.zeros((n,), dtype=torch.int32, device=dev),
-            "remaining": torch.zeros((n,), dtype=torch.int32, device=dev),
-            "memo_delta": torch.zeros((n, batch_size, cfg.d_model),
-                                      dtype=torch.float32, device=dev),
-            "memo_k": torch.zeros((n, batch_size, cfg.n_kv_heads, 1, hd),
-                                  dtype=self.cdt, device=dev),
-            "memo_v": torch.zeros((n, batch_size, cfg.n_kv_heads, 1, hd),
-                                  dtype=self.cdt, device=dev),
+            "threshold": new((n,), torch.float32, t.rsd_threshold),
+            "window": new((n, t.history_size), torch.float32),
+            "filled": new((n,), torch.int32),
+            "remaining": new((n,), torch.int32),
+            "memo_delta": new((n, batch_size, cfg.d_model), torch.float32),
+            "memo_k": new((n, batch_size, cfg.n_kv_heads, 1, hd), self.cdt),
+            "memo_v": new((n, batch_size, cfg.n_kv_heads, 1, hd), self.cdt),
         }
 
     def _decode_layer_taf(self, lp, l: int, kv: Dict, taf: Dict, sums, x,
@@ -579,16 +594,16 @@ class Hybrid(Model):
         return common.apply_norm(cfg.norm, params["final_norm"], x,
                                  cfg.norm_eps)
 
-    def init_cache(self, batch_size: int, max_len: int) -> Dict:
-        cfg, dev = self.cfg, self.device
+    def _cache(self, batch_size: int, max_len: int, new) -> Dict:
+        cfg = self.cfg
         return {
             "mamba_main": mamba2.init_cache(cfg, (self.n_groups, self.mpg),
-                                            batch_size, self.cdt, dev),
+                                            batch_size, self.cdt, new=new),
             "mamba_tail": (mamba2.init_cache(cfg, (self.tail,), batch_size,
-                                             self.cdt, dev)
+                                             self.cdt, new=new)
                            if self.tail else None),
             "attn": blocks.init_block_cache(cfg, self.n_groups, batch_size,
-                                            max_len, self.cdt, dev),
+                                            max_len, self.cdt, new=new),
         }
 
     def _run(self, params, x, cache, mixer, shared):
@@ -607,15 +622,15 @@ class Hybrid(Model):
                               self.cfg.norm_eps)
         return x
 
-    def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, params, batch, mesh=None) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
         x = common.embed_rows(params["embed"], self._tokens(batch["tokens"]))
-        cache = self.init_cache(x.shape[0], batch["max_len"])
+        cache = self.init_cache(x.shape[0], batch["max_len"], mesh)
 
         def mixer(mp, mc, h):
             h, state = blocks.mamba_sublayer_prefill(mp, cfg, h)
             for k, t in state.items():        # cast to the cache's dtypes
-                mc[k].copy_(t)
+                common.write_rows(mc[k], t, 0)
             return h
 
         def shared(h, ac):
@@ -633,7 +648,7 @@ class Hybrid(Model):
         def mixer(mp, mc, h):
             h, state = blocks.mamba_sublayer_decode(mp, cfg, h, mc)
             for k, t in state.items():
-                mc[k].copy_(t)
+                common.write_rows(mc[k], t, 0)
             return h
 
         def shared(h, ac):
@@ -665,9 +680,9 @@ class Rwkv(Model):
                 "final_norm": common.norm_params("ln", cfg.d_model, hold),
                 "head": self._head_init(generator, hold)}
 
-    def init_cache(self, batch_size: int, max_len: int = 0) -> Dict:
+    def _cache(self, batch_size: int, max_len: int, new) -> Dict:
         return rwkv6.init_cache(self.cfg, self.cfg.n_layers, batch_size,
-                                self.cdt, self.device)
+                                self.cdt, new=new)
 
     def _run(self, params, tokens, cache, remat: bool = False,
              write: bool = True) -> torch.Tensor:
@@ -691,9 +706,9 @@ class Rwkv(Model):
         return self._run(params, tokens, self.init_cache(tokens.shape[0]),
                          remat=remat, write=False)
 
-    def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, params, batch, mesh=None) -> Tuple[torch.Tensor, Dict]:
         tokens = self._tokens(batch["tokens"])
-        cache = self.init_cache(tokens.shape[0])
+        cache = self.init_cache(tokens.shape[0], mesh=mesh)
         x = self._run(params, tokens, cache)
         return self._logits(params, x[:, -1]), cache
 

@@ -127,6 +127,30 @@ def _ssd_chunked(xh, dt, A, B, C, chunk: int):
     return common.merge_dims(y_intra + y_inter, 1), h
 
 
+def _ssd(xh, dt, A, B, C, chunk: int):
+    """`_ssd_chunked`; DTensors scan shard by shard over batch and heads
+    (`common.by_shard`: the scan mixes no two heads or batch rows), the
+    heads split over the last mesh dim that splits nothing of `xh` and
+    whose ranks divide them (a local slice), as GSPMD keeps the heads of
+    the input projection's column split. With one group, each device then
+    holds its heads' (chunk x chunk) decays, the scan's largest tensors,
+    where the whole heads would be held on every device; B and C stay
+    whole (their gradient a partial sum over the heads' ranks). More
+    groups than one keep the heads as they come."""
+    if hasattr(xh, "placements") and B.shape[2] == 1:
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = xh.device_mesh
+        free = [md for md, p in enumerate(xh.placements)
+                if isinstance(p, Replicate) and xh.shape[2] % mesh.size(md) == 0]
+        if free:
+            places = list(xh.placements)
+            places[free[-1]] = Shard(2)
+            xh = xh.redistribute(mesh, places)
+    return common.by_shard(lambda *ts: _ssd_chunked(*ts, chunk),
+                           "bshp,bsh,h,bsgn,bsgn->bshp,bhpn", xh, dt, A, B, C,
+                           free="bh")
+
+
 def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
             return_state: bool = False):
     """Full-sequence Mamba2 mixer. x: (B, S, d_model). With
@@ -154,8 +178,8 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
         dt_f = F.pad(dt_f, (0, 0, 0, pad))
         B_p = F.pad(B, (0, 0, 0, 0, 0, pad))
         C_p = F.pad(C, (0, 0, 0, 0, 0, pad))
-    y, h_final = _ssd_chunked(xh_p.float(), dt_f, A, B_p.float(),
-                              C_p.float(), chunk)
+    y, h_final = _ssd(xh_p.float(), dt_f, A, B_p.float(), C_p.float(),
+                      chunk)
     y = y[:, :S] + xh.float() * p["D"][None, None, :, None]
     y = common.merge_dims(y, 2).to(x.dtype)
     y = common.rmsnorm(p["norm"], y * common.silu(z), cfg.norm_eps)
@@ -173,17 +197,19 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
 
 
 def init_cache(cfg: ModelConfig, lead: Tuple[int, ...], batch: int, dtype,
-               device=None) -> Dict:
+               device=None, new=None) -> Dict:
     """The decode cache of a stack of mixers with leading shape `lead`
-    (the JAX model's vmapped caches): conv in `dtype`, ssm in float32."""
+    (the JAX model's vmapped caches): conv in `dtype`, ssm in float32,
+    each leaf made by `new(shape, dtype)` (zeros on `device` by
+    default)."""
+    new = new or common.leaf_maker(device)
     s, d_in, nh = _dims(cfg)
     conv_dim = d_in + 2 * s.n_groups * s.d_state
     return {
-        "conv": torch.zeros(tuple(lead) + (batch, s.conv_width - 1,
-                                           conv_dim), dtype=dtype,
-                            device=device),
-        "ssm": torch.zeros(tuple(lead) + (batch, nh, s.head_dim, s.d_state),
-                           dtype=torch.float32, device=device),
+        "conv": new(tuple(lead) + (batch, s.conv_width - 1, conv_dim),
+                    dtype),
+        "ssm": new(tuple(lead) + (batch, nh, s.head_dim, s.d_state),
+                   torch.float32),
     }
 
 

@@ -42,8 +42,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
 
 def _queries(p, cfg: ModelConfig, x, positions):
     m = cfg.mla
-    cq = common.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
-    q = common.split_heads(cq @ p["w_uq"], cfg.n_heads,
+    # under FSDP the latent's two uses in its norm get gradients back in
+    # layouts whose sum DTensor cannot redistribute: pinned
+    cq = common.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps, pin=True)
+    # the latent made whole before the column-split up-projection (an
+    # all-gather of (B, S, q_lora_rank), as GSPMD plans it; DTensor would
+    # move the weight and all-reduce the heads' whole queries)
+    q = common.split_heads(common.unshard(cq, -1) @ p["w_uq"], cfg.n_heads,
                            m.qk_nope_head_dim + m.qk_rope_head_dim)
     q = q.transpose(1, 2)
     q_nope = q[..., :m.qk_nope_head_dim]
@@ -95,15 +100,16 @@ def forward(p, cfg: ModelConfig, x: torch.Tensor, positions,
 
 
 def init_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
-               dtype, device=None) -> Dict:
-    """The latent cache of `n_layers` layers, stacked on a leading axis."""
+               dtype, device=None, new=None) -> Dict:
+    """The latent cache of `n_layers` layers, stacked on a leading axis,
+    each leaf made by `new(shape, dtype)` (zeros on `device` by
+    default)."""
+    new = new or common.leaf_maker(device)
     m = cfg.mla
     return {
-        "ckv": torch.zeros((n_layers, batch, max_len, m.kv_lora_rank),
-                           dtype=dtype, device=device),
-        "k_rope": torch.zeros((n_layers, batch, 1, max_len,
-                               m.qk_rope_head_dim), dtype=dtype,
-                              device=device),
+        "ckv": new((n_layers, batch, max_len, m.kv_lora_rank), dtype),
+        "k_rope": new((n_layers, batch, 1, max_len, m.qk_rope_head_dim),
+                      dtype),
     }
 
 
@@ -114,8 +120,8 @@ def prefill(p, cfg: ModelConfig, x, cache,
     s = x.shape[1]
     out, ckv, k_rope = _attend(p, cfg, x, torch.arange(s, device=x.device),
                                True)
-    cache["ckv"][:, :s].copy_(ckv)
-    cache["k_rope"][:, :, :s].copy_(k_rope)
+    common.write_rows(cache["ckv"], ckv, 1)
+    common.write_rows(cache["k_rope"], k_rope, 2)
     return out, cache
 
 
@@ -136,8 +142,8 @@ def decode_step(p, cfg: ModelConfig, x, cache, pos: int,
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = q[..., m.qk_nope_head_dim:]
     ckv_t, k_rope_t = _latent(p, cfg, x, positions)
-    cache["ckv"][:, pos:pos + 1].copy_(ckv_t)
-    cache["k_rope"][:, :, pos:pos + 1].copy_(k_rope_t)
+    common.write_rows(cache["ckv"], ckv_t, 1, pos)
+    common.write_rows(cache["k_rope"], k_rope_t, 2, pos)
     ckv = cache["ckv"].to(x.dtype)                            # (B,S,R)
     k_rope = cache["k_rope"].to(x.dtype)[:, 0]                # (B,S,rd)
     skv = ckv.shape[1]

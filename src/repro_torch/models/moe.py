@@ -91,6 +91,107 @@ def route(logits: torch.Tensor, k: int, cap: int):
     return top_i, top_w, pos, pos < cap, probs
 
 
+def _expert_counts(top_i: torch.Tensor, n_e: int) -> torch.Tensor:
+    """(E,) float32: how many (token, slot) pairs chose each expert. A
+    DTensor's devices count their own tokens' choices, summed over the
+    ranks that split them (an all-reduce of E counts; DTensor cannot add
+    into a plain tensor, nor index-add a split index)."""
+    if not hasattr(top_i, "placements"):
+        ce = torch.zeros((n_e,), dtype=torch.float32, device=top_i.device)
+        ce.index_add_(0, top_i.reshape(-1),
+                      torch.ones(top_i.numel(), device=top_i.device))
+        return ce
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    local = top_i.to_local()
+    ce = torch.zeros((n_e,), dtype=torch.float32, device=local.device)
+    ce.index_add_(0, local.reshape(-1),
+                  torch.ones(local.numel(), device=local.device))
+    return common.settle(common._from_local(ce, top_i.device_mesh, [
+        Partial() if isinstance(p, Shard) else Replicate()
+        for p in top_i.placements], (n_e,)))
+
+
+def _dispatch_by_shard(xg, slot, keep, w_kept, w_experts, n_e: int,
+                       cap: int):
+    """The dispatch and combine of DTensors, each device on its own shard,
+    as GSPMD lays them out under the JAX module's hints: the (g, E, C, d)
+    buffer's groups split as the tokens `xg` (g, group, d) are (the data
+    axes) and its experts where the expert stacks `w_experts` split theirs
+    (`model`, each device its own experts' weights). `slot`, `keep` and
+    `w_kept` are each (token, slot) pair's row e * C + pos, whether it
+    fits and its weight, (g, group * k).
+
+    Each device fills its shard of the buffer with a gather: each of its
+    rows takes the token that chose it (zeros where none did), so neither
+    the k copies of each token nor the whole buffer's spare row (which
+    would make its expert dim uneven) are made. Returns (the buffer,
+    `combine`): `combine(ye)` of the experts' outputs (g, E, C, d) is each
+    token's kept slots on this device weighted by `w_kept` and summed in
+    float32, as a product with the shard's (group, E_shard * C) combine
+    weights (JAX's combine einsum, where gathering each slot's output
+    would hold k float32 copies of the tokens), cast to the compute dtype,
+    then summed over the devices that split the experts (an all-reduce of
+    the (g, group, d) output). The routing decisions, capacities and drops
+    are the plain version's; the sum over a token's slots runs in another
+    order."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    g, group, d = xg.shape
+    k = slot.shape[1] // group
+    mesh = xg.device_mesh
+    places, grads = [], []
+    for p, pw in zip(xg.placements, w_experts.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            places.append(Shard(0))
+            grads.append(Shard(0))
+        elif isinstance(pw, Shard) and pw.dim == 0:
+            places.append(Shard(1))      # experts: this device's only
+            grads.append(Partial())
+        else:
+            places.append(Replicate())
+            grads.append(Replicate())
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in places]
+    shape = (g, n_e, cap, d)
+    local_shape, offset = compute_local_shape_and_global_offset(
+        shape, mesh, places)
+    n_rows, lo = local_shape[1] * cap, offset[1] * cap   # this device's
+    xg, slot, keep, w_kept = (
+        v if list(v.placements) == rows else v.redistribute(mesh, rows)
+        for v in (common.settle(xg), slot, keep, w_kept))
+    x_l = xg.to_local(grad_placements=grads)
+    g_l, dev = x_l.shape[0], x_l.device
+    mine = slot.to_local() - lo
+    col = torch.where(keep.to_local() & (mine >= 0) & (mine < n_rows), mine,
+                      n_rows)                 # other slots: a spare column
+    token = torch.arange(group * k, device=dev).expand(g_l, -1) // k
+    # the token each of the shard's rows takes (`group`: none)
+    who = torch.full((g_l, n_rows + 1), group, dtype=token.dtype, device=dev)
+    who.scatter_(1, col, token)
+    who = who[:, :n_rows].unsqueeze(-1)
+    xe = torch.where(who < group, torch.gather(
+        x_l, 1, who.clamp(max=group - 1).expand(-1, -1, d)), 0)
+    xe = common._from_local(xe.reshape(g_l, -1, cap, d), mesh, places, shape)
+    weights = torch.zeros((g_l, group * (n_rows + 1)), dtype=torch.float32,
+                          device=dev)
+    weights.scatter_add_(1, token * (n_rows + 1) + col,
+                         w_kept.to_local(grad_placements=grads)[..., 0]
+                         .float())
+    weights = weights.view(g_l, group, n_rows + 1)[..., :n_rows]
+
+    def combine(ye):
+        if list(ye.placements) != places:
+            ye = ye.redistribute(mesh, places)
+        out = torch.bmm(weights, ye.to_local().reshape(g_l, n_rows, d)
+                        .float()).to(x_l.dtype)
+        return common.settle(common._from_local(out, mesh, [
+            Partial() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in places], (g, group, d)))
+
+    return xe, combine
+
+
 def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
             approx: Optional[ApproxSpec] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,33 +236,38 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     # aux load-balance loss (Switch-style): E * sum_e f_e * P_e
     me = probs.mean(dim=(0, 1))
-    ce = torch.zeros((n_e,), dtype=torch.float32, device=x.device)
-    ce.index_add_(0, top_i.reshape(-1),
-                  torch.ones(top_i.numel(), device=x.device))
-    ce = ce / (g * group)
+    ce = _expert_counts(top_i, n_e) / (g * group)
     aux = n_e * torch.sum(me * ce) * m.aux_loss_coef
 
     # dispatch: each kept (token, slot) to row e * cap + pos of its group
     slot = (top_i * cap + pos).reshape(g, group * k)
     keep_f = keep.reshape(g, group * k)
-    src = common.merge_dims(
-        common.pin_grad(xg).unsqueeze(2).expand(g, group, k, d), 1)
-    xe = torch.zeros((g, n_e * cap + 1, d), dtype=dt, device=x.device)
-    # dropped slots land on the spare last row, which no expert reads
-    dest = torch.where(keep_f, slot, n_e * cap)
-    xe.scatter_(1, dest.unsqueeze(-1).expand(-1, -1, d), src)
-    xe = common.split_dim(xe[:, :n_e * cap], 1, (n_e, cap))
+    w_kept = (top_w * keep).to(dt).reshape(g, group * k, 1)
+    sharded = hasattr(xg, "placements")
+    if sharded:
+        xe, combine = _dispatch_by_shard(common.pin_grad(xg), slot, keep_f,
+                                         w_kept, w_gate, n_e, cap)
+    else:
+        src = common.merge_dims(
+            common.pin_grad(xg).unsqueeze(2).expand(g, group, k, d), 1)
+        xe = torch.zeros((g, n_e * cap + 1, d), dtype=dt, device=x.device)
+        # dropped slots land on the spare last row, which no expert reads
+        dest = torch.where(keep_f, slot, n_e * cap)
+        xe.scatter_(1, dest.unsqueeze(-1).expand(-1, -1, d), src)
+        xe = common.split_dim(xe[:, :n_e * cap], 1, (n_e, cap))
 
     h = common.silu(common.shard_einsum("gecd,edf->gecf", xe, w_gate)) \
         * common.shard_einsum("gecd,edf->gecf", xe, w_up)
-    ye = common.merge_dims(common.shard_einsum("gecf,efd->gecd", h, w_down),
-                           1)
+    ye = common.shard_einsum("gecf,efd->gecd", h, w_down)
 
     # combine: the kept slots' outputs, weighted in the compute dtype
-    w_kept = (top_w * keep).to(dt).reshape(g, group * k, 1)
-    got = torch.gather(ye, 1, torch.where(keep_f, slot, 0)
-                       .unsqueeze(-1).expand(-1, -1, d))
-    out = (got.float() * w_kept.float()).reshape(g, group, k, d).sum(2)
+    if sharded:
+        out = combine(ye)
+    else:
+        ye = common.merge_dims(ye, 1)
+        got = torch.gather(ye, 1, torch.where(keep_f, slot, 0)
+                           .unsqueeze(-1).expand(-1, -1, d))
+        out = (got.float() * w_kept.float()).reshape(g, group, k, d).sum(2)
     # (g, group) -> (b, s); the gradient comes back in this layout (DTensor
     # flattens a gradient split over both dims into one it cannot split)
     out = common.pin_grad(common.split_dim(common.merge_dims(out.to(dt), 0),

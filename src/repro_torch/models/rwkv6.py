@@ -75,18 +75,18 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
 
 
 def init_cache(cfg: ModelConfig, n_layers: int, batch: int, dtype,
-               device=None) -> Dict:
+               device=None, new=None) -> Dict:
     """Every layer's state, stacked on a leading axis: the last token of
     the time mix and of the channel mix (`dtype`), the WKV state
-    (float32)."""
+    (float32), each leaf made by `new(shape, dtype)` (zeros on `device`
+    by default)."""
+    new = new or common.leaf_maker(device)
     r, nh = _dims(cfg)
     return {
-        "tm_x": torch.zeros((n_layers, batch, cfg.d_model), dtype=dtype,
-                            device=device),
-        "cm_x": torch.zeros((n_layers, batch, cfg.d_model), dtype=dtype,
-                            device=device),
-        "wkv": torch.zeros((n_layers, batch, nh, r.head_dim, r.head_dim),
-                           dtype=torch.float32, device=device),
+        "tm_x": new((n_layers, batch, cfg.d_model), dtype),
+        "cm_x": new((n_layers, batch, cfg.d_model), dtype),
+        "wkv": new((n_layers, batch, nh, r.head_dim, r.head_dim),
+                   torch.float32),
     }
 
 
@@ -172,6 +172,6 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def write_state(cache: Dict, state: Dict) -> None:
     """Write a layer's new state into its cache views in place (cast to
-    the cache's dtypes)."""
+    the cache's dtypes; a placed cache shard by shard)."""
     for k, t in state.items():
-        cache[k].copy_(t)
+        common.write_rows(cache[k], t, 0)

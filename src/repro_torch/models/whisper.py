@@ -117,23 +117,22 @@ class Whisper(lm.Model):
             x = common.remat(remat, block, lp, x, memory)
         return common.layernorm(params["dec_norm"], x, cfg.norm_eps)
 
-    def init_cache(self, batch_size: int, max_len: int) -> Dict:
+    def _cache(self, batch_size: int, max_len: int, new) -> Dict:
         cfg = self.cfg
         return {
             "self": attention.init_cache(cfg, cfg.n_layers, batch_size,
-                                         max_len, self.cdt, self.device),
+                                         max_len, self.cdt, new=new),
             # the encoder memory, computed at prefill and kept
-            "memory": torch.zeros((batch_size, cfg.max_source_positions,
-                                   cfg.d_model), dtype=self.cdt,
-                                  device=self.device),
+            "memory": new((batch_size, cfg.max_source_positions,
+                           cfg.d_model), self.cdt),
         }
 
-    def prefill(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, params, batch, mesh=None) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
         memory = self.encode(params, batch["frames"])
         x = common.embed_rows(params["embed"], self._tokens(batch["tokens"]))
-        cache = self.init_cache(x.shape[0], batch["max_len"])
-        cache["memory"][:, :memory.shape[1]].copy_(memory)
+        cache = self.init_cache(x.shape[0], batch["max_len"], mesh)
+        common.write_rows(cache["memory"], memory, 1)
         for l, lp in enumerate(params["dec_blocks"]):
             h = common.layernorm(lp["ln1"], x, cfg.norm_eps)
             out, _ = attention.prefill(lp["self_attn"], cfg, h,

@@ -156,7 +156,11 @@ def param_specs(mesh, params: PyTree, fsdp: bool = False) -> PyTree:
 
 def opt_state_specs(mesh, opt_state: PyTree, fsdp: bool = False) -> PyTree:
     """Optimizer moments mirror the param layout; the step counter (and any
-    other 0-d leaf) replicates."""
+    other 0-d leaf) replicates. An `AdamWState` (a named tuple) is mapped
+    field by field, as a dict would be: its fields are no layer stack."""
+    if hasattr(opt_state, "_fields"):
+        return type(opt_state)(*(opt_state_specs(mesh, f, fsdp)
+                                 for f in opt_state))
     return _map(lambda path, leaf, stack: () if len(leaf.shape) == 0
                 else _param_spec(path, leaf.shape, mesh, fsdp, stack),
                 opt_state)

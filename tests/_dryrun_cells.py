@@ -10,7 +10,9 @@ the process's default group), each cell's failure recorded with its
 traceback. Each case asserts: status ok; params and active params equal
 to the JAX config cut the same way; argument bytes equal to the local
 shards of the placed leaves, summed here from the sharding rules alone;
-the record's keys those of the dry run's ok records.
+the record's keys those of the dry run's ok records; for a prefill, output
+bytes equal to the local shards of the cache laid out by `cache_specs` and
+of the last logits, summed from the rules alone.
 """
 import dataclasses
 import json
@@ -136,12 +138,12 @@ def argument_bytes(arch, shape_name, multi):
     draw = specs_mod.MetaDraw()
     if shape.kind == "train":
         params = meta.masters(draw)
-        opt = list(adamw.init(params))
+        opt = adamw.init(params)
         batch = specs_mod.train_batch_specs(cfg, shape)
         return (_placed_bytes(params, sharding.param_specs(
                     mesh, params, fsdp=cfg.fsdp), mesh)
-                + _placed_bytes(opt, sharding.opt_state_specs(
-                    mesh, opt, fsdp=cfg.fsdp), mesh)
+                + _placed_bytes(list(opt), list(sharding.opt_state_specs(
+                    mesh, opt, fsdp=cfg.fsdp)), mesh)
                 + _placed_bytes(batch, specs_mod.batch_shardings(
                     mesh, batch), mesh))
     params = adamw.tree_map(lambda t: t.to(meta.cdt) if t.is_floating_point()
@@ -157,6 +159,24 @@ def argument_bytes(arch, shape_name, multi):
     return total + _placed_bytes({"tokens": tokens},
                                  specs_mod.batch_shardings(
                                      mesh, {"tokens": tokens}), mesh)
+
+
+def output_bytes(arch, shape_name, multi):
+    """The bytes one device holds of a prefill step's outputs, from the
+    sharding rules: the cache laid out by `sharding.cache_specs` (as the
+    JAX dry run's `out_shardings` place it) and the last position's float32
+    logits, split as the batch (the data axes) and the head's vocab
+    (`model`) are, each leaf's local shard summed."""
+    cfg, shape = dryrun.short_cell(get_config(arch), SHAPES[shape_name])
+    mesh = {"data": 32 if multi else 16, "model": 16}
+    meta = specs_mod.meta_model(build(cfg, device="cpu"))
+    b, v = shape.global_batch, cfg.padded_vocab_size
+    cache = meta.init_cache(b, shape.seq_len)
+    logits = torch.empty((b, v), dtype=torch.float32, device="meta")
+    spec = ("data" if b % mesh["data"] == 0 else None,
+            "model" if v % mesh["model"] == 0 else None)
+    return (_placed_bytes(cache, sharding.cache_specs(mesh, cache, b), mesh)
+            + _local_bytes(logits, spec, mesh))
 
 
 def jax_counts(arch, shape_name):
@@ -183,6 +203,9 @@ def check(records, cell):
     assert rec["chips"] == (512 if multi else 256)
     assert (rec["params"], rec["active_params"]) == jax_counts(arch, shape)
     assert rec["memory"]["argument_bytes"] == argument_bytes(arch, shape,
+                                                             multi)
+    if rec["kind"] == "prefill":
+        assert rec["memory"]["output_bytes"] == output_bytes(arch, shape,
                                                              multi)
     assert rec["hlo_flops_per_device"] > 0 and rec["hlo_bytes_per_device"] > 0
     assert torch.isfinite(torch.tensor(rec["per_device_bytes"]))

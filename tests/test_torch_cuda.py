@@ -990,7 +990,8 @@ class TestDryRunOnCard:
     roofline's smallest depth variant, short shapes) on a "cuda" mesh, an
     arch's cells in a process of their own, 8 at a time
     (`tests/_dryrun_cells.py`, the CPU tests'
-    `test_torch_dryrun_cells_*.py` matrix)."""
+    `test_torch_dryrun_cells_*.py` matrix), each laid out as the sharding
+    rules say."""
 
     @pytest.fixture(scope="class")
     def rows(self):
@@ -1009,6 +1010,19 @@ class TestDryRunOnCard:
     @pytest.mark.parametrize("cell", _dryrun_cells(),
                              ids=lambda c: "-".join(c))
     def test_cell_traces(self, rows, cell):
+        import os
+        import sys
         row = rows[cell]
         assert row["status"] == "ok", row["error"]
         assert row["per_device_bytes"] > 0
+        # laid out as the rules say: the arguments' local shards, and a
+        # prefill's cache made on the mesh by `cache_specs`
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import _dryrun_cells as dc
+        arch, shape, mesh = cell
+        multi = mesh == "2x16x16"
+        assert row["memory"]["argument_bytes"] == dc.argument_bytes(
+            arch, shape, multi)
+        if row["kind"] == "prefill":
+            assert row["memory"]["output_bytes"] == dc.output_bytes(
+                arch, shape, multi)

@@ -1,0 +1,243 @@
+"""The sharded step's layouts on 8 gloo ranks of the CPU (a 2 data x 4 model
+mesh), each held to the plain one-process computation on the same numpy
+inputs, at smoke widths in float32:
+
+* the loss's vocab-parallel cross-entropy (`models.lm._chunk_nll` through
+  `common.logsumexp_pick`): loss and the gradients of the hidden states
+  and the head equal the plain ones within 1e-6, with the vocab split
+  evenly (256 over 4) and unevenly (250), and no collective moves a tensor
+  with the vocab's extent (the logits are never made whole);
+* MoE `forward` on DTensors (`moe._dispatch_by_shard`): output, aux loss
+  and the input's gradient equal the plain version's within 1e-6, the
+  weights' gradients (sums over the batch, which the data ranks split)
+  within 1e-6 of their largest element, and the dispatch buffer's local
+  shard is 1/(data x model) of the whole;
+* the prefill of every family with its cache made on the mesh
+  (`launch.steps.make_prefill_step(..., mesh)`): each cache leaf laid out
+  by `runtime.sharding.cache_specs`, its values and the last logits equal
+  the plain prefill's, a prompt shorter than the cache included (the
+  sequence-split cache of KV heads that do not divide the model ranks);
+  then one decode step on each cache: the position written into its
+  shard (`common.write_rows`), cache and logits equal the plain step's.
+
+The ranks run in subprocesses (`test_torch_distributed.run_ranks`).
+"""
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_distributed import run_ranks  # noqa: E402
+
+_LAYOUTS = r"""
+import dataclasses
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, steps
+from repro_torch.launch import specs as specs_mod
+from repro_torch.models import build, common, lm, moe
+from repro_torch.runtime import elastic, sharding
+torch.manual_seed(0)
+mesh = elastic.make_mesh((2, 4), ('data', 'model'), device='cpu')
+out = {}
+
+def full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+def err(a, b):
+    return float((full(a).double() - b.double()).abs().max())
+
+def place(t, places):
+    return DTensor.from_local(t, mesh, [Replicate(), Replicate()],
+                              run_check=False).redistribute(mesh, places)
+
+# -- the vocab-parallel loss --------------------------------------------
+for v in (256, 250):
+    rng = np.random.RandomState(v)
+    h0 = torch.tensor(rng.standard_normal((4, 8, 64)), dtype=torch.float32)
+    w0 = torch.tensor(rng.standard_normal((64, v)) * 0.3,
+                      dtype=torch.float32)
+    lb = torch.tensor(rng.randint(0, v, (4, 8)))
+    mask = torch.tensor(rng.rand(4, 8) > 0.2, dtype=torch.float32)
+    h1, w1 = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+    plain = lm._chunk_nll(h1, w1, lb, mask)
+    plain.backward()
+    h2 = place(h0, [Shard(0), Replicate()]).requires_grad_()
+    w2 = place(w0, [Replicate(), Shard(1)]).requires_grad_()
+    count = dryrun.DeviceCount({info["group"]: name for name, info in
+                                dryrun.mesh_axes(mesh).items()})
+    with implicit_replication(), count:
+        loss = lm._chunk_nll(h2, w2, place(lb, [Shard(0), Replicate()]),
+                             place(mask, [Shard(0), Replicate()]))
+        loss.backward()
+    out[f"loss_{v}"] = [abs(float(full(loss)) - float(plain)),
+                        err(h2.grad, h1.grad), err(w2.grad, w1.grad),
+                        float(plain)]
+    rows = count.by_shape()
+    out[f"loss_{v}_whole_vocab"] = [r for r in rows if v in r["shape"]]
+    out[f"loss_{v}_logit_collectives"] = [
+        r for r in rows if r["shape"] == [2, 8]]
+
+# -- MoE dispatch and combine -------------------------------------------
+cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"),
+                          compute_dtype="float32")
+model = build(cfg, device="cpu")
+p0 = model.init(torch.Generator().manual_seed(0))["moe_blocks"][0]["moe"]
+x0 = torch.tensor(np.random.RandomState(1).standard_normal((4, 32, 64)),
+                  dtype=torch.float32)
+r0 = torch.tensor(np.random.RandomState(2).standard_normal((4, 32, 64)),
+                  dtype=torch.float32)
+p1 = {k: v.clone().requires_grad_() for k, v in p0.items()}
+x1 = x0.clone().requires_grad_()
+y1, a1 = moe.forward(p1, cfg, x1)
+((y1 * r0).sum() + a1).backward()
+specs = sharding.param_specs(mesh, {"moe_blocks": [{"moe": p0}]})
+p2 = {k: v.requires_grad_() for k, v in sharding.place(
+    {"moe_blocks": [{"moe": p0}]}, mesh, specs)["moe_blocks"][0]["moe"]
+    .items()}
+x2 = place(x0, [Shard(0), Replicate()]).requires_grad_()
+seen = []
+dispatch = moe._dispatch_by_shard
+
+def spy(*a, **k):
+    xe, combine = dispatch(*a, **k)
+    seen.append((tuple(xe.shape), tuple(xe.to_local().shape),
+                 [[type(p).__name__, getattr(p, "dim", None)]
+                  for p in xe.placements]))
+    return xe, combine
+
+moe._dispatch_by_shard = spy
+with implicit_replication():
+    y2, a2 = moe.forward(p2, cfg, x2)
+    ((y2 * place(r0, [Shard(0), Replicate()])).sum() + a2).backward()
+out["moe"] = [err(y2, y1), abs(float(full(a2)) - float(a1)),
+              err(x2.grad, x1.grad),
+              max(err(p2[k].grad, p1[k].grad)
+                  / max(1.0, float(p1[k].grad.abs().max())) for k in p1),
+              float(y1.abs().max())]
+out["moe_xe"] = seen
+moe._dispatch_by_shard = dispatch
+
+# -- prefill with the cache made on the mesh ----------------------------
+for arch in ("qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b", "deepseek-v3-671b",
+             "zamba2-7b", "whisper-large-v3", "rwkv6-1.6b"):
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32")
+    model = build(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    shape = ShapeConfig("p", 12, 4, "prefill")
+    rng = np.random.RandomState(3)
+    batch = {k: torch.as_tensor(
+        rng.standard_normal(tuple(s.shape)) if s.is_floating_point()
+        else rng.randint(0, cfg.vocab_size, tuple(s.shape))).to(
+            torch.float32 if s.is_floating_point() else s.dtype)
+        for k, s in specs_mod.prefill_batch_specs(cfg, shape).items()}
+    max_len = 16
+    want_logits, want = steps.make_prefill_step(model, max_len)(params,
+                                                                batch)
+    pp = sharding.place(params, mesh, sharding.param_specs(mesh, params))
+    pb = sharding.place(batch, mesh, specs_mod.batch_shardings(mesh, batch))
+    with implicit_replication():
+        logits, cache = steps.make_prefill_step(model, max_len, mesh)(pp,
+                                                                      pb)
+    cspecs = sharding.cache_specs(mesh, want, 4)
+    leaves, laid_out, split = [], True, 0
+    def walk(a, b, s):
+        global laid_out, split
+        if a is None:
+            return
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], s[k])
+            return
+        leaves.append(err(a, b))
+        laid_out &= (isinstance(a, DTensor) and list(a.placements)
+                     == list(sharding.placements(mesh, s)))
+        split += any(e is not None for e in s)
+    walk(cache, want, cspecs)
+    out["prefill_" + arch] = [err(logits, want_logits), max(leaves),
+                              laid_out, split, len(leaves),
+                              float(want_logits.abs().max())]
+    # one decode step at the next position, on each cache
+    tok = torch.as_tensor(rng.randint(0, cfg.vocab_size, (4,)))
+    _, want_logits, want = steps.make_serve_step(model)(params, want, tok,
+                                                        12)
+    pt = sharding.place({"t": tok}, mesh, specs_mod.batch_shardings(
+        mesh, {"t": tok}))["t"]
+    with implicit_replication():
+        _, logits, cache = steps.make_serve_step(model)(pp, cache, pt, 12)
+    leaves, laid_out, split = [], True, 0
+    walk(cache, want, cspecs)
+    out["decode_" + arch] = [err(logits, want_logits), max(leaves),
+                             laid_out, float(want_logits.abs().max())]
+emit(out)
+"""
+
+
+@pytest.fixture(scope="module")
+def layouts(tmp_path_factory):
+    return run_ranks(_LAYOUTS, 8, tmp_path_factory.mktemp("layouts"),
+                     timeout=300.0)
+
+
+@pytest.mark.parametrize("vocab", [256, 250])
+def test_vocab_parallel_loss_equals_the_plain_one(layouts, vocab):
+    for r in layouts:
+        loss_err, h_err, w_err, loss = r[f"loss_{vocab}"]
+        assert loss_err <= 1e-6 * max(1.0, abs(loss)), (loss_err, loss)
+        assert h_err <= 1e-6 and w_err <= 1e-6, (h_err, w_err)
+
+
+@pytest.mark.parametrize("vocab", [256, 250])
+def test_vocab_parallel_loss_never_makes_the_logits_whole(layouts, vocab):
+    for r in layouts:
+        assert r[f"loss_{vocab}_whole_vocab"] == []
+        # the max, the partition and the gold logit, each all-reduced
+        # over the vocab's ranks at the local (batch, chunk) shape
+        rows = r[f"loss_{vocab}_logit_collectives"]
+        assert {x["kind"] for x in rows} == {"all-reduce"}
+        assert sum(x["count"] for x in rows if x["phase"] == "forward") == 3
+
+
+def test_moe_on_dtensors_equals_the_plain_forward(layouts):
+    for r in layouts:
+        out_err, aux_err, x_err, w_err, scale = r["moe"]
+        assert out_err <= 1e-6 * max(1.0, scale), out_err
+        assert aux_err <= 1e-6 and x_err <= 1e-6 and w_err <= 1e-6, r["moe"]
+
+
+def test_moe_dispatch_buffer_is_split_over_data_and_model(layouts):
+    for r in layouts:
+        assert r["moe_xe"], "the DTensor path did not dispatch"
+        for whole, local, places in r["moe_xe"]:
+            assert places == [["Shard", 0], ["Shard", 1]], places
+            n_whole = n_local = 1
+            for a, b in zip(whole, local):
+                n_whole, n_local = n_whole * a, n_local * b
+            assert n_local * 2 * 4 == n_whole, (whole, local)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b",
+                                  "deepseek-v3-671b", "zamba2-7b",
+                                  "whisper-large-v3", "rwkv6-1.6b"])
+def test_prefill_on_the_mesh_lays_out_the_cache_by_its_specs(layouts, arch):
+    for r in layouts:
+        logit_err, cache_err, laid_out, split, n, scale = \
+            r["prefill_" + arch]
+        assert laid_out and split == n, (arch, split, n)
+        assert logit_err <= 1e-5 * max(1.0, scale), (arch, logit_err)
+        assert cache_err <= 1e-5, (arch, cache_err)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b",
+                                  "deepseek-v3-671b", "zamba2-7b",
+                                  "whisper-large-v3", "rwkv6-1.6b"])
+def test_decode_on_the_mesh_writes_the_cache_shard_by_shard(layouts, arch):
+    for r in layouts:
+        logit_err, cache_err, laid_out, scale = r["decode_" + arch]
+        assert laid_out, arch
+        assert logit_err <= 1e-5 * max(1.0, scale), (arch, logit_err)
+        assert cache_err <= 1e-5, (arch, cache_err)

@@ -21,3 +21,21 @@ def records():
 @pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
 def test_cell_traces_with_the_rules_local_shards(records, cell):
     dc.check(records, cell)
+
+
+def test_no_norm_all_reduces_a_float32_residual_gradient(records):
+    """deepseek-7b train_4k on 16x16 (one layer, three RMS norms): the
+    residual stream's partial sums, and its gradient's, are summed in the
+    compute dtype (one all-reduce of the (batch, seq, d) bfloat16 tensor
+    a norm each way); the norms no longer all-reduce its float32 form (20
+    such collectives before, 6 of them the two gradient pins of each
+    norm)."""
+    cell = ("deepseek-7b", "train_4k", False)
+    rows = records[cell]["collectives"]["by_shape"]
+    residual = [256 // 16, 256, 4096]           # (batch / data, seq, d)
+    assert not [r for r in rows if r["shape"] == residual
+                and r["dtype"] == "float32"], rows[:8]
+    summed = [r for r in rows if r["shape"] == residual
+              and r["kind"] == "all-reduce" and r["dtype"] == "bfloat16"]
+    assert {r["phase"] for r in summed} == {"forward", "backward"}
+

@@ -21,3 +21,31 @@ def records():
 @pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
 def test_cell_traces_with_the_rules_local_shards(records, cell):
     dc.check(records, cell)
+
+
+def test_mla_query_latent_pin_stays(records):
+    """deepseek-v3 train_4k on 16x16: the one norm whose input's two
+    gradients come back in layouts DTensor cannot add (MLA's query latent
+    under FSDP) is still pinned: its float32 (batch / data, seq,
+    q_lora_rank) gradient is laid out in backward."""
+    cell = ("deepseek-v3-671b", "train_4k", False)
+    rows = records[cell]["collectives"]["by_shape"]
+    latent = [256 // 16, 256, 1536]
+    assert [r for r in rows if r["phase"] == "backward"
+            and r["dtype"] == "float32" and r["shape"] == latent], rows[:8]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_fsdp_gathers_weights_not_activations(records, multi):
+    """deepseek-v3 train_4k (FSDP): a block's weights are gathered over the
+    data axes before it runs (`common.gather_fsdp`), as GSPMD gathers them;
+    no all-reduce over the data axes sums an activation of the whole batch
+    (DTensor's own products moved the batch to the weights' split, each
+    product a partial sum over the data ranks: the whole batch's logits
+    and queries on every device)."""
+    cell = ("deepseek-v3-671b", "train_4k", multi)
+    rows = records[cell]["collectives"]["by_shape"]
+    assert not [r for r in rows if r["axis"] == "data"
+                and r["kind"] == "all-reduce" and len(r["shape"]) >= 3
+                and r["shape"][0] == 256], rows[:8]
+

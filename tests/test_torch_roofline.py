@@ -208,9 +208,8 @@ mesh = elastic.make_mesh((2, 4), ('data', 'model'), device='cpu')
 opt = adamw.init(masters)
 pm = sharding.place(masters, mesh, sharding.param_specs(mesh, masters,
                                                         fsdp=cfg.fsdp))
-om = adamw.AdamWState(*sharding.place(list(opt), mesh,
-                                      sharding.opt_state_specs(
-                                          mesh, list(opt), fsdp=cfg.fsdp)))
+om = adamw.AdamWState(*sharding.place(list(opt), mesh, list(
+    sharding.opt_state_specs(mesh, opt, fsdp=cfg.fsdp))))
 tb = sharding.place(tb, mesh, specs_mod.batch_shardings(mesh, tb))
 c = dryrun.count_step(step, (pm, om, tb), dryrun._leaves([pm, list(om), tb]),
                       pm, mesh)

@@ -227,6 +227,24 @@ def test_opt_state_specs_equal_jax(jax_specs, arch, fsdp):
         assert _at(got, path) == want, (path, _at(got, path), want)
 
 
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_opt_state_specs_of_an_adamw_state_mirror_the_masters(fsdp):
+    """The optimizer state the train steps take (`adamw.AdamWState`, a named
+    tuple) is mapped field by field: each moment leaf's spec is its
+    master's (the embedding's vocab split too: a tuple taken for a layer
+    stack replicated it on every device), the step counter replicated."""
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), fsdp=fsdp)
+    masters = specs_mod.meta_model(tbuild(cfg, device="cpu")).masters(
+        specs_mod.MetaDraw())
+    got = sharding.opt_state_specs(MESH, adamw.init(masters), fsdp=fsdp)
+    want = sharding.param_specs(MESH, masters, fsdp=fsdp)
+    assert isinstance(got, adamw.AdamWState) and got.step == ()
+    assert got.m == want and got.v == want
+    assert want["embed"][0] == "model"
+
+
 def _cache_tree(rows):
     tree = {}
     for keys, shape, _ in rows:
