@@ -293,6 +293,18 @@ def card_line():
     return out[0].strip()
 
 
+def card_errors():
+    """The card's ECC and remapped-row counters as nvidia-smi reports
+    them, to tell a fault of the card from one of the program after a
+    CUDA error."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "-q", "-d", "ECC,ROW_REMAPPER"],
+            capture_output=True, text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
 def loose_iact_threshold(a, rows=16):
     """A distance threshold under which a good share of the iACT kernel's
     row blocks approximate on `a`: the 75th percentile, over blocks, of the
@@ -2141,11 +2153,13 @@ def tools_short_matrix(card):
     use); any FAILED or TIMEOUT cell fails the phase, and so does an ok
     cell whose argument bytes (or, for a prefill, output bytes: the cache
     laid out by `cache_specs` and the last logits) are not the local shards
-    the sharding rules give."""
+    the sharding rules give, and so does a Mamba2 cell (zamba2's) whose
+    collectives gather its input projection's columns over `model`
+    (`dc.projection_gathers`); those cells' bytes by kind are logged."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import _dryrun_cells as dc
-    from repro_torch.configs import list_archs
+    from repro_torch.configs import get_config, list_archs
     t0 = time.perf_counter()
     recs = dc.trace_by_arch(list_archs(), "cuda", jobs=SHORT_JOBS,
                             cell_timeout=SHORT_TIMEOUT)
@@ -2191,9 +2205,26 @@ def tools_short_matrix(card):
     log(f"  (d) layouts: {n.get('ok', 0) - len(laid_out)} cells' argument "
         f"bytes (and prefill output bytes) equal to the rules' local shards")
     check(not laid_out, f"cells not laid out by the rules: {laid_out}")
+    # the Mamba2 input projection taken apart by its columns: no all-gather
+    # over `model` of its columns or of the scan's input made whole
+    mamba, gathered = {}, []
+    for (arch, shape, multi), rec in sorted(recs.items()):
+        if rec["status"] != "ok" or get_config(arch).ssm is None:
+            continue
+        name = f"{arch}/{shape}/{'2x16x16' if multi else '16x16'}"
+        mamba[name] = rec["collectives"]["bytes_by_kind"]
+        log(f"  (d) {name} collective bytes by kind "
+            f"{json.dumps(mamba[name])}")
+        gathered += [f"{name}: {r['phase']} {r['dtype']} {r['shape']} x "
+                     f"{r['count']}" for r in dc.projection_gathers(rec)]
+    log(f"  (d) Mamba2 projection all-gathers over model: {len(gathered)} "
+        f"in {len(mamba)} cells")
+    check(mamba and not gathered,
+          f"Mamba2 projection columns gathered over model: {gathered}")
     check(wall <= SHORT_WALL, f"(d) took {wall:.1f} s, over {SHORT_WALL} s")
     return dict(torch=torch.__version__, counts=n, wall_s=wall,
-                cells=cells, layout_faults=laid_out)
+                cells=cells, layout_faults=laid_out,
+                mamba2_bytes_by_kind=mamba, projection_gathers=gathered)
 
 
 def phase_tools(dev, card, report):
@@ -2846,3 +2877,8 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         sys.exit(1)
+    except Exception as e:
+        if "CUDA error" in str(e):
+            print(f"chip_smoke: the card after a CUDA error:\n"
+                  f"{card_errors()}", file=sys.stderr, flush=True)
+        raise

@@ -27,12 +27,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import device as device_mod
 from . import taint as taint_mod
 from . import targets as targets_mod
 from . import trace as trace_mod
 from .findings import Finding, Severity
 
 _KNOB_FIELDS = ("thresh", "fraction")  # quality-knob keys in the spec dict
+
+
+def _device(device) -> str:
+    """`device` resolved as every entry point resolves it: cuda unless
+    "cpu" is asked for (`device.resolve`)."""
+    return str(device_mod.resolve(device))
 
 
 def _err(e: Exception, n: int = 500) -> str:
@@ -43,17 +50,19 @@ def _err(e: Exception, n: int = 500) -> str:
 # A001 -- recompile leak
 # --------------------------------------------------------------------------
 
-def probe_target(t: targets_mod.KnobTarget, device="cpu"
+def probe_target(t: targets_mod.KnobTarget, device=None
                  ) -> trace_mod.KnobTraceResult:
     """The verdict of one knob target: CUDA-graph replay for a kernel
     target on the card, the knob probe otherwise."""
+    device = _device(device)
     fn = t.build()
     if t.graph and torch.device(device).type == "cuda":
         return trace_mod.probe_graph(fn, t.card_values, t.atol, device)
     return trace_mod.probe_knob(fn, t.values, device=device)
 
 
-def _probe_targets(knob_targets, device="cpu") -> List[Finding]:
+def _probe_targets(knob_targets, device=None) -> List[Finding]:
+    device = _device(device)
     out = []
     for t in knob_targets:
         try:
@@ -126,7 +135,8 @@ def check_spec_grouping(specs, subject_prefix: str = "grids"
     return findings
 
 
-def rule_a001(apps: Sequence[str], device="cpu") -> List[Finding]:
+def rule_a001(apps: Sequence[str], device=None) -> List[Finding]:
+    device = _device(device)
     findings: List[Finding] = []
     if "kernels" in apps:
         findings += _probe_targets(targets_mod.kernel_knob_targets(device),
@@ -282,7 +292,8 @@ def _check_tuning_cache() -> List[Finding]:
     return findings
 
 
-def rule_a002(apps: Sequence[str], device="cpu") -> List[Finding]:
+def rule_a002(apps: Sequence[str], device=None) -> List[Finding]:
+    device = _device(device)
     findings: List[Finding] = []
     if "kernels" in apps:
         findings += _check_kernel_configs()
@@ -317,7 +328,8 @@ def _taint_one(t: targets_mod.TraceTarget) -> List[Finding]:
         {"eqn": s.eqn_repr, "sources": list(t.tainted)}) for s in sinks]
 
 
-def rule_a003(apps: Sequence[str], device="cpu") -> List[Finding]:
+def rule_a003(apps: Sequence[str], device=None) -> List[Finding]:
+    device = _device(device)
     findings: List[Finding] = []
     if "regions" in apps:
         for t in targets_mod.region_taint_targets(device):
@@ -533,9 +545,10 @@ def check_engine_placement(engine) -> List[Finding]:
     return findings
 
 
-def rule_a005(apps: Sequence[str], device="cpu") -> List[Finding]:
+def rule_a005(apps: Sequence[str], device=None) -> List[Finding]:
     """The engine fixture on a one-rank mesh; a process group this rule
     starts for it (none was up) is gone again when it returns."""
+    device = _device(device)
     if "decode" not in apps:
         return []
     import torch.distributed as dist
@@ -633,7 +646,8 @@ def check_divergence(fn, example_args, tainted: Sequence[str],
     return findings
 
 
-def rule_a007(apps: Sequence[str], device="cpu") -> List[Finding]:
+def rule_a007(apps: Sequence[str], device=None) -> List[Finding]:
+    device = _device(device)
     findings: List[Finding] = []
     tt = []
     if "regions" in apps:
@@ -755,7 +769,8 @@ def _syncs(fn, example_args, tracer) -> int:
     return sum("synchroniz" in str(m.message) for m in w)
 
 
-def rule_a008(apps: Sequence[str], device="cpu") -> List[Finding]:
+def rule_a008(apps: Sequence[str], device=None) -> List[Finding]:
+    device = _device(device)
     findings: List[Finding] = []
     tt: List[targets_mod.TraceTarget] = []
     if "kernels" in apps:

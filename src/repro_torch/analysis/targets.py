@@ -35,7 +35,15 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
+
 APP_NAMES = ("kernels", "regions", "ffn", "decode")
+
+
+def _device(device) -> str:
+    """`device` resolved as every entry point resolves it: cuda unless
+    "cpu" is asked for (`device.resolve`)."""
+    return str(device_mod.resolve(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +112,8 @@ def _kernel_data(device):
                 attn=(t(q), t(kv)), pmm=(t(x4), t(w4)))
 
 
-def kernel_knob_targets(device="cpu") -> List[KnobTarget]:
+def kernel_knob_targets(device=None) -> List[KnobTarget]:
+    device = _device(device)
     from ..core.types import PerforationKind, PerforationParams
     from ..kernels import (_build, iact_memo, perforated_attention,
                            perforated_matmul, taf_matmul)
@@ -194,7 +203,8 @@ def kernel_config_targets() -> List[Tuple[str, str, tuple, Dict]]:
 # regions
 # --------------------------------------------------------------------------
 
-def region_knob_targets(device="cpu") -> List[KnobTarget]:
+def region_knob_targets(device=None) -> List[KnobTarget]:
+    device = _device(device)
     from ..core.approx import ApproxRegion, perforated_loop
     from ..core.types import (ApproxSpec, IACTParams, PerforationKind,
                               PerforationParams, TAFParams, Technique)
@@ -251,10 +261,11 @@ def region_knob_targets(device="cpu") -> List[KnobTarget]:
     ]
 
 
-def region_taint_targets(device="cpu") -> List[TraceTarget]:
+def region_taint_targets(device=None) -> List[TraceTarget]:
     """Region steps with their MEMOIZED-VALUE state leaves tainted: the
     approximate outputs must not steer control flow or indexing (A003).
     Detector state (windows, counters) is deliberately NOT a source."""
+    device = _device(device)
     from ..core.approx import ApproxRegion
     from ..core.types import ApproxSpec, TAFParams, Technique
 
@@ -308,11 +319,15 @@ def _clone(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
-@functools.lru_cache(maxsize=2)
-def decode_fixture(device: str = "cpu"):
+def decode_fixture(device=None):
     """The smoke decode model with TAF enabled: the program the serving
     path runs, prefilled once. Targets take clones of its cache (the
     decode step updates a cache in place)."""
+    return _decode_fixture(_device(device))
+
+
+@functools.lru_cache(maxsize=2)
+def _decode_fixture(device: str):
     from ..launch import steps as steps_mod
     from ..models import build
     from ..qos import calibrate
@@ -331,9 +346,10 @@ def decode_fixture(device: str = "cpu"):
             "serve": steps_mod.make_serve_step(model)}
 
 
-def serve_knob_target(device="cpu") -> KnobTarget:
+def serve_knob_target(device=None) -> KnobTarget:
     """The decode TAF threshold through the real serve step: writing the
     knob into the cache and stepping must not change the program (A001)."""
+    device = _device(device)
 
     def build():
         fx = decode_fixture(device)
@@ -349,7 +365,8 @@ def serve_knob_target(device="cpu") -> KnobTarget:
     return KnobTarget("decode.serve_step.rsd_threshold", build)
 
 
-def serve_taint_target(device="cpu") -> TraceTarget:
+def serve_taint_target(device=None) -> TraceTarget:
+    device = _device(device)
     def build():
         fx = decode_fixture(device)
         return fx["serve"], (fx["params"], _clone(fx["cache"]),
@@ -359,10 +376,11 @@ def serve_taint_target(device="cpu") -> TraceTarget:
                        tainted=("memo_k", "memo_v", "memo_delta"))
 
 
-def engine_fixture(device: str = "cpu"):
+def engine_fixture(device=None):
     """A one-rank sharded ServingEngine over the decode fixture's model,
     prefilled once -- the placement surface A005 audits. It needs a
     one-rank default process group (`runtime.elastic.init_single`)."""
+    device = _device(device)
     from ..serving.scheduler import ServingEngine
 
     fx = decode_fixture(device)

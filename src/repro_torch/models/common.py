@@ -272,6 +272,126 @@ class _PinGrad(torch.autograd.Function):
         return grad
 
 
+def take_columns(t: torch.Tensor, bounds, whole=()) -> list:
+    """The pieces `t[..., a:b]` for each (a, b) of `bounds` (they may
+    overlap). A DTensor split along its last dim over one mesh dim (a
+    column-parallel product's output) is taken apart without making that
+    dim whole: a piece whose width its ranks divide, and whose index is not
+    in `whole`, comes out split evenly over them, each rank receiving its
+    columns from the ranks that hold them (one all-to-all for all such
+    pieces); any other piece comes out whole on every rank, each rank
+    adding its own columns into zeros (one all-reduce of those pieces'
+    width). Both move only the pieces' columns, as GSPMD's
+    collective-permutes move them, where DTensor's slice of a split dim
+    would gather all of `t`. The other mesh dims keep `t`'s placements.
+    Plain tensors, and DTensors not so split, are sliced."""
+    pieces = [(int(a), int(b)) for a, b in bounds]
+    split = [md for md, p in enumerate(getattr(t, "placements", ()))
+             if p.is_shard() and p.dim % t.ndim == t.ndim - 1]
+    if len(split) != 1 or t.device_mesh.size(split[0]) == 1:
+        return [t[..., a:b] for a, b in pieces]
+    from torch.distributed.tensor import Replicate, Shard
+    t = settle(t)
+    mesh, md = t.device_mesh, split[0]
+    n, me = mesh.size(md), mesh.get_local_rank(md)
+    group = mesh.get_group(md).group_name
+    width = t.shape[-1]
+    chunk = -(-width // n)
+
+    def held(r):                      # the columns rank r holds
+        return min(r * chunk, width), min((r + 1) * chunk, width)
+
+    def owed(a, b, r):                # rank r's columns of an even piece
+        w = (b - a) // n
+        return a + r * w, a + (r + 1) * w
+
+    def meet(have, want):             # their overlap, empty inside `want`
+        x = min(max(have[0], want[0]), want[1])
+        return x, max(min(have[1], want[1]), x)
+
+    local = t.to_local()
+    lo = held(me)[0]
+    lead = tuple(t.shape[:-1])
+    even = [i for i, (a, b) in enumerate(pieces)
+            if (b - a) % n == 0 and i not in whole]
+    summed = [i for i in range(len(pieces)) if i not in even]
+    out = [None] * len(pieces)
+    if even:
+        sends, in_sizes, out_sizes, got = [], [], [], []
+        for r in range(n):
+            parts = [meet(held(me), owed(*pieces[i], r)) for i in even]
+            sends += [local[..., x - lo:y - lo] for x, y in parts]
+            in_sizes.append(sum(y - x for x, y in parts))
+            parts = [meet(held(r), owed(*pieces[i], me)) for i in even]
+            got.append([y - x for x, y in parts])
+            out_sizes.append(sum(got[-1]))
+        send = torch.cat(sends, dim=-1).movedim(-1, 0).contiguous()
+        recv = _AllToAll.apply(send, out_sizes, in_sizes, group)
+        recv = recv.movedim(0, -1).split([k for ks in got for k in ks],
+                                         dim=-1)
+        places = list(t.placements)
+        places[md] = Shard(t.ndim - 1)
+        for j, i in enumerate(even):
+            cols = torch.cat([recv[r * len(even) + j] for r in range(n)],
+                             dim=-1)
+            a, b = pieces[i]
+            out[i] = _from_local(cols, mesh, places, lead + (b - a,))
+    if summed:
+        own, parts = held(me), []
+        for i in summed:
+            a, b = pieces[i]
+            x, y = meet(own, (a, b))
+            parts += [local.new_zeros(local.shape[:-1] + (x - a,)),
+                      local[..., x - lo:y - lo],
+                      local.new_zeros(local.shape[:-1] + (b - y,))]
+        sums = _SumOver.apply(torch.cat(parts, dim=-1), group).split(
+            [pieces[i][1] - pieces[i][0] for i in summed], dim=-1)
+        places = list(t.placements)
+        places[md] = Replicate()
+        for j, i in enumerate(summed):
+            a, b = pieces[i]
+            out[i] = _from_local(sums[j], mesh, places, lead + (b - a,))
+    return out
+
+
+def _collective(op: str, t: torch.Tensor, *args) -> torch.Tensor:
+    """The functional collective `op` of `t`, waited on (the op the dry
+    run counts by kind)."""
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(getattr(ops, op)(t, *args))
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all of dim 0 (`in_sizes` rows to each rank, `out_sizes`
+    from each); backward sends each gradient back where its rows came
+    from."""
+
+    @staticmethod
+    def forward(ctx, t, out_sizes, in_sizes, group):
+        ctx.args = (in_sizes, out_sizes, group)
+        return _collective("all_to_all_single", t, out_sizes, in_sizes, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        in_sizes, out_sizes, group = ctx.args
+        return (_collective("all_to_all_single", grad.contiguous(), in_sizes,
+                            out_sizes, group), None, None, None)
+
+
+class _SumOver(torch.autograd.Function):
+    """An all-reduce (sum) whose output is whole on every rank: its
+    gradient, whole on every rank too (a DTensor made `Replicate`), is
+    each rank's input gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _collective("all_reduce", t, "sum", group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """`table[tokens]`, the embedding rows of `tokens`. A DTensor table
     keeps its vocab split over each mesh dim that does not split the
@@ -592,10 +712,18 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5,
     input's layout before the two are added: where they come back in
     layouts whose sum DTensor cannot redistribute (MLA's query latent under
     FSDP: a shard plus a partial sum), at the cost of an all-reduce of
-    each."""
+    each. Without `pin`, an input split along the normalized dim (Mamba2's
+    gated output, split by heads) has its variance summed, and the
+    variance's gradient too (a row each), so that the gradient spread back
+    over the dim keeps the input's split: DTensor would reduce-scatter it
+    along the sequence instead, which the input's gradient then leaves
+    split there, and the ops before the norm gather it back."""
     xf = settle(x).float()
     xv = pin_grad(xf) if pin else xf
     var = torch.mean(xv * xv, dim=-1, keepdim=True)
+    if not pin and any(p.is_shard() and p.dim % x.ndim == x.ndim - 1
+                       for p in getattr(x, "placements", ())):
+        var = pin_grad(settle(var))
     out = (pin_grad(xf) if pin else xf) * torch.rsqrt(var + eps) \
         * p["scale"].float()
     return pin_grad(out.to(x.dtype))

@@ -151,21 +151,62 @@ def _ssd(xh, dt, A, B, C, chunk: int):
                            free="bh")
 
 
+def _sharded_conv(p: Dict, cfg: ModelConfig, proj, state=None):
+    """(z, x, B, C, dt) of a DTensor projection split along its columns
+    (`w_in`'s column split), the conv applied to x, B and C: the
+    projection taken apart by `common.take_columns` (z, x and dt split
+    evenly over the projection's ranks, whole heads each, as the scan
+    splits them; B and C, which every head reads, whole), and the
+    depthwise conv run on each of x, B and C with its own channels of
+    `conv_w` / `conv_b` (exact: no channel mixes with another), device by
+    device. `state` is the decode cache's conv state
+    (laid out as the cache), taken apart alike. GSPMD moves the same
+    columns (collective-permutes); DTensor's own slices would make the
+    whole projection, and the scan's heads, whole on every device."""
+    s, d_in, nh = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    z, xs, B, C, dt = common.take_columns(proj, [
+        (0, d_in), (d_in, 2 * d_in), (2 * d_in, 2 * d_in + gn),
+        (2 * d_in + gn, 2 * d_in + 2 * gn),
+        (2 * d_in + 2 * gn, proj.shape[-1])], whole=(2, 3))
+    channels = [(0, d_in), (d_in, d_in + gn), (d_in + gn, d_in + 2 * gn)]
+    states = (common.take_columns(state, channels, whole=(1, 2))
+              if state is not None else [None] * 3)
+    out = []
+    for t, (a, b), st in zip((xs, B, C), channels, states):
+        w, bias = p["conv_w"][:, a:b], p["conv_b"][a:b]
+        if st is None:
+            out.append(common.by_shard(
+                lambda t, w, bias: _causal_conv(t, w, bias)[0],
+                "bsc,wc,c->bsc", t, w, bias, free="bc"))
+        else:
+            out.append(common.by_shard(
+                lambda t, w, bias, st: _causal_conv(t, w, bias, st)[0],
+                "bsc,wc,c,bkc->bsc", t, w, bias, st, free="bc"))
+    return (z, *out, dt)
+
+
 def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
             return_state: bool = False):
     """Full-sequence Mamba2 mixer. x: (B, S, d_model). With
     return_state=True also returns the decode cache ({conv, ssm}) after
-    the sequence -- the prefill -> decode state handoff."""
+    the sequence -- the prefill -> decode state handoff. A DTensor
+    projection is taken apart by `_sharded_conv`."""
     s, d_in, nh = _dims(cfg)
     bsz, S, _ = x.shape
-    proj = x @ p["w_in"]
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc_raw = xbc  # pre-conv inputs: the conv decode state is their tail
-    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :d_in]
     gn = s.n_groups * s.d_state
-    B = common.split_dim(xbc[..., d_in:d_in + gn], 2, (s.n_groups, s.d_state))
-    C = common.split_dim(xbc[..., d_in + gn:], 2, (s.n_groups, s.d_state))
+    w = s.conv_width
+    proj = x @ p["w_in"]
+    if hasattr(proj, "placements"):
+        z, xs, B, C, dt = _sharded_conv(p, cfg, proj)
+    else:
+        z, xbc, dt = _split_proj(cfg, proj)
+        xbc_raw = xbc  # pre-conv inputs: the conv decode state is their tail
+        xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+        xs = xbc[..., :d_in]
+        B, C = xbc[..., d_in:d_in + gn], xbc[..., d_in + gn:]
+    B = common.split_dim(B, 2, (s.n_groups, s.d_state))
+    C = common.split_dim(C, 2, (s.n_groups, s.d_state))
     dt_f = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                               # (H,) negative
     xh = common.split_dim(xs, 2, (nh, s.head_dim))
@@ -174,10 +215,12 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
     pad = (-S) % chunk
     xh_p, B_p, C_p = xh, B, C
     if pad:
-        xh_p = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt_f = F.pad(dt_f, (0, 0, 0, pad))
-        B_p = F.pad(B, (0, 0, 0, 0, 0, pad))
-        C_p = F.pad(C, (0, 0, 0, 0, 0, pad))
+        # a DTensor pads its local shards (its sequence is whole): the
+        # card's torch refuses DTensor's own pad of a head-split tensor
+        xh_p = common.along(lambda t: F.pad(t, (0, 0, 0, 0, 0, pad)), xh, 1)
+        dt_f = common.along(lambda t: F.pad(t, (0, 0, 0, pad)), dt_f, 1)
+        B_p = common.along(lambda t: F.pad(t, (0, 0, 0, 0, 0, pad)), B, 1)
+        C_p = common.along(lambda t: F.pad(t, (0, 0, 0, 0, 0, pad)), C, 1)
     y, h_final = _ssd(xh_p.float(), dt_f, A, B_p.float(), C_p.float(),
                       chunk)
     y = y[:, :S] + xh.float() * p["D"][None, None, :, None]
@@ -186,8 +229,13 @@ def forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, approx=None,
     out = y @ p["w_out"]
     if not return_state:
         return out
-    w = s.conv_width
-    if S >= w - 1:
+    if hasattr(proj, "placements"):
+        # the conv inputs' tail, taken from the projection's columns into
+        # the cache's even split of them
+        tail = (proj[:, S - (w - 1):S] if S >= w - 1 else common.along(
+            lambda t: F.pad(t, (0, 0, w - 1 - S, 0)), proj, 1))
+        conv_state = common.take_columns(tail, [(d_in, 2 * d_in + 2 * gn)])[0]
+    elif S >= w - 1:
         conv_state = xbc_raw[:, S - (w - 1):S]
     else:
         conv_state = torch.cat(
@@ -218,15 +266,24 @@ def decode_step(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
     """O(1) recurrent step. x: (B, 1, d_model). Returns (out, the new
     {conv, ssm} state); the caller writes it into its cache."""
     s, d_in, nh = _dims(cfg)
-    proj = x @ p["w_in"]
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                   state=cache["conv"])
-    xs = xbc[..., :d_in]
     gn = s.n_groups * s.d_state
-    B = common.split_dim(xbc[:, 0, d_in:d_in + gn], 1,
-                         (s.n_groups, s.d_state))
-    C = common.split_dim(xbc[:, 0, d_in + gn:], 1, (s.n_groups, s.d_state))
+    proj = x @ p["w_in"]
+    if hasattr(proj, "placements"):
+        z, xs, B, C, dt = _sharded_conv(p, cfg, proj, state=cache["conv"])
+        # the new conv state in the cache's layout: its last rows and the
+        # step's conv inputs, split as the cache splits them
+        row = common.take_columns(proj, [(d_in, 2 * d_in + 2 * gn)])[0]
+        conv_state = torch.cat([cache["conv"].to(row.dtype), row],
+                               dim=1)[:, 1 - s.conv_width:]
+        B, C = B[:, 0], C[:, 0]
+    else:
+        z, xbc, dt = _split_proj(cfg, proj)
+        xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                                       state=cache["conv"])
+        xs = xbc[..., :d_in]
+        B, C = xbc[:, 0, d_in:d_in + gn], xbc[:, 0, d_in + gn:]
+    B = common.split_dim(B, 1, (s.n_groups, s.d_state))
+    C = common.split_dim(C, 1, (s.n_groups, s.d_state))
     rep = nh // s.n_groups
     Bh = B.repeat_interleave(rep, dim=1) if rep > 1 else B   # (b,H,N)
     Ch = C.repeat_interleave(rep, dim=1) if rep > 1 else C
@@ -238,7 +295,9 @@ def decode_step(p: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict,
         "bh,bhN,bhp->bhpN", dt_f, Bh.float(), xh)
     y = common.shard_einsum("bhN,bhpN->bhp", Ch.float(), h)
     y = y + xh * p["D"][None, :, None]
-    y = common.merge_dims(y, 1)[:, None].to(x.dtype)
+    # a head dim the cache splits (batch 1: over the data ranks) is made
+    # whole first, so the heads keep z's split
+    y = common.merge_dims(common.unshard(y, 2), 1)[:, None].to(x.dtype)
     y = common.rmsnorm(p["norm"], y * common.silu(z), cfg.norm_eps)
     out = y @ p["w_out"]
     return out, {"conv": conv_state.to(cache["conv"].dtype), "ssm": h}

@@ -12,7 +12,9 @@ to the JAX config cut the same way; argument bytes equal to the local
 shards of the placed leaves, summed here from the sharding rules alone;
 the record's keys those of the dry run's ok records; for a prefill, output
 bytes equal to the local shards of the cache laid out by `cache_specs` and
-of the last logits, summed from the rules alone.
+of the last logits, summed from the rules alone. `projection_gathers`
+finds the all-gathers of a Mamba2 input projection's columns over the
+model ranks (the hybrid file and `chip_smoke.py` (d) want none).
 """
 import dataclasses
 import json
@@ -191,6 +193,31 @@ def jax_counts(arch, shape_name):
             jcfg.moe, n_dense_layers=cut.moe.n_dense_layers)
     jcfg = dataclasses.replace(jcfg, **kw)
     return jcfg.param_count(), jcfg.active_param_count()
+
+
+def projection_gathers(rec):
+    """The all-gathers over `model` in a dry-run record's
+    `collectives.by_shape` that carry activation columns of a Mamba2
+    input projection, whole where the rules split them: tensors whose
+    last dim is the projection's share of one model rank (its columns as
+    `w_in`'s column split leaves them, gathered), or the scan's input made
+    whole (an activation d_in wide, d_in over the model ranks, or the
+    heads of either). An arch with no Mamba2 mixer has none."""
+    cfg = get_config(rec["arch"])
+    if cfg.ssm is None:
+        return []
+    s = cfg.ssm
+    n = dryrun.production_mesh_shape(False)["model"]
+    d_in = s.expand * cfg.d_model
+    heads = d_in // s.head_dim
+    width = 2 * d_in + 2 * s.n_groups * s.d_state + heads
+    return [r for r in rec["collectives"]["by_shape"]
+            if r["kind"] == "all-gather" and r["axis"] == "model" and (
+                r["shape"][-1] == -(-width // n)
+                or len(r["shape"]) >= 3 and (
+                    r["shape"][-1] in (d_in, d_in // n)
+                    or r["shape"][-2:] in ([heads, s.head_dim],
+                                           [heads // n, s.head_dim])))]
 
 
 def check(records, cell):

@@ -451,7 +451,7 @@ def test_a007_no_tainted_leaves_is_a_warning():
 
 
 def test_a007_committed_region_steps_clean():
-    assert rules_mod.rule_a007(("regions",)) == []
+    assert rules_mod.rule_a007(("regions",), device="cpu") == []
 
 
 def test_a007_transfer_table_is_the_jax_table():

@@ -12,6 +12,12 @@ inputs, at smoke widths in float32:
   weights' gradients (sums over the batch, which the data ranks split)
   within 1e-6 of their largest element, and the dispatch buffer's local
   shard is 1/(data x model) of the whole;
+* a Mamba2 mixer on DTensors (`mamba2._sharded_conv`, the input
+  projection split over the model ranks across its pieces' boundaries):
+  output, prefill state and gradients equal the plain version's within
+  1e-5, the state laid out as the cache holds it, and no collective moves
+  a tensor of the projection's width or gathers an activation over the
+  model ranks;
 * the prefill of every family with its cache made on the mesh
   (`launch.steps.make_prefill_step(..., mesh)`): each cache leaf laid out
   by `runtime.sharding.cache_specs`, its values and the last logits equal
@@ -39,6 +45,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, steps
 from repro_torch.launch import specs as specs_mod
 from repro_torch.models import build, common, lm, moe
+from repro_torch.optim import adamw
 from repro_torch.runtime import elastic, sharding
 torch.manual_seed(0)
 mesh = elastic.make_mesh((2, 4), ('data', 'model'), device='cpu')
@@ -120,6 +127,43 @@ out["moe"] = [err(y2, y1), abs(float(full(a2)) - float(a1)),
               float(y1.abs().max())]
 out["moe_xe"] = seen
 moe._dispatch_by_shard = dispatch
+
+# -- a Mamba2 mixer: its projection taken apart by columns --------------
+from repro_torch.models import mamba2
+cfg = dataclasses.replace(get_smoke_config("zamba2-7b"),
+                          compute_dtype="float32")
+model = build(cfg, device="cpu")
+p0 = model.init(torch.Generator().manual_seed(0))["layers"]["main"][0][0][
+    "mixer"]
+x0 = torch.tensor(np.random.RandomState(4).standard_normal((4, 16, 64)),
+                  dtype=torch.float32)
+r0 = torch.tensor(np.random.RandomState(5).standard_normal((4, 16, 64)),
+                  dtype=torch.float32)
+p1 = adamw.tree_map(lambda t: t.clone().requires_grad_(), p0)
+x1 = x0.clone().requires_grad_()
+y1, st1 = mamba2.forward(p1, cfg, x1, return_state=True)
+(y1 * r0).sum().backward()
+tree = {"mixer": p0}
+p2 = adamw.tree_map(lambda t: t.requires_grad_(), sharding.place(
+    tree, mesh, sharding.param_specs(mesh, tree))["mixer"])
+x2 = place(x0, [Shard(0), Replicate()]).requires_grad_()
+count = dryrun.DeviceCount({info["group"]: name for name, info in
+                            dryrun.mesh_axes(mesh).items()})
+with implicit_replication(), count:
+    y2, st2 = mamba2.forward(p2, cfg, x2, return_state=True)
+    (y2 * place(r0, [Shard(0), Replicate()])).sum().backward()
+grads = [(a.grad, b.grad) for a, b in zip(adamw.leaves(p2),
+                                          adamw.leaves(p1))]
+out["mamba2"] = [err(y2, y1), err(st2["conv"], st1["conv"]),
+                 err(st2["ssm"], st1["ssm"]), err(x2.grad, x1.grad),
+                 max(err(a, b) / max(1.0, float(b.abs().max()))
+                     for a, b in grads),
+                 float(y1.abs().max()),
+                 p2["w_in"].shape[-1], p2["w_in"].to_local().shape[-1]]
+out["mamba2_state_places"] = [
+    [[type(p).__name__, getattr(p, "dim", None)] for p in st2[k].placements]
+    for k in ("conv", "ssm")]
+out["mamba2_collectives"] = count.by_shape()
 
 # -- prefill with the cache made on the mesh ----------------------------
 for arch in ("qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b", "deepseek-v3-671b",
@@ -218,6 +262,37 @@ def test_moe_dispatch_buffer_is_split_over_data_and_model(layouts):
             for a, b in zip(whole, local):
                 n_whole, n_local = n_whole * a, n_local * b
             assert n_local * 2 * 4 == n_whole, (whole, local)
+
+
+def test_mamba2_on_dtensors_equals_the_plain_forward(layouts):
+    """Forward, prefill state and gradients of a Mamba2 mixer whose input
+    projection (296 columns: z 128, x 128, B 16, C 16, dt 8) is split over
+    4 model ranks at 74 columns, across its pieces' boundaries; the state
+    comes out as the cache holds it (conv inputs over the model ranks,
+    the scan's heads too)."""
+    for r in layouts:
+        y_err, conv_err, ssm_err, x_err, w_err, scale, width, local = \
+            r["mamba2"]
+        assert (width, local) == (296, 74)
+        assert y_err <= 1e-5 * max(1.0, scale), y_err
+        assert max(conv_err, ssm_err, x_err, w_err) <= 1e-5, r["mamba2"]
+        assert r["mamba2_state_places"] == [[["Shard", 0], ["Shard", 2]],
+                                            [["Shard", 0], ["Shard", 1]]]
+
+
+def test_mamba2_moves_no_tensor_of_the_projection_width(layouts):
+    """No collective moves the whole projection (296 wide), and nothing of
+    three or more dims (an activation: the projection's columns, the
+    scan's heads) is gathered over the model ranks: the columns go where
+    the pieces' even split puts them (an all-to-all), B and C whole (an
+    all-reduce of their 32 columns)."""
+    for r in layouts:
+        rows = r["mamba2_collectives"]
+        assert {x["kind"] for x in rows if x["phase"] == "forward"} == {
+            "all-to-all", "all-reduce"}, rows
+        assert not [x for x in rows if 296 in x["shape"]], rows
+        assert not [x for x in rows if x["kind"] == "all-gather"
+                    and x["axis"] == "model" and len(x["shape"]) >= 3], rows
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b",

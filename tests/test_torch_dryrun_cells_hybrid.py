@@ -1,7 +1,8 @@
 """The dry run of the hybrid zamba2-7b (Mamba2 and shared attention;
 long_500k's decode at batch 1): every applicable cell on the 16x16 and
 2x16x16 meshes, cut for a quick check and traced on the CPU
-(`tests/_dryrun_cells.py` says what each case asserts)."""
+(`tests/_dryrun_cells.py` says what each case asserts), and none gathers
+the Mamba2 input projection's columns over the model ranks."""
 import os
 import sys
 
@@ -21,3 +22,12 @@ def records():
 @pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
 def test_cell_traces_with_the_rules_local_shards(records, cell):
     dc.check(records, cell)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
+def test_cell_gathers_no_projection_columns(records, cell):
+    """The Mamba2 input projection is taken apart by its columns
+    (`models.common.take_columns`): no all-gather over `model` carries its
+    columns or the scan's input made whole."""
+    assert records[cell]["status"] == "ok"
+    assert dc.projection_gathers(records[cell]) == []

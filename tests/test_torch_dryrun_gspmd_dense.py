@@ -1,0 +1,15 @@
+"""qwen3-1.7b and qwen1.5-4b train_4k on 16x16 at 2 layers: the port's
+dry-run collectives against GSPMD's compiled program
+(`tests/_dryrun_gspmd.py`)."""
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _dryrun_gspmd import check  # noqa: E402
+
+
+@pytest.mark.parametrize("cell", ["qwen3_train", "qwen15_train"])
+def test_dense_train_collectives_within_gspmd(cell):
+    check(cell)
