@@ -2155,7 +2155,10 @@ def tools_short_matrix(card):
     laid out by `cache_specs` and the last logits) are not the local shards
     the sharding rules give, and so does a Mamba2 cell (zamba2's) whose
     collectives gather its input projection's columns over `model`
-    (`dc.projection_gathers`); those cells' bytes by kind are logged."""
+    (`dc.projection_gathers`); those cells' bytes by kind are logged; and
+    so does any cell whose collectives gather attention heads over `model`
+    (`dc.head_gathers`); each family's model all-gather bytes are
+    logged."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import _dryrun_cells as dc
@@ -2221,10 +2224,33 @@ def tools_short_matrix(card):
         f"in {len(mamba)} cells")
     check(mamba and not gathered,
           f"Mamba2 projection columns gathered over model: {gathered}")
+    # attention heads split where the rules split them: no all-gather over
+    # `model` of whole or padded heads, repeated KV heads or a q / k / v
+    # projection's columns, in any cell; each family's model all-gather
+    # bytes logged
+    heads, model_gathers = [], {}
+    for (arch, shape, multi), rec in sorted(recs.items()):
+        if rec["status"] != "ok":
+            continue
+        name = f"{arch}/{shape}/{'2x16x16' if multi else '16x16'}"
+        model_gathers[name] = sum(
+            r["bytes"] for r in rec["collectives"]["by_shape"]
+            if r["kind"] == "all-gather" and r["axis"] == "model")
+        heads += [f"{name}: {r['phase']} {r['dtype']} {r['shape']} x "
+                  f"{r['count']}" for r in dc.head_gathers(rec)]
+    for arch in sorted({k.split("/")[0] for k in model_gathers}):
+        log(f"  (d) {arch} model all-gather bytes: " + ", ".join(
+            f"{k.split('/', 1)[1]} {v}" for k, v in model_gathers.items()
+            if k.startswith(arch + "/")))
+    log(f"  (d) head all-gathers over model: {len(heads)} in "
+        f"{len(model_gathers)} cells")
+    check(model_gathers and not heads,
+          f"attention heads gathered over model: {heads}")
     check(wall <= SHORT_WALL, f"(d) took {wall:.1f} s, over {SHORT_WALL} s")
     return dict(torch=torch.__version__, counts=n, wall_s=wall,
                 cells=cells, layout_faults=laid_out,
-                mamba2_bytes_by_kind=mamba, projection_gathers=gathered)
+                mamba2_bytes_by_kind=mamba, projection_gathers=gathered,
+                model_gather_bytes=model_gathers, head_gathers=heads)
 
 
 def phase_tools(dev, card, report):

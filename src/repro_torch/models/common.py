@@ -147,7 +147,8 @@ def write_rows(dst: torch.Tensor, src: torch.Tensor, dim: int,
     shard by shard: `src` is laid out as `dst` (whole along `dim` unless it
     covers all of it there), so the write moves no more than that
     redistribution (none where the layouts agree, a local slice where
-    `src` is whole), and each device copies the rows its shard holds.
+    `src` is whole, an all-to-all where `src` is split along another dim:
+    `_swap_split`), and each device copies the rows its shard holds.
     DTensor's own copy into a slice of a split dim makes the slice whole:
     it writes a temporary, and `dst` is left as it was. Plain tensors are
     written as they are."""
@@ -166,6 +167,12 @@ def write_rows(dst: torch.Tensor, src: torch.Tensor, dim: int,
     part = start != 0 or n != dst.shape[dim]
     want = [Replicate() if part and isinstance(p, Shard)
             and p.dim % dst.ndim == dim else p for p in dst.placements]
+    for md, (p, q) in enumerate(zip(src.placements, want)):
+        if isinstance(p, Shard) and isinstance(q, Shard) \
+                and p.dim % dst.ndim != q.dim % dst.ndim and not any(
+                    o.is_shard() and o.dim % dst.ndim == q.dim % dst.ndim
+                    for o in src.placements):
+            src = _swap_split(src, md, q.dim % dst.ndim)
     if list(src.placements) != want:
         src = src.redistribute(mesh, want)
     d_loc, s_loc = dst.to_local(), src.to_local()
@@ -286,61 +293,40 @@ def take_columns(t: torch.Tensor, bounds, whole=()) -> list:
     would gather all of `t`. The other mesh dims keep `t`'s placements.
     Plain tensors, and DTensors not so split, are sliced."""
     pieces = [(int(a), int(b)) for a, b in bounds]
-    split = [md for md, p in enumerate(getattr(t, "placements", ()))
-             if p.is_shard() and p.dim % t.ndim == t.ndim - 1]
-    if len(split) != 1 or t.device_mesh.size(split[0]) == 1:
+    md = _split_over(t, -1)
+    if md is None:
         return [t[..., a:b] for a, b in pieces]
     from torch.distributed.tensor import Replicate, Shard
     t = settle(t)
-    mesh, md = t.device_mesh, split[0]
+    mesh = t.device_mesh
     n, me = mesh.size(md), mesh.get_local_rank(md)
     group = mesh.get_group(md).group_name
-    width = t.shape[-1]
-    chunk = -(-width // n)
-
-    def held(r):                      # the columns rank r holds
-        return min(r * chunk, width), min((r + 1) * chunk, width)
+    held = _chunks(t.shape[-1], n)    # the columns each rank holds
 
     def owed(a, b, r):                # rank r's columns of an even piece
         w = (b - a) // n
         return a + r * w, a + (r + 1) * w
 
-    def meet(have, want):             # their overlap, empty inside `want`
-        x = min(max(have[0], want[0]), want[1])
-        return x, max(min(have[1], want[1]), x)
-
     local = t.to_local()
-    lo = held(me)[0]
+    lo = held[me][0]
     lead = tuple(t.shape[:-1])
     even = [i for i, (a, b) in enumerate(pieces)
             if (b - a) % n == 0 and i not in whole]
     summed = [i for i in range(len(pieces)) if i not in even]
     out = [None] * len(pieces)
     if even:
-        sends, in_sizes, out_sizes, got = [], [], [], []
-        for r in range(n):
-            parts = [meet(held(me), owed(*pieces[i], r)) for i in even]
-            sends += [local[..., x - lo:y - lo] for x, y in parts]
-            in_sizes.append(sum(y - x for x, y in parts))
-            parts = [meet(held(r), owed(*pieces[i], me)) for i in even]
-            got.append([y - x for x, y in parts])
-            out_sizes.append(sum(got[-1]))
-        send = torch.cat(sends, dim=-1).movedim(-1, 0).contiguous()
-        recv = _AllToAll.apply(send, out_sizes, in_sizes, group)
-        recv = recv.movedim(0, -1).split([k for ks in got for k in ks],
-                                         dim=-1)
+        cols = _route(local, -1, held, [[owed(*pieces[i], r) for i in even]
+                                        for r in range(n)], me, group)
         places = list(t.placements)
         places[md] = Shard(t.ndim - 1)
-        for j, i in enumerate(even):
-            cols = torch.cat([recv[r * len(even) + j] for r in range(n)],
-                             dim=-1)
+        for c, i in zip(cols, even):
             a, b = pieces[i]
-            out[i] = _from_local(cols, mesh, places, lead + (b - a,))
+            out[i] = _from_local(c, mesh, places, lead + (b - a,))
     if summed:
-        own, parts = held(me), []
+        own, parts = held[me], []
         for i in summed:
             a, b = pieces[i]
-            x, y = meet(own, (a, b))
+            x, y = _meet(own, (a, b))
             parts += [local.new_zeros(local.shape[:-1] + (x - a,)),
                       local[..., x - lo:y - lo],
                       local.new_zeros(local.shape[:-1] + (b - y,))]
@@ -352,6 +338,101 @@ def take_columns(t: torch.Tensor, bounds, whole=()) -> list:
             a, b = pieces[i]
             out[i] = _from_local(sums[j], mesh, places, lead + (b - a,))
     return out
+
+
+def _split_over(t: torch.Tensor, dim: int):
+    """The one mesh dim (of more than one rank) that splits DTensor `t`'s
+    dim `dim`, or None (a plain tensor, that dim whole, or split over
+    several mesh dims)."""
+    dim %= t.ndim
+    split = [md for md, p in enumerate(getattr(t, "placements", ()))
+             if p.is_shard() and p.dim % t.ndim == dim]
+    if len(split) != 1 or t.device_mesh.size(split[0]) == 1:
+        return None
+    return split[0]
+
+
+def _chunks(extent: int, n: int) -> list:
+    """The (start, stop) of each of `n` ranks' shards of a dim of `extent`
+    split over them, as DTensor's `Shard` splits it: ceil(extent / n) to
+    each rank, the last ones short or empty where the ranks do not divide
+    `extent` (GSPMD's padding to a multiple of the ranks, held nowhere)."""
+    c = -(-extent // n)
+    return [(min(r * c, extent), min((r + 1) * c, extent)) for r in range(n)]
+
+
+def _meet(have, want):
+    """The overlap of two (start, stop) ranges, empty inside `want`."""
+    x = min(max(have[0], want[0]), want[1])
+    return x, max(min(have[1], want[1]), x)
+
+
+def _route(local: torch.Tensor, dim: int, held, wants, me: int,
+           group: str) -> list:
+    """Each rank's ranges `wants[r]` (a list of (start, stop) along `dim`, in
+    the dim's global indices; ranks may want the same rows) taken from the
+    ranks that hold them, `held[r]` the range rank r's `local` holds
+    (disjoint, in rank order), through one all-to-all of only those rows
+    (`_AllToAll`; none where every rank holds what it wants): returns this
+    rank's, one tensor a range of `wants[me]`. The backward sends each
+    gradient back where its rows came from, summed where they went to
+    several ranks."""
+    dim %= local.ndim
+    n, lo = len(held), held[me][0]
+
+    def rows(x, y):
+        return local.narrow(dim, x - lo if y > x else 0, y - x)
+
+    def count(s, w):                  # the rows of `w` rank s holds
+        x, y = _meet(held[s], w)
+        return y - x
+
+    if not any(count(s, w) for r in range(n) for w in wants[r]
+               for s in range(n) if s != r):
+        return [rows(*_meet(held[me], w)) for w in wants[me]]
+    sends, in_sizes, out_sizes, got = [], [], [], []
+    for r in range(n):
+        parts = [_meet(held[me], w) for w in wants[r]]
+        sends += [rows(x, y) for x, y in parts]
+        in_sizes.append(sum(y - x for x, y in parts))
+        got.append([count(r, w) for w in wants[me]])
+        out_sizes.append(sum(got[-1]))
+    send = torch.cat(sends, dim=dim).movedim(dim, 0).contiguous()
+    recv = _AllToAll.apply(send, out_sizes, in_sizes, group)
+    recv = recv.movedim(0, dim).split([k for ks in got for k in ks], dim=dim)
+    m = len(wants[me])
+    return [torch.cat([recv[r * m + j] for r in range(n)], dim=dim)
+            for j in range(m)]
+
+
+def _swap_split(t: torch.Tensor, md: int, dim: int) -> torch.Tensor:
+    """DTensor `t`, split over mesh dim `md` along another dim (KV heads),
+    split along `dim` there instead (a cache's sequence), as `Shard` splits
+    it: each rank sends each other rank the part of its shard that falls in
+    that rank's share of `dim`, through one all-to-all of only those
+    (`_AllToAll`), where DTensor's redistribution gathers `t` whole over
+    `md` on a cpu mesh. `dim` must be whole over the other mesh dims."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    a = t.placements[md].dim % t.ndim
+    n, me = mesh.size(md), mesh.get_local_rank(md)
+    local = t.to_local()
+    mine = _chunks(t.shape[dim], n)
+    sends = [local.narrow(dim, x, y - x).reshape(-1) for x, y in mine]
+    shapes = []
+    for x, y in _chunks(t.shape[a], n):
+        shape = list(local.shape)
+        shape[a], shape[dim] = y - x, mine[me][1] - mine[me][0]
+        shapes.append(shape)
+    sizes = [math.prod(shape) for shape in shapes]
+    recv = _AllToAll.apply(torch.cat(sends), sizes,
+                           [p.numel() for p in sends],
+                           mesh.get_group(md).group_name)
+    local = torch.cat([p.reshape(shape) for p, shape in
+                       zip(recv.split(sizes), shapes)], dim=a)
+    places = list(t.placements)
+    places[md] = Shard(dim)
+    return _from_local(local, mesh, places, tuple(t.shape))
 
 
 def _collective(op: str, t: torch.Tensor, *args) -> torch.Tensor:
@@ -551,8 +632,29 @@ def split_dim(t: torch.Tensor, dim: int, sizes) -> torch.Tensor:
 def split_heads(t: torch.Tensor, n_heads: int, head_dim: int
                 ) -> torch.Tensor:
     """(B, S, n_heads * head_dim) -> (B, S, n_heads, head_dim)
-    (`split_dim` of the last dim)."""
-    return split_dim(t, -1, (n_heads, head_dim))
+    (`split_dim` of the last dim). A DTensor split along its last dim over
+    one mesh dim whose ranks do not divide `n_heads` (a column-parallel
+    projection's output) comes out split by heads as `Shard` splits a dim
+    its ranks do not divide (`_chunks`: GSPMD's heads padded to a multiple
+    of the ranks), each rank receiving its heads' columns from the ranks
+    that hold them through one all-to-all of only those columns
+    (`_route`), where `split_dim` would make the projection whole."""
+    md = _split_over(t, -1)
+    if md is None or n_heads % t.device_mesh.size(md) == 0:
+        return split_dim(t, -1, (n_heads, head_dim))
+    from torch.distributed.tensor import Shard
+    t = settle(t)
+    mesh = t.device_mesh
+    n = mesh.size(md)
+    cols = _route(t.to_local(), -1, _chunks(t.shape[-1], n),
+                  [[(a * head_dim, b * head_dim)] for a, b in
+                   _chunks(n_heads, n)], mesh.get_local_rank(md),
+                  mesh.get_group(md).group_name)[0]
+    places = list(t.placements)
+    places[md] = Shard(t.ndim - 1)
+    local = cols.unflatten(-1, (cols.shape[-1] // head_dim, head_dim))
+    return _from_local(local, mesh, places,
+                       tuple(t.shape[:-1]) + (n_heads, head_dim))
 
 
 def merge_dims(t: torch.Tensor, dim: int, n: int = 2) -> torch.Tensor:
@@ -562,8 +664,12 @@ def merge_dims(t: torch.Tensor, dim: int, n: int = 2) -> torch.Tensor:
     otherwise along a merged dim is made whole along it first, then split
     again along the merged dim where its ranks divide that dim's extent (a
     local slice). Where some ranks do not divide the first merged dim, its
-    gradient comes back in the layout it leaves (`pin_grad`). A plain
-    tensor is only reshaped."""
+    gradient comes back in the layout it leaves (`pin_grad`). Where only
+    the first merged dim is split, over one mesh dim whose ranks divide the
+    merged extent but not that dim's (heads split as `split_heads` splits
+    them), each rank instead receives its even share of the merged dim from
+    the ranks that hold it, through one all-to-all of only those rows
+    (`_route`). A plain tensor is only reshaped."""
     dim %= t.ndim
     shape = tuple(t.shape)
     out_shape = shape[:dim] + (math.prod(shape[dim:dim + n]),) \
@@ -572,6 +678,25 @@ def merge_dims(t: torch.Tensor, dim: int, n: int = 2) -> torch.Tensor:
         return t.reshape(out_shape)
     from torch.distributed.tensor import Replicate, Shard
     mesh = t.device_mesh
+    md = _split_over(t, dim)
+    if md is not None and shape[dim] % mesh.size(md) \
+            and out_shape[dim] % mesh.size(md) == 0 and not any(
+                isinstance(p, Shard) and dim < p.dim % t.ndim < dim + n
+                for p in t.placements):
+        inner = out_shape[dim] // shape[dim]
+        local = t.to_local().contiguous()
+        local = local.reshape(local.shape[:dim] + (
+            math.prod(local.shape[dim:dim + n]),) + local.shape[dim + n:])
+        k = mesh.size(md)
+        rows = _route(local, dim, [(a * inner, b * inner) for a, b in
+                                   _chunks(shape[dim], k)],
+                      [[w] for w in _chunks(out_shape[dim], k)],
+                      mesh.get_local_rank(md),
+                      mesh.get_group(md).group_name)[0]
+        places = [Shard(p.dim % t.ndim - (n - 1)) if isinstance(p, Shard)
+                  and p.dim % t.ndim >= dim + n else p for p in t.placements]
+        places[md] = Shard(dim)
+        return _from_local(rows, mesh, places, out_shape)
     places, resplit = list(t.placements), []
     for md, p in enumerate(places):
         if isinstance(p, Shard) and dim <= p.dim % t.ndim < dim + n and (
@@ -736,10 +861,19 @@ def layernorm_params(d: int, hold):
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Layer norm in float32; a DTensor's partial sums, and its output's
-    gradient's, are summed in its own dtype (as `rmsnorm`'s)."""
+    gradient's, are summed in its own dtype (as `rmsnorm`'s), and an input
+    split along the normalized dim (RWKV6's WKV output, split by heads) has
+    its mean and variance summed, and their gradients too, as `rmsnorm`
+    sums its variance."""
     xf = settle(x).float()
+    split = any(p.is_shard() and p.dim % x.ndim == x.ndim - 1
+                for p in getattr(x, "placements", ()))
     mu = torch.mean(xf, dim=-1, keepdim=True)
+    if split:
+        mu = pin_grad(settle(mu))
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    if split:
+        var = pin_grad(settle(var))
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * p["scale"].float() + p["bias"].float()
     return pin_grad(out.to(x.dtype))
@@ -874,8 +1008,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[-1]
-    assert hq % hkv == 0
-    rep = hq // hkv
+    assert hq % hkv == 0 if hkv else hq == 0   # a shard may hold no head
+    rep = hq // max(hkv, 1)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
     if kv_positions is None:
@@ -935,60 +1069,82 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _attention_by_shard(q, k, v, **kw) -> torch.Tensor:
     """`chunked_attention` of DTensors q, k, v, each device on its own
-    shards: attention mixes no batch row or head with another, so with q,
-    k and v split alike over batch and heads (and whole over sequence and
-    head dims) each device runs the plain chunked attention on its local
-    shards, with no collective (GSPMD's plan). q is made whole along any
-    other split (and its partial sums summed); heads whole on every rank
-    of a mesh dim that splits neither them nor the batch (heads that do not
-    divide the model ranks, which `split_heads` leaves whole) are split
-    there too, padded with zero heads to a multiple of its ranks as GSPMD
-    pads them (dropped from the output, which comes back with its heads
-    whole), so that no device holds every head's chunk probabilities; k
-    and v take q's split, as local slices, after their heads are repeated
-    to q's where q's heads are split over ranks that do not split theirs
-    alike. DTensor run op by op would plan every chunk pair's ops
-    (millions at 32k) and refuses some of them: the pad of a ragged chunk,
-    the flattened batch dims of a product split over two mesh dims."""
+    shards: attention mixes no batch row or head with another, so with q
+    split over batch and heads (and whole over sequence and head dims), and
+    k and v holding the KV heads of each device's query heads, each device
+    runs the plain chunked attention on its local shards (GSPMD's plan). q
+    is made whole along any other split (and its partial sums summed);
+    heads whole on every rank of a mesh dim that splits neither them nor
+    the batch are split there too (as `Shard` splits them: GSPMD's padding
+    to a multiple of the ranks, held nowhere), so that no device holds
+    every head's chunk probabilities. The output keeps q's layout. DTensor
+    run op by op would plan every chunk pair's ops (millions at 32k) and
+    refuses some of them: the pad of a ragged chunk, the flattened batch
+    dims of a product split over two mesh dims."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = q.device_mesh
     places = [p if isinstance(p, Shard) and p.dim % 4 < 2 else Replicate()
               for p in q.placements]
-    if list(q.placements) != places:
-        q = q.redistribute(mesh, places)
-    heads, pad = q.shape[1], 0
+    by_heads = [md for md, p in enumerate(places)
+                if isinstance(p, Shard) and p.dim % 4 == 1]
     whole = [md for md, p in enumerate(places) if isinstance(p, Replicate)]
-    if whole and heads > 1 and not any(
-            isinstance(p, Shard) and p.dim % 4 == 1 for p in places):
-        pad = -heads % mesh.size(whole[-1])
+    if whole and q.shape[1] > 1 and not by_heads:
         places[whole[-1]] = Shard(1)
-    rep = heads // k.shape[1]
-    if rep > 1 and any(
-            isinstance(p, Shard) and p.dim % 4 == 1
-            and (k.shape[1] % mesh.size(md) or heads % mesh.size(md))
-            for md, p in enumerate(places)):
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-    if pad:
-        q, k, v = (_pad_heads(t, pad) for t in (q, k, v))
-    k, v = (t if list(t.placements) == places else t.redistribute(mesh, places)
-            for t in (k, v))
+        by_heads = [whole[-1]]
     if list(q.placements) != places:
         q = q.redistribute(mesh, places)
-    out = chunked_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
-    out = _from_local(out, mesh, places,
-                      tuple(q.shape[:3]) + (v.shape[-1],))
-    return unshard(out, 1)[:, :heads] if pad else out
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    k, v = (_kv_heads(t, q, places, by_heads) for t in (k, v))
+    return _from_local(chunked_attention(q.to_local(), k, v, **kw), mesh,
+                       places, shape)
 
 
-def _pad_heads(t: torch.Tensor, pad: int) -> torch.Tensor:
-    """DTensor `t` (B, H, S, D) with `pad` zero heads after its own, its
-    heads made whole first (the padding on its local shards)."""
-    t = unshard(t, 1)
-    local = torch.nn.functional.pad(t.to_local(), (0, 0, 0, 0, 0, pad))
-    shape = list(t.shape)
-    shape[1] += pad
-    return _from_local(local, t.device_mesh, t.placements, shape)
+def _kv_heads(t, q, places, by_heads) -> torch.Tensor:
+    """The local K or V (`t`, a DTensor (B, Hkv, S, D)) of this device's
+    query heads in q (laid out by `places`, its heads split over the mesh
+    dims `by_heads`), one KV head for each query head (query head h reads
+    KV head h // (Hq / Hkv)), whole along the sequence. Where one mesh dim
+    splits the query heads, each rank receives only the KV heads its query
+    heads read, from the ranks that hold them (`_route`: one all-to-all,
+    none where they are its own; a KV head that several ranks read goes to
+    each, its gradients summed), and repeats them locally; t whole there is
+    sliced (its gradient a partial sum). Otherwise t takes q's layout, its
+    heads repeated to q's first where the ranks do not split both alike."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    hq, hkv = q.shape[1], t.shape[1]
+    group = hq // hkv
+    if len(by_heads) != 1:
+        if group > 1 and any(hkv % mesh.size(md) or hq % mesh.size(md)
+                             for md in by_heads):
+            t = t.repeat_interleave(group, dim=1)
+        if list(t.placements) != places:
+            t = t.redistribute(mesh, places)
+        return t.to_local()
+    md = by_heads[0]
+    n, me = mesh.size(md), mesh.get_local_rank(md)
+    want = list(places)
+    own = t.placements[md]
+    want[md] = own if isinstance(own, Shard) and own.dim % 4 == 1 \
+        else Replicate()
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    mine = _chunks(hq, n)
+    need = [(a // group, -(-b // group)) if b > a else (0, 0)
+            for a, b in mine]
+    if isinstance(want[md], Shard):
+        local = _route(t.to_local(), 1, _chunks(hkv, n),
+                       [[w] for w in need], me,
+                       mesh.get_group(md).group_name)[0]
+    else:
+        local = t.to_local(grad_placements=[
+            Partial() if i == md else p for i, p in enumerate(want)])
+        local = local[:, need[me][0]:need[me][1]]
+    idx = [h // group - need[me][0] for h in range(*mine[me])]
+    if idx != list(range(local.shape[1])):
+        local = local.index_select(1, torch.tensor(idx, dtype=torch.long,
+                                                   device=local.device))
+    return local
 
 
 def full_attention(q, k, v, *, causal: bool = True,

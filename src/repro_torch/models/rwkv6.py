@@ -91,8 +91,12 @@ def init_cache(cfg: ModelConfig, n_layers: int, batch: int, dtype,
 
 
 def _token_shift(x, x_prev):
-    """shifted[t] = x[t-1]; x_prev seeds t=0. x: (B,S,d), x_prev: (B,d)."""
-    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
+    """shifted[t] = x[t-1]; x_prev seeds t=0. x: (B,S,d), x_prev: (B,d).
+    A DTensor x_prev (a cache's last token, split along d) is made whole
+    along d first, as x is: DTensor's concatenation would split x along d
+    instead, and the products after it would gather their weights."""
+    return torch.cat([common.unshard(x_prev, -1)[:, None, :],
+                      x[:, :-1, :]], dim=1)
 
 
 def wkv_scan(r, k, v, w, u, state):
@@ -107,12 +111,18 @@ def wkv_scan(r, k, v, w, u, state):
 
 
 def _wkv_loop(r, k, v, w, u, state):
+    """The scan token by token. Each input is taken apart into its tokens
+    once (`unbind`: its backward stacks the tokens' gradients, where a
+    token's index would write a zero-filled gradient of the whole sequence
+    for each token)."""
     ys = []
     ub = u[None, :, :, None]
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B,H,P,P)
-        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], state + ub * kv))
-        state = state * w[:, t, :, :, None] + kv
+    for rt, kt, vt, wt in zip(r.unbind(1), k[..., None].unbind(1),
+                              v[..., None, :].unbind(1),
+                              w[..., None].unbind(1)):
+        kv = kt * vt                                          # (B,H,P,P)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt, state + ub * kv))
+        state = state * wt + kv
     return torch.stack(ys, dim=1), state
 
 
@@ -132,8 +142,12 @@ def time_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     k = mixed("k") @ p["w_k"]
     v = mixed("v") @ p["w_v"]
     g = mixed("g") @ p["w_g"]
-    # Finch data-dependent decay
-    dlora = torch.tanh(mixed("w") @ p["decay_A"]) @ p["decay_B"]
+    # Finch data-dependent decay. A DTensor's LoRA rank (split as decay_A's
+    # columns) is made whole before decay_B, so that the decay comes out
+    # split by heads as r, k and v are (DTensor would sum the product over
+    # the rank's split, then scatter that sum along the batch)
+    dlora = common.unshard(torch.tanh(mixed("w") @ p["decay_A"]), -1) \
+        @ p["decay_B"]
     w = torch.exp(-torch.exp(torch.clamp(p["w0"] + dlora.float(),
                                          -20.0, 3.0)))
     def heads(t):

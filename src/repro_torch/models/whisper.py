@@ -49,14 +49,27 @@ def _enc_block(p, cfg: ModelConfig, x, positions):
     return x + mlp.forward(p["ffn"], cfg, h, "gelu", approx=cfg.approx_ffn)
 
 
+def _memory_proj(memory, w):
+    """`memory @ w`. A DTensor memory whose frames are split (the decode
+    cache splits them where its model ranks divide them) multiplies shard
+    by shard (`common.by_shard`), so that they stay split: DTensor's
+    product flattens them into the batch, which torch 2.11 refuses for a
+    split dim."""
+    if any(p.is_shard() and p.dim % memory.ndim == 1
+           for p in getattr(memory, "placements", ())):
+        return common.by_shard(torch.matmul, "bsd,de->bse", memory, w,
+                               free="bse")
+    return memory @ w
+
+
 def _cross_attention(p, cfg: ModelConfig, x, memory):
     """Queries from the decoder's x; K/V from the encoder memory (no mask,
     no rotary embedding)."""
     hd = cfg.resolved_head_dim
     q = common.split_heads(x @ p["wq"], cfg.n_heads, hd).transpose(1, 2)
-    k = common.split_heads(memory @ p["wk"], cfg.n_kv_heads,
+    k = common.split_heads(_memory_proj(memory, p["wk"]), cfg.n_kv_heads,
                            hd).transpose(1, 2)
-    v = common.split_heads(memory @ p["wv"], cfg.n_kv_heads,
+    v = common.split_heads(_memory_proj(memory, p["wv"]), cfg.n_kv_heads,
                            hd).transpose(1, 2)
     ctx = common.chunked_attention(q, k, v, causal=False)
     return common.merge_dims(ctx.transpose(1, 2), 2) @ p["wo"]

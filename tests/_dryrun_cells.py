@@ -14,7 +14,9 @@ the record's keys those of the dry run's ok records; for a prefill, output
 bytes equal to the local shards of the cache laid out by `cache_specs` and
 of the last logits, summed from the rules alone. `projection_gathers`
 finds the all-gathers of a Mamba2 input projection's columns over the
-model ranks (the hybrid file and `chip_smoke.py` (d) want none).
+model ranks (the hybrid file and `chip_smoke.py` (d) want none), and
+`head_gathers` those of attention heads made whole (`chip_smoke.py` (d)
+wants none in any cell).
 """
 import dataclasses
 import json
@@ -218,6 +220,38 @@ def projection_gathers(rec):
                     r["shape"][-1] in (d_in, d_in // n)
                     or r["shape"][-2:] in ([heads, s.head_dim],
                                            [heads // n, s.head_dim])))]
+
+
+def head_gathers(rec):
+    """The all-gathers over `model` in a dry-run record's
+    `collectives.by_shape` that carry attention heads made whole where the
+    rules split them: an activation of more than one position whose last
+    dim is a head's (query, key or value heads, repeated KV heads, the WKV
+    scan's heads: all of them or a rank's share, gathered), or one model
+    rank's share of the query or the K / V projection's columns (a
+    projection gathered before its heads are split), or whose inner dims
+    hold every head or the heads padded to a multiple of the ranks (a
+    repeated KV head is a query head's). MLA's heads are its query and
+    value heads, found by their dims alone: its projections' columns a
+    rank are its latent ranks' widths, which it gathers by design. A decode
+    step's one position is gathered by design too: the query meets a cache
+    split along the sequence, and the position's K / V go into it."""
+    cfg = get_config(rec["arch"])
+    n = dryrun.production_mesh_shape(False)["model"]
+    if cfg.use_mla:
+        dims = {cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                cfg.mla.v_head_dim}
+        cols = set()
+    else:
+        dims = {cfg.resolved_head_dim}
+        cols = {-(-h * cfg.resolved_head_dim // n)
+                for h in (cfg.n_heads, cfg.n_kv_heads)}
+    heads = {cfg.n_heads, -(-cfg.n_heads // n) * n}
+    return [r for r in rec["collectives"]["by_shape"]
+            if r["kind"] == "all-gather" and r["axis"] == "model"
+            and len(r["shape"]) >= 3 and r["shape"][-2] > 1 and (
+                r["shape"][-1] in dims | cols
+                or heads & set(r["shape"][1:-1]))]
 
 
 def check(records, cell):

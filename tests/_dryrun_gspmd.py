@@ -13,6 +13,9 @@ and the attention chunk loops count every trip, as the port's trace does
 cut (its fake process group is the process's default group). Both count
 the result bytes of each collective a device runs.
 
+`check` holds every cell of `CELLS` to both bounds: the port's total
+bytes to `TOTAL_RATIO` of GSPMD's, and its all-gathers over `model` to
+`GATHER_RATIO` of GSPMD's all-gathers and collective-permutes.
 `python tests/_dryrun_gspmd.py` prints the readings of every cell, and of
 `MORE_CELLS` (the other train cells, read but not asserted).
 """
@@ -36,18 +39,19 @@ CELLS = {
     "qwen15_train": ("qwen1.5-4b", "train_4k", 2),
     "olmoe_train": ("olmoe-1b-7b", "train_4k", 2),
     "whisper_train": ("whisper-large-v3", "train_4k", 2),
-}
-# read by `python tests/_dryrun_gspmd.py` beside CELLS, not asserted
-MORE_CELLS = {
     "rwkv6_train": ("rwkv6-1.6b", "train_4k", 2),
     "starcoder2_train": ("starcoder2-3b", "train_4k", 2),
     "pixtral_train": ("pixtral-12b", "train_4k", 2),
+}
+# read by `python tests/_dryrun_gspmd.py` beside CELLS, not asserted
+MORE_CELLS = {
     "deepseek7b_train": ("deepseek-7b", "train_4k", 2),
 }
 # the port's collective bytes at most this many times GSPMD's
 TOTAL_RATIO = 1.5
 # the port's all-gathers over `model` at most this many times GSPMD's
-# all-gathers and collective-permutes (zamba2's projection)
+# all-gathers and collective-permutes (zamba2's projection, heads that the
+# ranks do not divide, RWKV6's decay and norm)
 GATHER_RATIO = 2.0
 
 # `%name (params) -> type {` opens a computation (`ENTRY %name ...` the
@@ -227,8 +231,7 @@ def check(name: str) -> Dict[str, float]:
     """Hold the port's cell `name` against GSPMD's; returns the readings."""
     r = readings(*cells(name))
     assert r["total_ratio"] <= TOTAL_RATIO, (name, r)
-    if name.startswith("zamba2"):
-        assert r["gather_ratio"] <= GATHER_RATIO, (name, r)
+    assert r["gather_ratio"] <= GATHER_RATIO, (name, r)
     return r
 
 

@@ -24,7 +24,13 @@ inputs, at smoke widths in float32:
   the plain prefill's, a prompt shorter than the cache included (the
   sequence-split cache of KV heads that do not divide the model ranks);
   then one decode step on each cache: the position written into its
-  shard (`common.write_rows`), cache and logits equal the plain step's.
+  shard (`common.write_rows`), cache and logits equal the plain step's
+  (whisper's with its encoder frames split over the model ranks);
+* attention whose heads the model ranks do not divide (`split_heads`,
+  `chunked_attention`, `merge_dims` on DTensors): padded heads and GQA
+  with KV heads the ranks do not divide, outputs and gradients equal the
+  plain ones within 1e-5, no collective gathering over the model ranks
+  or moving every head; whisper's cross-attention over split frames.
 
 The ranks run in subprocesses (`test_torch_distributed.run_ranks`).
 """
@@ -61,6 +67,30 @@ def place(t, places):
     return DTensor.from_local(t, mesh, [Replicate(), Replicate()],
                               run_check=False).redistribute(mesh, places)
 
+# `t` laid out by `places`, its local shard the autograd leaf: `.dtensor()`
+# wraps it (inside the counted region), `.grad` is the gradient as a
+# DTensor. torch 2.11 gathers an unevenly split DTensor leaf's gradient
+# whole as it accumulates it, which no model's leaf (a parameter, split
+# evenly) does
+class Leaf:
+
+    def __init__(self, t, places):
+        d = place(t, places)
+        self.spec = (d.placements, d.shape, d.stride())
+        self.local = d.to_local().clone().requires_grad_()
+
+    def _wrap(self, local):
+        places, shape, stride = self.spec
+        return DTensor.from_local(local, mesh, places, run_check=False,
+                                  shape=shape, stride=stride)
+
+    def dtensor(self):
+        return self._wrap(self.local)
+
+    @property
+    def grad(self):
+        return self._wrap(self.local.grad)
+
 # -- the vocab-parallel loss --------------------------------------------
 for v in (256, 250):
     rng = np.random.RandomState(v)
@@ -73,11 +103,12 @@ for v in (256, 250):
     plain = lm._chunk_nll(h1, w1, lb, mask)
     plain.backward()
     h2 = place(h0, [Shard(0), Replicate()]).requires_grad_()
-    w2 = place(w0, [Replicate(), Shard(1)]).requires_grad_()
+    w2 = Leaf(w0, [Replicate(), Shard(1)])
     count = dryrun.DeviceCount({info["group"]: name for name, info in
                                 dryrun.mesh_axes(mesh).items()})
     with implicit_replication(), count:
-        loss = lm._chunk_nll(h2, w2, place(lb, [Shard(0), Replicate()]),
+        loss = lm._chunk_nll(h2, w2.dtensor(),
+                             place(lb, [Shard(0), Replicate()]),
                              place(mask, [Shard(0), Replicate()]))
         loss.backward()
     out[f"loss_{v}"] = [abs(float(full(loss)) - float(plain)),
@@ -165,6 +196,93 @@ out["mamba2_state_places"] = [
     for k in ("conv", "ssm")]
 out["mamba2_collectives"] = count.by_shape()
 
+# -- attention whose heads the model ranks do not divide ----------------
+from repro_torch.models import attention, whisper
+
+def counted():
+    return dryrun.DeviceCount({info["group"]: name for name, info in
+                               dryrun.mesh_axes(mesh).items()})
+
+def relerr(pairs):
+    return max(err(a, b) / max(1.0, float(b.abs().max())) for a, b in pairs)
+
+for name, heads, kv in (("padded", 6, 6), ("gqa", 6, 2)):
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), n_heads=heads,
+                              n_kv_heads=kv, head_dim=16,
+                              compute_dtype="float32")
+    p0 = attention.init_params(torch.Generator().manual_seed(0), cfg,
+                               lambda n, t: t)
+    rng = np.random.RandomState(6)
+    x0, r0 = (torch.tensor(rng.standard_normal((4, 24, 64)),
+                           dtype=torch.float32) for _ in range(2))
+    pos = torch.arange(24)
+    p1 = adamw.tree_map(lambda t: t.clone().requires_grad_(), p0)
+    x1 = x0.clone().requires_grad_()
+    y1 = attention.forward(p1, cfg, x1, pos)
+    (y1 * r0).sum().backward()
+    tree = {"attn": p0}
+    p2 = adamw.tree_map(lambda t: t.requires_grad_(), sharding.place(
+        tree, mesh, sharding.param_specs(mesh, tree))["attn"])
+    x2 = place(x0, [Shard(0), Replicate()]).requires_grad_()
+    count = counted()
+    with implicit_replication(), count:
+        y2 = attention.forward(p2, cfg, x2, pos)
+        (y2 * place(r0, [Shard(0), Replicate()])).sum().backward()
+    out["attn_" + name] = [
+        err(y2, y1), err(x2.grad, x1.grad),
+        relerr([(a.grad, b.grad) for a, b in zip(adamw.leaves(p2),
+                                                 adamw.leaves(p1))]),
+        float(y1.abs().max())]
+    out["attn_" + name + "_collectives"] = count.by_shape()
+    # chunked_attention itself on q, k, v split over the model ranks by
+    # heads as `split_heads` splits them (6 over 4: 2, 2, 2, 0; 2 KV heads:
+    # 1, 1, 0, 0)
+    q0, k0, v0 = (torch.tensor(rng.standard_normal((4, h, 24, 16)),
+                               dtype=torch.float32)
+                  for h in (heads, kv, kv))
+    g0 = torch.tensor(rng.standard_normal((4, heads, 24, 16)),
+                      dtype=torch.float32)
+    plain = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+    o1 = common.chunked_attention(*plain, q_chunk=8, kv_chunk=8)
+    (o1 * g0).sum().backward()
+    split = [Leaf(t, [Shard(0), Shard(1)]) for t in (q0, k0, v0)]
+    count = counted()
+    with implicit_replication(), count:
+        o2 = common.chunked_attention(*[t.dtensor() for t in split],
+                                      q_chunk=8, kv_chunk=8)
+        (o2 * place(g0, [Shard(0), Shard(1)])).sum().backward()
+    out["chunked_" + name] = [
+        err(o2, o1), max(err(a.grad, b.grad) for a, b in zip(split, plain)),
+        float(o1.abs().max()),
+        [[type(p).__name__, getattr(p, "dim", None)] for p in o2.placements]]
+    out["chunked_" + name + "_collectives"] = count.by_shape()
+
+# -- whisper's cross-attention over encoder frames split over `model` ---
+cfg = dataclasses.replace(get_smoke_config("whisper-large-v3"),
+                          compute_dtype="float32")
+p0 = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))[
+    "dec_blocks"][0]["cross_attn"]
+rng = np.random.RandomState(8)
+x0, r0 = (torch.tensor(rng.standard_normal((4, 4, 64)), dtype=torch.float32)
+          for _ in range(2))
+m0 = torch.tensor(rng.standard_normal((4, 16, 64)), dtype=torch.float32)
+p1 = adamw.tree_map(lambda t: t.clone().requires_grad_(), p0)
+x1, m1 = x0.clone().requires_grad_(), m0.clone().requires_grad_()
+y1 = whisper._cross_attention(p1, cfg, x1, m1)
+(y1 * r0).sum().backward()
+tree = {"cross_attn": p0}
+p2 = adamw.tree_map(lambda t: t.requires_grad_(), sharding.place(
+    tree, mesh, sharding.param_specs(mesh, tree))["cross_attn"])
+x2 = place(x0, [Shard(0), Replicate()]).requires_grad_()
+m2 = place(m0, [Shard(0), Shard(1)]).requires_grad_()
+with implicit_replication():
+    y2 = whisper._cross_attention(p2, cfg, x2, m2)
+    (y2 * place(r0, [Shard(0), Replicate()])).sum().backward()
+out["cross"] = [err(y2, y1), err(x2.grad, x1.grad), err(m2.grad, m1.grad),
+                relerr([(a.grad, b.grad) for a, b in zip(
+                    adamw.leaves(p2), adamw.leaves(p1))]),
+                float(y1.abs().max())]
+
 # -- prefill with the cache made on the mesh ----------------------------
 for arch in ("qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b", "deepseek-v3-671b",
              "zamba2-7b", "whisper-large-v3", "rwkv6-1.6b"):
@@ -188,6 +306,9 @@ for arch in ("qwen3-1.7b", "deepseek-7b", "olmoe-1b-7b", "deepseek-v3-671b",
         logits, cache = steps.make_prefill_step(model, max_len, mesh)(pp,
                                                                       pb)
     cspecs = sharding.cache_specs(mesh, want, 4)
+    if arch == "whisper-large-v3":
+        out["whisper_memory"] = [[type(p).__name__, getattr(p, "dim", None)]
+                                 for p in cache["memory"].placements]
     leaves, laid_out, split = [], True, 0
     def walk(a, b, s):
         global laid_out, split
@@ -316,3 +437,64 @@ def test_decode_on_the_mesh_writes_the_cache_shard_by_shard(layouts, arch):
         assert laid_out, arch
         assert logit_err <= 1e-5 * max(1.0, scale), (arch, logit_err)
         assert cache_err <= 1e-5, (arch, cache_err)
+
+
+def _whole_heads(rows, heads, width):
+    """The collectives of `rows` that gather over the model ranks, or move
+    a tensor holding every head (or every repeated KV head: `heads` of
+    them) or a projection's every column (`width`)."""
+    return [x for x in rows
+            if x["kind"] == "all-gather" and x["axis"] == "model"
+            or heads in x["shape"][:2] or width in x["shape"]]
+
+
+@pytest.mark.parametrize("case", ["padded", "gqa"])
+def test_attention_on_dtensors_equals_the_plain_forward(layouts, case):
+    """`attention.forward` (projections, `split_heads`, `chunked_attention`,
+    the output projection) with 6 heads over 4 model ranks, every head its
+    own KV head ("padded": ranks hold 2, 2, 2, 0 heads) or 2 KV heads
+    ("gqa": 1, 1, 0, 0), and `chunked_attention` itself on q, k and v so
+    split: outputs and gradients equal the plain ones within 1e-5."""
+    for r in layouts:
+        y_err, x_err, w_err, scale = r["attn_" + case]
+        assert y_err <= 1e-5 * max(1.0, scale), r["attn_" + case]
+        assert x_err <= 1e-5 and w_err <= 1e-5, r["attn_" + case]
+        o_err, g_err, scale, places = r["chunked_" + case]
+        assert o_err <= 1e-5 * max(1.0, scale), r["chunked_" + case]
+        assert g_err <= 1e-5, r["chunked_" + case]
+        assert places == [["Shard", 0], ["Shard", 1]], places
+
+
+@pytest.mark.parametrize("case", ["padded", "gqa"])
+def test_attention_moves_no_tensor_of_every_head(layouts, case):
+    """No collective gathers over the model ranks, and none moves every
+    head (or every repeated KV head) or the projection's every column:
+    each rank receives its heads' columns, and the KV heads its query
+    heads read, through all-to-alls of only those (none at all where each
+    rank holds what it reads)."""
+    for r in layouts:
+        for key in ("attn_", "chunked_"):
+            rows = r[key + case + "_collectives"]
+            assert not _whole_heads(rows, 6, 6 * 16), rows
+            assert {x["kind"] for x in rows if x["axis"] == "model"} <= {
+                "all-to-all"}, rows
+        assert [x for x in r["attn_" + case + "_collectives"]
+                if x["kind"] == "all-to-all"], "nothing routed by heads"
+    # the padded heads' K and V are where their query heads are
+    if case == "padded":
+        for r in layouts:
+            assert r["chunked_padded_collectives"] == []
+
+
+def test_whisper_cross_attention_over_split_frames(layouts):
+    """Whisper's cross-attention with the encoder memory's frames split
+    over the model ranks (as `cache_specs` splits the decode cache's 16
+    frames over 4): output and gradients equal the plain ones within
+    1e-5 (the products run on the memory's own shards; DTensor's would
+    flatten the split frames, which torch 2.11 refuses); and the decode
+    cache holds its memory so split."""
+    for r in layouts:
+        y_err, x_err, m_err, w_err, scale = r["cross"]
+        assert y_err <= 1e-5 * max(1.0, scale), r["cross"]
+        assert max(x_err, m_err, w_err) <= 1e-5, r["cross"]
+        assert r["whisper_memory"] == [["Shard", 0], ["Shard", 1]]

@@ -21,3 +21,13 @@ def records():
 @pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
 def test_cell_traces_with_the_rules_local_shards(records, cell):
     dc.check(records, cell)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
+def test_cell_gathers_no_heads(records, cell):
+    """Attention heads stay split where the rules split them
+    (`models.common.split_heads`, `_attention_by_shard`, `merge_dims`,
+    `write_rows`): no all-gather over `model` carries whole or padded
+    heads, repeated KV heads or a q / k / v projection's columns."""
+    assert records[cell]["status"] == "ok"
+    assert dc.head_gathers(records[cell]) == []

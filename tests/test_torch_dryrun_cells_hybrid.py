@@ -31,3 +31,13 @@ def test_cell_gathers_no_projection_columns(records, cell):
     columns or the scan's input made whole."""
     assert records[cell]["status"] == "ok"
     assert dc.projection_gathers(records[cell]) == []
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
+def test_cell_gathers_no_heads(records, cell):
+    """Attention heads stay split where the rules split them
+    (`models.common.split_heads`, `_attention_by_shard`, `merge_dims`,
+    `write_rows`): no all-gather over `model` carries whole or padded
+    heads, repeated KV heads or a q / k / v projection's columns."""
+    assert records[cell]["status"] == "ok"
+    assert dc.head_gathers(records[cell]) == []
