@@ -2147,10 +2147,14 @@ SHORT_WALL = 600        # seconds all of (d) may take
 def tools_short_matrix(card):
     """(d) every applicable cell of the dry run on the card's torch, cut
     for a quick check (`launch.dryrun.short_cell`: full width, the
-    roofline's smallest depth variant, short shapes) on a "cuda" mesh, an
-    arch's cells in a process of their own, SHORT_JOBS at a time
-    (`tests/_dryrun_cells.py`, which the CPU tests of the same matrix
-    use); any FAILED or TIMEOUT cell fails the phase, and so does an ok
+    roofline's smallest depth variant, short shapes) on a "cuda" mesh and
+    on a "cpu" mesh, an arch's cells on one mesh in a process of their
+    own, SHORT_JOBS at a time in one pool (`tests/_dryrun_cells.py`,
+    which the CPU tests of the same matrix use); any FAILED or TIMEOUT
+    cell on either mesh fails the phase, and so does a cell whose
+    collectives (`counts`, `bytes_by_kind`, `bytes_by_axis`) differ
+    between the two meshes (its differing `by_shape` rows are logged, and
+    each mesh's count of DTensor's Shard-to-Shard moves), and so does an ok
     cell whose argument bytes (or, for a prefill, output bytes: the cache
     laid out by `cache_specs` and the last logits) are not the local shards
     the sharding rules give, and so does a Mamba2 cell (zamba2's) whose
@@ -2164,9 +2168,10 @@ def tools_short_matrix(card):
     import _dryrun_cells as dc
     from repro_torch.configs import get_config, list_archs
     t0 = time.perf_counter()
-    recs = dc.trace_by_arch(list_archs(), "cuda", jobs=SHORT_JOBS,
-                            cell_timeout=SHORT_TIMEOUT)
+    meshes = dc.trace_by_arch(list_archs(), ("cuda", "cpu"), jobs=SHORT_JOBS,
+                              cell_timeout=SHORT_TIMEOUT)
     wall = time.perf_counter() - t0
+    recs, cpu_recs = meshes["cuda"], meshes["cpu"]
     cells = []
     for (arch, shape, multi), rec in sorted(recs.items()):
         ok = rec["status"] == "ok"
@@ -2177,14 +2182,16 @@ def tools_short_matrix(card):
                                       + rec.get("compile_s", 0), 1),
                       "gib": rec["per_device_bytes"] / 2 ** 30 if ok
                       else None,
+                      "collective_bytes": (rec["collectives"]["bytes_by_kind"]
+                                           if ok else None),
                       "error": (rec.get("error") or "")[-300:]})
     n = {}
     for c in cells:
         n[c["status"]] = n.get(c["status"], 0) + 1
     want = len(dc.cells(list_archs()))
     log(f"  (d) torch {torch.__version__}: {len(cells)} cells cut for a "
-        f"quick check, an arch a process, {SHORT_JOBS} at a time, in "
-        f"{wall:.1f} s [{card}]")
+        f"quick check on a cuda and a cpu mesh, an arch and mesh a process, "
+        f"{SHORT_JOBS} at a time, in {wall:.1f} s [{card}]")
     for c in cells:
         log(f"      {c['status']:7s} {c['arch']}/{c['shape']}/{c['mesh']} "
             f"{c['wall_s']:.1f} s"
@@ -2192,6 +2199,33 @@ def tools_short_matrix(card):
     log(f"  (d) ok {n.get('ok', 0)} of {want}: {json.dumps(n)}")
     check(n.get("ok", 0) == want == len(cells),
           f"dry-run cells that did not trace on the card: {json.dumps(n)}")
+    # the cpu mesh counts the collectives the cuda mesh does, cell by cell
+    cpu_bad = {dc.cell_id(c): r.get("error", "")[-300:]
+               for c, r in sorted(cpu_recs.items()) if r["status"] != "ok"}
+    log(f"  (d) cpu mesh: ok {len(cpu_recs) - len(cpu_bad)} of {want}")
+    check(not cpu_bad and len(cpu_recs) == want,
+          f"dry-run cells that did not trace on a cpu mesh: {cpu_bad}")
+    differ, moves = {}, {"cuda": 0, "cpu": 0}
+    for cell, rec in sorted(recs.items()):
+        other = cpu_recs.get(cell, {})
+        if rec["status"] != "ok" or other.get("status") != "ok":
+            continue
+        name = dc.cell_id(cell)
+        moves["cuda"] += rec["collectives"]["shard_moves"]
+        moves["cpu"] += other["collectives"]["shard_moves"]
+        if rec["collectives"]["shard_moves"]:
+            log(f"  (d) {name}: {rec['collectives']['shard_moves']} "
+                f"Shard-to-Shard moves, collective bytes by kind "
+                f"{json.dumps(rec['collectives']['bytes_by_kind'])}")
+        diff = dc.mesh_differences(rec, other)
+        if diff:
+            differ[name] = diff
+            log(f"  (d) {name} cuda vs cpu mesh: {json.dumps(diff)}")
+    log(f"  (d) Shard-to-Shard moves counted as all-to-alls: cuda mesh "
+        f"{moves['cuda']}, cpu mesh {moves['cpu']}; cells whose collectives "
+        f"differ between the meshes: {len(differ)}")
+    check(not differ, f"cells whose collectives differ between a cuda and "
+          f"a cpu mesh: {sorted(differ)}")
     laid_out = []
     for (arch, shape, multi), rec in sorted(recs.items()):
         if rec["status"] != "ok":
@@ -2248,7 +2282,8 @@ def tools_short_matrix(card):
           f"attention heads gathered over model: {heads}")
     check(wall <= SHORT_WALL, f"(d) took {wall:.1f} s, over {SHORT_WALL} s")
     return dict(torch=torch.__version__, counts=n, wall_s=wall,
-                cells=cells, layout_faults=laid_out,
+                cells=cells, cpu_mesh_faults=cpu_bad, mesh_differences=differ,
+                shard_moves=moves, layout_faults=laid_out,
                 mamba2_bytes_by_kind=mamba, projection_gathers=gathered,
                 model_gather_bytes=model_gathers, head_gathers=heads)
 

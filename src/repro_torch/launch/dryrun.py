@@ -12,12 +12,16 @@ For each cell:
     is what one device of the mesh would hold;
   * run the step once (`launch.steps`: train, prefill or serve) under
     `DeviceCount`, a `TorchDispatchMode` that lets DTensor desugar every
-    op into local ops and `_c10d_functional` collectives first and then
-    counts what one device runs: FLOPs (`analysis.cost.op_cost`) split into
-    bf16 / fp16 products (tensor cores) and the rest, bytes moved at each
-    dtype's size (views move none), each collective's output bytes by kind
-    and mesh axis (and by the phase, dtype and shape of what it moves:
-    `collectives.by_shape`), and the live bytes of device storages.
+    op into local ops and collectives first and then counts what one
+    device runs: FLOPs (`analysis.cost.op_cost`) split into bf16 / fp16
+    products (tensor cores) and the rest, bytes moved at each dtype's size
+    (views move none), each collective's output bytes by kind and mesh
+    axis (and by the phase, dtype and shape of what it moves:
+    `collectives.by_shape`), and the live bytes of device storages. A
+    collective is counted as the one a card runs, on a "cuda" and a "cpu"
+    mesh alike: the `_c10d_functional` ops by kind, and DTensor's
+    Shard-to-Shard move as one all-to-all (`COLLECTIVES`); an op of a
+    collective namespace that `COLLECTIVES` does not name raises.
 
 Memory: `argument_bytes` are the local shards the step is given; the
 step's own storages are tracked from allocation to release (a finalizer on
@@ -48,12 +52,16 @@ Where the JAX dry run differs:
     shard's offsets on real index tensors, which a fake mode would make
     fake and then could not read back.
   * `launch/inspect_hlo.py` and `runtime/hlo.py` have no counterpart: there
-    is no HLO text in the port. `DeviceCount`'s count of the
-    `_c10d_functional` ops by kind takes the place of
-    `runtime.hlo.collective_stats` (one entry per collective, its result
-    bytes; `wait_tensor`, the `-done` half, is not counted). On a "cpu"
-    mesh DTensor turns an all-to-all into an all-gather (gloo has none);
-    a "cuda" mesh keeps it.
+    is no HLO text in the port. `DeviceCount`'s count of the collective
+    ops by kind takes the place of `runtime.hlo.collective_stats` (one
+    entry per collective, its result bytes; `wait_tensor`, the `-done`
+    half, is not counted). DTensor moves a split from one dim to another
+    over a mesh dim through `shard_dim_alltoall`: on a "cuda" mesh the
+    `_dtensor.shard_dim_alltoall` op, on a "cpu" mesh (gloo has no
+    all-to-all) an all-gather of the whole dim and a chunk of it.
+    `DeviceCount` wraps that function and counts either as the
+    all-to-all, of its output's bytes on the mesh dim's axis, so that the
+    two meshes count the same collectives.
 
 Results go to results/torch/dryrun/<cell>.json.
 
@@ -103,17 +111,33 @@ NODE_CARDS = 8            # cards of one NVLink node (a DGX H100)
 # and from that op on
 PHASES = ("forward", "backward", "gradients", "update")
 
-# _c10d_functional op -> the collective kind JAX's HLO count names
+# collective op ("namespace.name") -> the collective kind JAX's HLO count
+# names
 COLLECTIVES = {
-    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
-    "all_reduce_coalesced": "all-reduce",
-    "all_gather_into_tensor": "all-gather",
-    "all_gather_into_tensor_coalesced": "all-gather",
-    "reduce_scatter_tensor": "reduce-scatter",
-    "reduce_scatter_tensor_coalesced": "reduce-scatter",
-    "all_to_all_single": "all-to-all",
-    "broadcast": "broadcast", "broadcast_": "broadcast",
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced_": "all-reduce",
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_out": "all-gather",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_out": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_c10d_functional.broadcast": "broadcast",
+    "_c10d_functional.broadcast_": "broadcast",
+    # DTensor's Shard-to-Shard move over one mesh dim
+    "_dtensor.shard_dim_alltoall": "all-to-all",
 }
+# the namespaces of collective ops: an op there that neither COLLECTIVES
+# nor MOVE_NOTHING names makes `DeviceCount` raise, so that no collective
+# is counted as a local op
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor", "c10d")
+# ops of those namespaces that move no bytes: a collective's `-done` half
+# and the autograd wrapper of a collective's result
+MOVE_NOTHING = {"_c10d_functional.wait_tensor",
+                "_c10d_functional._wrap_tensor_autograd"}
 _TENSOR_CORE = (torch.bfloat16, torch.float16)
 _DOTS = {"mm", "bmm", "addmm", "baddbmm", "matmul", "mv", "dot", "addmv",
          "linear"}
@@ -169,6 +193,8 @@ class DeviceCount(TorchDispatchMode):
         # (phase, kind, mesh axis, dtype, shape) of each collective's
         # result -> how many
         self.coll_shapes: Dict[Tuple, int] = {}
+        # DTensor's Shard-to-Shard moves (each counted as an all-to-all)
+        self.moves = 0
         self.layers: Dict[Tuple[str, int], Dict[str, float]] = {}
         self.ops = 0
         self._owner: Optional[Tuple[str, int]] = None
@@ -184,10 +210,11 @@ class DeviceCount(TorchDispatchMode):
         # filled by `count_step`: the argument, new-output and written-
         # argument bytes of the step
         self.arguments = self.out_bytes = self.alias_bytes = 0
-        self._planning = 0
+        # > 0 while DTensor plans or moves a split (nothing is counted)
+        self._quiet = 0
         self._unwrapped: List[List[Tuple[Any, str, Any]]] = []
 
-    # -- DTensor's own planning -----------------------------------------------
+    # -- DTensor's own planning and Shard-to-Shard moves ----------------------
     # The first time DTensor meets an op's placements it plans the op's
     # sharding, and the plan computes shard sizes and offsets on small host
     # tensors (a later call finds the plan cached): no device runs those ops,
@@ -196,7 +223,9 @@ class DeviceCount(TorchDispatchMode):
                  "propagate_op_sharding_non_cached")
 
     def __enter__(self):
+        import sys
         from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor import _collective_utils
         prop = DTensor._op_dispatcher.sharding_propagator
         saved = []
         for name in self._PLANNERS:
@@ -204,25 +233,53 @@ class DeviceCount(TorchDispatchMode):
             if fn is None:
                 continue
             saved.append((prop, name, prop.__dict__.get(name)))
-            setattr(prop, name, self._planning_call(fn))
+            setattr(prop, name, self._quiet_call(fn))
+        # DTensor moves a split from one dim to another over a mesh dim
+        # through `shard_dim_alltoall`, wherever its modules imported it
+        move = _collective_utils.shard_dim_alltoall
+        for mod_name, mod in list(sys.modules.items()):
+            if (mod_name.startswith("torch.distributed")
+                    and getattr(mod, "shard_dim_alltoall", None) is move):
+                saved.append((mod, "shard_dim_alltoall", move))
+                mod.shard_dim_alltoall = self._move_call(move)
         self._unwrapped.append(saved)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        for prop, name, own in reversed(self._unwrapped.pop()):
+        for obj, name, own in reversed(self._unwrapped.pop()):
             if own is None:
-                delattr(prop, name)
+                delattr(obj, name)
             else:
-                setattr(prop, name, own)
+                setattr(obj, name, own)
         return super().__exit__(*exc)
 
-    def _planning_call(self, fn):
+    def _quiet_call(self, fn):
         def call(*args, **kwargs):
-            self._planning += 1
+            self._quiet += 1
             try:
                 return fn(*args, **kwargs)
             finally:
-                self._planning -= 1
+                self._quiet -= 1
+        return call
+
+    def _move_call(self, move):
+        """DTensor's Shard-to-Shard move counted as the one all-to-all a
+        card runs (`_dtensor.shard_dim_alltoall`), of its output's bytes
+        on the mesh dim's axis, on any mesh: on a cpu mesh DTensor falls
+        back to an all-gather of the whole dim and a chunk of it, neither
+        counted. The result is a tensor of its own, as the all-to-all's
+        is (a chunk of the gathered tensor would hold all of it)."""
+        moved = self._quiet_call(lambda *args: move(*args).clone())
+
+        def call(input, gather_dim, shard_dim, mesh, mesh_dim):
+            if self._quiet or isinstance(input, FakeTensor):
+                return move(input, gather_dim, shard_dim, mesh, mesh_dim)
+            out = moved(input, gather_dim, shard_dim, mesh, mesh_dim)
+            self.ops += 1
+            self._collective("all-to-all", mesh.get_group(mesh_dim).group_name,
+                             [input], out, "shard_dim_alltoall")
+            self._track(out, "shard_dim_alltoall")
+            return out
         return call
 
     # -- memory ---------------------------------------------------------------
@@ -301,8 +358,16 @@ class DeviceCount(TorchDispatchMode):
                          **{k: whole(v) for k, v in kwargs.items()})
                 return first
             return NotImplemented
+        name = func.overloadpacket.__name__
+        op = f"{func.namespace}.{name}"
+        kind = COLLECTIVES.get(op)
+        if (func.namespace in COLLECTIVE_NAMESPACES and kind is None
+                and op not in MOVE_NOTHING):
+            raise NotImplementedError(
+                f"DeviceCount: {op} is a collective op that COLLECTIVES "
+                "does not name")
         out = func(*args, **kwargs)
-        if self._planning or func.namespace == "prim" or any(
+        if self._quiet or func.namespace == "prim" or any(
                 isinstance(t, FakeTensor)
                 for t in _tensors(args) + _tensors(out)):
             # DTensor's sharding propagation runs the op once on fake
@@ -310,25 +375,12 @@ class DeviceCount(TorchDispatchMode):
             # runs that
             return out
         self.ops += 1
-        name = func.overloadpacket.__name__
-        if func.namespace == "_c10d_functional":
-            kind = COLLECTIVES.get(name)
+        if func.namespace in COLLECTIVE_NAMESPACES:
             if kind is not None:
-                b = sum(t.numel() * t.element_size() for t in _tensors(out))
-                self.counts[kind] = self.counts.get(kind, 0) + 1
-                self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + b
-                # the group's name is the last string operand (the
-                # reduce op, where there is one, comes before it)
+                # the group's name is the last string operand (the reduce
+                # op, where there is one, comes before it)
                 group = [a for a in args if isinstance(a, str)][-1:] or [""]
-                group = group[0]
-                axis = self.axes.get(group, group)
-                self.axis_bytes[axis] = self.axis_bytes.get(axis, 0) + b
-                for t in _tensors(out):
-                    key = (self._phase(name), kind, axis,
-                           str(t.dtype).replace("torch.", ""),
-                           tuple(t.shape))
-                    self.coll_shapes[key] = self.coll_shapes.get(key, 0) + 1
-                self.bytes += b + sum(_read_bytes(t) for t in _tensors(args))
+                self._collective(kind, group[0], _tensors(args), out, name)
             self._track(out, name)
             return out
         self._charge(args)
@@ -365,6 +417,22 @@ class DeviceCount(TorchDispatchMode):
                     self.owners[t] = owner
         self._track(out, name)
         return out
+
+    def _collective(self, kind: str, group: str, ins, out, name: str) -> None:
+        """Count one collective of `kind` over the process group named
+        `group`: its output's bytes, by kind, by mesh axis and by shape,
+        and its operands read and output written in the memory term."""
+        b = sum(t.numel() * t.element_size() for t in _tensors(out))
+        self.moves += name == "shard_dim_alltoall"
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + b
+        axis = self.axes.get(group, group)
+        self.axis_bytes[axis] = self.axis_bytes.get(axis, 0) + b
+        for t in _tensors(out):
+            key = (self._phase(name), kind, axis,
+                   str(t.dtype).replace("torch.", ""), tuple(t.shape))
+            self.coll_shapes[key] = self.coll_shapes.get(key, 0) + 1
+        self.bytes += b + sum(_read_bytes(t) for t in ins)
 
     @property
     def total_flops(self) -> float:
@@ -681,6 +749,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                         "bytes_by_kind": count.coll_bytes,
                         "bytes_by_axis": count.axis_bytes,
                         "by_shape": count.by_shape(),
+                        "shard_moves": count.moves,
                         "links": links,
                         "total_bytes_per_device": sum(
                             count.coll_bytes.values())},

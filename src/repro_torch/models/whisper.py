@@ -158,7 +158,11 @@ class Whisper(lm.Model):
                     pos: int) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
         x = common.embed_rows(params["embed"], tokens[:, None].long())
-        memory = cache["memory"]
+        # the memory made whole along d_model once for every layer, as
+        # GSPMD gathers it ahead of the layer loop: a memory split there
+        # makes DTensor move wk / wv to rows (a Shard-to-Shard move) and
+        # all-reduce each layer's K / V of every head
+        memory = common.unshard(cache["memory"], -1)
         for l, lp in enumerate(params["dec_blocks"]):
             h = common.layernorm(lp["ln1"], x, cfg.norm_eps)
             out, _ = attention.decode_step(

@@ -16,7 +16,11 @@ of the last logits, summed from the rules alone. `projection_gathers`
 finds the all-gathers of a Mamba2 input projection's columns over the
 model ranks (the hybrid file and `chip_smoke.py` (d) want none), and
 `head_gathers` those of attention heads made whole (`chip_smoke.py` (d)
-wants none in any cell).
+wants none in any cell). A cpu mesh counts the collectives a cuda mesh
+does: DTensor's Shard-to-Shard move, an all-gather and a chunk on a cpu
+mesh, counts as the all-to-all a card runs (`launch.dryrun.DeviceCount`);
+`mesh_differences` holds two meshes' records of a cell to each other
+(`chip_smoke.py` (d) traces every cell on both).
 """
 import dataclasses
 import json
@@ -86,15 +90,18 @@ def trace(cells_, timeout: float = 900.0, device: str = "cpu"):
             ((k.split("|"), v) for k, v in out.items())}
 
 
-def trace_by_arch(archs, device: str, jobs: int = 8,
+def trace_by_arch(archs, devices, jobs: int = 8,
                   cell_timeout: float = 120.0):
-    """{cell: dry-run record} of every applicable cell of `archs`, an
-    arch's cells traced in a subprocess of their own (`trace`), `jobs` at
-    a time. An arch whose subprocess runs past `cell_timeout` seconds a
-    cell gets TIMEOUT records, one that fails outside a cell FAILED ones."""
+    """{device: {cell: dry-run record}} of every applicable cell of
+    `archs` on a mesh of each of `devices`, an arch's cells on one mesh
+    traced in a subprocess of their own (`trace`), `jobs` at a time in
+    one pool. An arch whose subprocess runs past `cell_timeout` seconds a
+    cell gets TIMEOUT records, one that fails outside a cell FAILED
+    ones."""
     import concurrent.futures as cf
 
-    def one(arch):
+    def one(job):
+        arch, device = job
         cs = cells((arch,))
         try:
             return trace(cs, cell_timeout * len(cs), device)
@@ -104,10 +111,27 @@ def trace_by_arch(archs, device: str, jobs: int = 8,
         except AssertionError as e:
             return {c: {"status": "FAILED", "error": str(e)} for c in cs}
 
-    out = {}
+    jobs_ = [(a, d) for a in archs for d in devices]
+    out = {d: {} for d in devices}
     with cf.ThreadPoolExecutor(jobs) as pool:
-        for recs in pool.map(one, archs):
-            out.update(recs)
+        for (_, device), recs in zip(jobs_, pool.map(one, jobs_)):
+            out[device].update(recs)
+    return out
+
+
+def mesh_differences(a, b):
+    """The fields of two dry-run records of one cell (on two meshes) whose
+    collectives differ: {field: (a's, b's)} for `counts`, `bytes_by_kind`
+    and `bytes_by_axis`, and under "by_shape" the rows either has that the
+    other has not."""
+    ca, cb = a["collectives"], b["collectives"]
+    out = {k: (ca[k], cb[k]) for k in ("counts", "bytes_by_kind",
+                                       "bytes_by_axis") if ca[k] != cb[k]}
+    if out:
+        out["by_shape"] = ([r for r in ca["by_shape"]
+                            if r not in cb["by_shape"]],
+                           [r for r in cb["by_shape"]
+                            if r not in ca["by_shape"]])
     return out
 
 
@@ -235,7 +259,12 @@ def head_gathers(rec):
     value heads, found by their dims alone: its projections' columns a
     rank are its latent ranks' widths, which it gathers by design. A decode
     step's one position is gathered by design too: the query meets a cache
-    split along the sequence, and the position's K / V go into it."""
+    split along the sequence, and the position's K / V go into it. So is
+    an audio model's encoder memory in a decode step: the cache splits its
+    d_model over `model`, and the step makes it whole once, ahead of the
+    layers, as GSPMD does (one all-gather of the encoder's frames; the K /
+    V columns of a layer gathered from it would add two to that row's
+    count)."""
     cfg = get_config(rec["arch"])
     n = dryrun.production_mesh_shape(False)["model"]
     if cfg.use_mla:
@@ -247,11 +276,14 @@ def head_gathers(rec):
         cols = {-(-h * cfg.resolved_head_dim // n)
                 for h in (cfg.n_heads, cfg.n_kv_heads)}
     heads = {cfg.n_heads, -(-cfg.n_heads // n) * n}
+    memory = rec["kind"] == "decode" and cfg.family == "audio"
     return [r for r in rec["collectives"]["by_shape"]
             if r["kind"] == "all-gather" and r["axis"] == "model"
             and len(r["shape"]) >= 3 and r["shape"][-2] > 1 and (
                 r["shape"][-1] in dims | cols
-                or heads & set(r["shape"][1:-1]))]
+                or heads & set(r["shape"][1:-1]))
+            and not (memory and r["count"] == 1
+                     and r["shape"][1:-1] == [cfg.max_source_positions])]
 
 
 def check(records, cell):

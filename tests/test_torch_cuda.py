@@ -1003,7 +1003,7 @@ class TestDryRunOnCard:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         import _dryrun_cells as dc
         from repro_torch.configs import list_archs
-        recs = dc.trace_by_arch(list_archs(), "cuda")
+        recs = dc.trace_by_arch(list_archs(), ("cuda",))["cuda"]
         return {(a, s, "2x16x16" if m else "16x16"): r
                 for (a, s, m), r in recs.items()}
 
@@ -1026,3 +1026,23 @@ class TestDryRunOnCard:
         if row["kind"] == "prefill":
             assert row["memory"]["output_bytes"] == dc.output_bytes(
                 arch, shape, multi)
+
+    def test_meshes_count_the_same_moves(self):
+        """deepseek-v3-671b train_4k on 16x16, whose backward moves splits
+        from one dim to another (Shard-to-Shard): a cuda mesh (DTensor's
+        `_dtensor.shard_dim_alltoall`) and a cpu mesh (its all-gather and
+        chunk) count the same collectives, each move one all-to-all."""
+        import os
+        import sys
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (the dry run's mesh device is "
+                        "cuda)")
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import _dryrun_cells as dc
+        cell = ("deepseek-v3-671b", "train_4k", False)
+        cuda = dc.trace([cell], device="cuda")[cell]
+        cpu = dc.trace([cell], device="cpu")[cell]
+        assert cuda["status"] == cpu["status"] == "ok"
+        assert dc.mesh_differences(cuda, cpu) == {}
+        assert cuda["collectives"]["shard_moves"] == \
+            cpu["collectives"]["shard_moves"] > 0

@@ -7,7 +7,8 @@ for the encoder's weights, which the decode step never reads and JAX's jit
 leaves out of the compiled arguments (`keep_unused=False`) while the
 port's step is handed them. The products of one decoder layer plus the
 rest fall within 10% of the HLO's dots (XLA counts the layer scan's body
-once)."""
+once). The collective bytes fall within `tests/_dryrun_gspmd.py`'s bounds
+of GSPMD's, read off the same compiled program."""
 import os
 import sys
 
@@ -22,6 +23,9 @@ from repro_torch.models import build  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import sharding  # noqa: E402
 import _dryrun_cells as dc  # noqa: E402
+import _dryrun_gspmd as gspmd  # noqa: E402
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
 
 _PORT = r"""
 import json
@@ -33,8 +37,14 @@ print("RESULT " + json.dumps(rec))
 
 @pytest.fixture(scope="module")
 def whisper_cells():
+    """(JAX's record, with its compiled program's collectives weighted by
+    their loops' trip counts under "weighted"; the port's record)."""
     jax_cell = _JAX_CELL.replace('"olmoe-1b-7b"', '"whisper-large-v3"')
     assert jax_cell != _JAX_CELL
+    weigh = (f"import sys\nsys.path.insert(0, {TESTS!r})\n"
+             "from _dryrun_gspmd import weighted_collectives\n"
+             "rec['weighted'] = weighted_collectives(text)\n")
+    jax_cell = jax_cell.replace('print("RESULT "', weigh + 'print("RESULT "')
     return _run(jax_cell), _run(_PORT)
 
 
@@ -67,3 +77,16 @@ def test_whisper_decode_cell_counts_and_sizes_as_jax(whisper_cells):
         0.10 * jax_rec["hlo_dot_flops"], (scan_form, jax_rec["hlo_dot_flops"])
     assert rec["fits"]
     assert set(rec["collectives"]["bytes_by_axis"]) <= {"data", "model"}
+
+
+def test_whisper_decode_collectives_within_gspmd(whisper_cells):
+    """The port's collective bytes against the program GSPMD compiles for
+    the same cell, each collective in the layer loop's body weighted by its
+    trip count, to the bounds of `tests/_dryrun_gspmd.py`. GSPMD gathers
+    the encoder memory along d_model once, ahead of the loop, and each
+    layer regroups its K / V columns; the port gathers the memory once and
+    routes each layer's K / V columns to its heads."""
+    jax_rec, rec = whisper_cells
+    r = gspmd.readings(jax_rec["weighted"], rec["collectives"])
+    assert r["total_ratio"] <= gspmd.TOTAL_RATIO, r
+    assert r["gather_ratio"] <= gspmd.GATHER_RATIO, r
