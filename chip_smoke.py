@@ -190,7 +190,9 @@ failure could still exit 0):
      arch's cells a process, 8 at once, `tests/_dryrun_cells.py`): torch's
      version, each cell's status and wall, the count of ok cells, which
      must be all 64, each with its argument bytes (and a prefill's output
-     bytes: its cache laid out by `cache_specs`) the rules' local shards.
+     bytes: its cache laid out by `cache_specs`) the rules' local shards,
+     each cell and the two-layer variants of three train cells counting
+     the collectives committed in `tests/_dryrun_card_collectives.json`.
 
 K4 (perforated matmul) is held against its plain version in phase 3 at
 256^3 and at full width: structural SMALL/LARGE skip 2 and INI/FINI/RANDOM
@@ -2157,7 +2159,12 @@ def tools_short_matrix(card):
     each mesh's count of DTensor's Shard-to-Shard moves), and so does an ok
     cell whose argument bytes (or, for a prefill, output bytes: the cache
     laid out by `cache_specs` and the last logits) are not the local shards
-    the sharding rules give, and so does a Mamba2 cell (zamba2's) whose
+    the sharding rules give, and so does a cell, or a two-layer variant of
+    three train cells (`dc.VARIANTS`, traced beside its arch's cells),
+    whose cuda mesh's collectives differ from those committed in
+    `tests/_dryrun_card_collectives.json` (`dc.card_differences`: the
+    records the CPU tests hold their torch to, so that the file cannot go
+    stale), and so does a Mamba2 cell (zamba2's) whose
     collectives gather its input projection's columns over `model`
     (`dc.projection_gathers`); those cells' bytes by kind are logged; and
     so does any cell whose collectives gather attention heads over `model`
@@ -2171,7 +2178,11 @@ def tools_short_matrix(card):
     meshes = dc.trace_by_arch(list_archs(), ("cuda", "cpu"), jobs=SHORT_JOBS,
                               cell_timeout=SHORT_TIMEOUT)
     wall = time.perf_counter() - t0
-    recs, cpu_recs = meshes["cuda"], meshes["cpu"]
+    # the two-layer variants are held to the committed card records below
+    variants = {m: {c: r for c, r in recs.items() if len(c) == 4}
+                for m, recs in meshes.items()}
+    recs, cpu_recs = ({c: r for c, r in meshes[m].items() if len(c) == 3}
+                      for m in ("cuda", "cpu"))
     cells = []
     for (arch, shape, multi), rec in sorted(recs.items()):
         ok = rec["status"] == "ok"
@@ -2226,6 +2237,32 @@ def tools_short_matrix(card):
         f"differ between the meshes: {len(differ)}")
     check(not differ, f"cells whose collectives differ between a cuda and "
           f"a cpu mesh: {sorted(differ)}")
+    # every cell and two-layer variant counts the committed card records
+    # (`tests/_dryrun_card_collectives.json`, which the CPU tests hold their
+    # torch's counts to): the file cannot go stale without this failing
+    card_recs = dc.card_records()
+    with open(dc.CARD_RECORDS) as f:
+        card_torch = json.load(f)["torch"]
+    bad_variants = {dc.cell_id(c): r.get("error", "")[-300:]
+                    for m in variants for c, r in variants[m].items()
+                    if r["status"] != "ok"}
+    check(not bad_variants and all(len(v) == len(dc.variants(list_archs()))
+                                   for v in variants.values()),
+          f"two-layer variants that did not trace: {bad_variants}")
+    stale = {}
+    for cell, rec in sorted({**recs, **variants["cuda"]}.items()):
+        diff = dc.card_differences(rec, cell, card_recs)
+        if diff:
+            stale[dc.cell_id(cell)] = diff
+            log(f"  (d) {dc.cell_id(cell)} vs the committed card records: "
+                f"{json.dumps(diff)[:1500]}")
+    log(f"  (d) cells and variants whose collectives differ from "
+        f"tests/_dryrun_card_collectives.json: {len(stale)} of "
+        f"{len(recs) + len(variants['cuda'])} (file: {len(card_recs)} "
+        f"records, torch {card_torch})")
+    check(len(card_recs) == len(recs) + len(variants["cuda"]) and not stale,
+          f"cells whose collectives differ from the committed card records: "
+          f"{sorted(stale)}")
     laid_out = []
     for (arch, shape, multi), rec in sorted(recs.items()):
         if rec["status"] != "ok":
@@ -2283,6 +2320,7 @@ def tools_short_matrix(card):
     check(wall <= SHORT_WALL, f"(d) took {wall:.1f} s, over {SHORT_WALL} s")
     return dict(torch=torch.__version__, counts=n, wall_s=wall,
                 cells=cells, cpu_mesh_faults=cpu_bad, mesh_differences=differ,
+                card_record_differences=stale,
                 shard_moves=moves, layout_faults=laid_out,
                 mamba2_bytes_by_kind=mamba, projection_gathers=gathered,
                 model_gather_bytes=model_gathers, head_gathers=heads)

@@ -51,15 +51,19 @@ def block_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   approx_ffn: Optional[ApproxSpec] = None,
                   causal: bool = True) -> Tuple[torch.Tensor, object]:
     """Returns (x, aux_loss); aux_loss is None for a dense block. FSDP's
-    weights are gathered for the block (`common.gather_fsdp`)."""
+    weights are gathered for the block (`common.gather_fsdp`). A stream
+    split along d_model (deepseek-v3's MTP block) stays split through the
+    norms and the adds, and each sublayer gets its normed input whole
+    (`common.whole_along`, `common.residual`)."""
     p = common.gather_fsdp(p, x)
     h = common.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     attn_mod = mla if cfg.use_mla else attention
-    x = x + attn_mod.forward(p["attn"], cfg, h, positions, causal=causal,
-                             approx=approx_attn)
+    x = common.residual(x, attn_mod.forward(
+        p["attn"], cfg, common.whole_along(h, -1), positions, causal=causal,
+        approx=approx_attn))
     h = common.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-    out, aux = _ffn(p, cfg, h, approx_ffn)
-    return x + out, aux
+    out, aux = _ffn(p, cfg, common.whole_along(h, -1), approx_ffn)
+    return common.residual(x, out), aux
 
 
 def block_prefill(p: Dict, cfg: ModelConfig, x, cache,
@@ -68,9 +72,9 @@ def block_prefill(p: Dict, cfg: ModelConfig, x, cache,
     attn_mod = mla if cfg.use_mla else attention
     out, cache = attn_mod.prefill(p["attn"], cfg, h, cache,
                                   approx=approx_attn)
-    x = x + out
+    x = common.residual(x, out)
     h = common.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-    return x + _ffn(p, cfg, h, approx_ffn)[0], cache
+    return common.residual(x, _ffn(p, cfg, h, approx_ffn)[0]), cache
 
 
 def block_decode(p: Dict, cfg: ModelConfig, x, cache, pos: int,
@@ -79,9 +83,9 @@ def block_decode(p: Dict, cfg: ModelConfig, x, cache, pos: int,
     attn_mod = mla if cfg.use_mla else attention
     out, cache = attn_mod.decode_step(p["attn"], cfg, h, cache, pos,
                                       approx=approx_attn)
-    x = x + out
+    x = common.residual(x, out)
     h = common.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-    return x + _ffn(p, cfg, h, approx_ffn)[0], cache
+    return common.residual(x, _ffn(p, cfg, h, approx_ffn)[0]), cache
 
 
 def init_block_cache(cfg: ModelConfig, n_layers: int, batch: int,
@@ -127,7 +131,7 @@ def init_hybrid(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
 def mamba_sublayer(p, cfg: ModelConfig, x, approx_ffn=None):
     del approx_ffn  # mamba blocks have no FFN (zamba2 layout)
     h = common.apply_norm(cfg.norm, p["ln"], x, cfg.norm_eps)
-    return x + mamba2.forward(p["mixer"], cfg, h)
+    return common.residual(x, mamba2.forward(p["mixer"], cfg, h))
 
 
 def mamba_sublayer_prefill(p, cfg: ModelConfig, x, approx_ffn=None):
@@ -136,11 +140,11 @@ def mamba_sublayer_prefill(p, cfg: ModelConfig, x, approx_ffn=None):
     del approx_ffn
     h = common.apply_norm(cfg.norm, p["ln"], x, cfg.norm_eps)
     out, state = mamba2.forward(p["mixer"], cfg, h, return_state=True)
-    return x + out, state
+    return common.residual(x, out), state
 
 
 def mamba_sublayer_decode(p, cfg: ModelConfig, x, cache, approx_ffn=None):
     del approx_ffn
     h = common.apply_norm(cfg.norm, p["ln"], x, cfg.norm_eps)
     out, new_cache = mamba2.decode_step(p["mixer"], cfg, h, cache)
-    return x + out, new_cache
+    return common.residual(x, out), new_cache

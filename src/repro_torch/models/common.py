@@ -236,33 +236,195 @@ def gather_fsdp(tree, x: torch.Tensor):
 def settle(t: torch.Tensor) -> torch.Tensor:
     """`t` with its partial sums summed: a DTensor partial over a mesh dim
     (the output of a product split along its contraction, and what is
-    added to it: the residual stream) is replicated there (an all-reduce);
-    anything else is returned as it is. DTensor keeps a sum pending
-    through linear ops, and a reshape of such a tensor, or its gradient,
-    can take a layout DTensor cannot view back."""
+    added to it) is replicated there, through one all-reduce of its local
+    shard over that dim (`_sum_partials`); anything else is returned as it
+    is. DTensor keeps a sum pending through linear ops, and a reshape of
+    such a tensor, or its gradient, can take a layout DTensor cannot view
+    back. The all-reduce is issued here and not by DTensor's
+    redistribution, whose plan for a partial sum depends on torch's
+    version (torch 2.13 sums some as a reduce-scatter and an all-gather).
+    Its gradient passes as it comes along the summed dims, as
+    `redistribute`'s does (a sum's gradient is whole)."""
     if not hasattr(t, "placements") or not any(
             p.is_partial() for p in t.placements):
         return t
+    return _Settle.apply(t)
+
+
+def residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """`x + out`: the residual stream and a sublayer's output, each summed
+    first where it is a partial sum (`settle`), so that the stream is whole
+    after every add; where the stream is split along a dim over a mesh dim
+    on which `out` is a partial sum (deepseek-v3's MTP block, whose input
+    comes split along d_model), `out` is summed into that split instead,
+    through one reduce-scatter, its gradient made whole through one
+    all-gather (`_ScatterSum`). DTensor would plan the add of a partial sum
+    itself, and torch's versions plan it apart: 2.11 sums the partial
+    operand of a whole and a partial one, 2.13 leaves the sum pending, for
+    the next norm to sum again in each layer's recompute. Plain tensors
+    are added as they are."""
+    x = settle(x)
+    for md, p in enumerate(getattr(out, "placements", ())):
+        q = x.placements[md] if hasattr(x, "placements") else None
+        if p.is_partial() and q is not None and q.is_shard() \
+                and out.shape[q.dim] % out.device_mesh.size(md) == 0:
+            out = _ScatterSum.apply(out, md, q.dim % out.ndim)
+    return x + settle(out)
+
+
+def whole_along(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`t` with dim `dim` whole: a DTensor split evenly along it over one
+    mesh dim is gathered there through one all-gather of the local shards
+    (`_Gather`), its gradient summed back into the split through one
+    reduce-scatter; anything else is returned as it is. DTensor's own
+    gradient of a gather plans that sum by torch's version (2.13 as a
+    reduce-scatter along the batch and an all-to-all)."""
+    md = _split_over(t, dim)
+    if md is None or t.shape[dim] % t.device_mesh.size(md):
+        return t
+    return _Gather.apply(t, md, dim % t.ndim)
+
+
+def _gather_local(local: torch.Tensor, dim: int, n: int,
+                  group: str) -> torch.Tensor:
+    """The shards `local` of `n` ranks joined along `dim` (one
+    all-gather)."""
+    moved = local.movedim(dim, 0).contiguous()
+    out = _collective("all_gather_into_tensor", moved, n, group)
+    return out.movedim(0, dim)
+
+
+def _scatter_local(local: torch.Tensor, dim: int, n: int,
+                   group: str) -> torch.Tensor:
+    """This rank's part along `dim` of the sum of the `n` ranks' `local`
+    (one reduce-scatter)."""
+    moved = local.movedim(dim, 0).contiguous()
+    out = _collective("reduce_scatter_tensor", moved, "sum", n, group)
+    return out.movedim(0, dim)
+
+
+class _ScatterSum(torch.autograd.Function):
+    """A partial sum over mesh dim `md` summed into a split along `dim`
+    there (one reduce-scatter); backward makes the gradient whole there
+    (one all-gather), as a partial sum's gradient is."""
+
+    @staticmethod
+    def forward(ctx, t, md, dim):
+        from torch.distributed.tensor import Shard
+        mesh, places = t.device_mesh, list(t.placements)
+        ctx.args = (mesh, md, dim, tuple(places))
+        local = _scatter_local(t.to_local(), dim, mesh.size(md),
+                               mesh.get_group(md).group_name)
+        places[md] = Shard(dim)
+        return _from_local(local, mesh, places, tuple(t.shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate
+        mesh, md, dim, places = ctx.args
+        want = [Replicate() if p.is_partial() else p for p in places]
+        if grad.placements[md].is_shard() \
+                and grad.placements[md].dim % grad.ndim == dim:
+            local = _gather_local(grad.to_local(), dim, mesh.size(md),
+                                  mesh.get_group(md).group_name)
+            now = list(grad.placements)
+            now[md] = Replicate()
+            grad = _from_local(local, mesh, now, tuple(grad.shape))
+        return _relayout(grad, mesh, want), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """A split along `dim` over mesh dim `md` made whole (one all-gather);
+    backward sums a partial gradient back into the split (one
+    reduce-scatter) and cuts a whole one."""
+
+    @staticmethod
+    def forward(ctx, t, md, dim):
+        from torch.distributed.tensor import Replicate
+        mesh, places = t.device_mesh, list(t.placements)
+        ctx.args = (mesh, md, dim, tuple(places))
+        local = _gather_local(t.to_local(), dim, mesh.size(md),
+                              mesh.get_group(md).group_name)
+        places[md] = Replicate()
+        return _from_local(local, mesh, places, tuple(t.shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, md, dim, places = ctx.args
+        n = mesh.size(md)
+        now = list(grad.placements)
+        if now[md].is_partial():
+            local = _scatter_local(grad.to_local(), dim, n,
+                                   mesh.get_group(md).group_name)
+        elif now[md].is_replicate():
+            local = grad.to_local().chunk(n, dim)[mesh.get_local_rank(md)]
+        else:
+            return _relayout(grad, mesh, places), None, None
+        now[md] = places[md]
+        grad = _from_local(local, mesh, now, tuple(grad.shape))
+        return _relayout(grad, mesh, places), None, None
+
+
+def _sum_partials(t: torch.Tensor, dims) -> torch.Tensor:
+    """DTensor `t` replicated over the mesh dims `dims` where it is a
+    partial sum: its local shard all-reduced over each (the functional
+    collective, outside autograd)."""
     from torch.distributed.tensor import Replicate
-    return t.redistribute(t.device_mesh, [
-        Replicate() if p.is_partial() else p for p in t.placements])
+    mesh, places = t.device_mesh, list(t.placements)
+    local = t.to_local()
+    for md in dims:
+        local = _collective("all_reduce", local, places[md].reduce_op,
+                            mesh.get_group(md).group_name)
+        places[md] = Replicate()
+    return _from_local(local, mesh, places, tuple(t.shape))
+
+
+def _relayout(t: torch.Tensor, mesh, places) -> torch.Tensor:
+    """DTensor `t` laid out by `places` on `mesh`: its partial sums that
+    `places` replicate summed by `_sum_partials`, the rest by DTensor's
+    redistribution."""
+    places = tuple(places)
+    partial = [md for md, (p, q) in enumerate(zip(t.placements, places))
+               if p.is_partial() and q.is_replicate()]
+    if partial:
+        t = _sum_partials(t, partial)
+    if tuple(t.placements) != places:
+        t = t.redistribute(mesh, places)
+    return t
+
+
+class _Settle(torch.autograd.Function):
+    """`settle`'s sum; backward keeps the gradient's layout along the
+    summed dims and lays out the others as the input's."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, tuple(t.placements)
+        return _sum_partials(t, [md for md, p in enumerate(t.placements)
+                                 if p.is_partial()])
+
+    @staticmethod
+    def backward(ctx, grad):
+        places = tuple(g if p.is_partial() else p
+                       for p, g in zip(ctx.placements, grad.placements))
+        return _relayout(grad, ctx.mesh, places)
 
 
 def pin_grad(t: torch.Tensor) -> torch.Tensor:
-    """`t`, whose gradient is redistributed to `t`'s own placements in
-    backward before it reaches the op that made `t` (a DTensor's; a plain
-    tensor is returned as it is). A view that DTensor could take forward
-    only in one layout (a split or merged dim made whole first) otherwise
-    gets a gradient in the layout the ops after it chose, which DTensor
-    may refuse to view back."""
+    """`t`, whose gradient is laid out as `t` is in backward before it
+    reaches the op that made `t` (a DTensor's, its partial sums summed by
+    `_relayout`; a plain tensor is returned as it is). A view that DTensor
+    could take forward only in one layout (a split or merged dim made
+    whole first) otherwise gets a gradient in the layout the ops after it
+    chose, which DTensor may refuse to view back."""
     if not hasattr(t, "placements"):
         return t
     return _PinGrad.apply(t)
 
 
 class _PinGrad(torch.autograd.Function):
-    """Identity forward; backward redistributes the gradient to the
-    forward placements (a partial sum's gradient is whole)."""
+    """Identity forward; backward lays out the gradient as the forward's
+    placements (a partial sum's gradient is whole)."""
 
     @staticmethod
     def forward(ctx, t):
@@ -274,9 +436,7 @@ class _PinGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        if tuple(grad.placements) != ctx.placements:
-            grad = grad.redistribute(ctx.mesh, ctx.placements)
-        return grad
+        return _relayout(grad, ctx.mesh, ctx.placements)
 
 
 def take_columns(t: torch.Tensor, bounds, whole=()) -> list:
@@ -825,32 +985,25 @@ def rmsnorm_params(d: int, hold):
     return {"scale": hold("scale", torch.ones((d,)))}
 
 
-def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5,
-            pin: bool = False) -> torch.Tensor:
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMS norm in float32. A DTensor input's partial sums are summed in its
     own dtype first, and the output's gradient is summed there too before
     it enters the norm's float32 backward (`pin_grad`): one all-reduce of
     the compute dtype each way, as GSPMD sums the residual stream, where
     DTensor would sum the float32 products inside the norm (several per
-    norm, at twice the bytes). With `pin`, each of the two uses of the
-    input (the variance and the output) also gets its gradient back in the
-    input's layout before the two are added: where they come back in
-    layouts whose sum DTensor cannot redistribute (MLA's query latent under
-    FSDP: a shard plus a partial sum), at the cost of an all-reduce of
-    each. Without `pin`, an input split along the normalized dim (Mamba2's
-    gated output, split by heads) has its variance summed, and the
-    variance's gradient too (a row each), so that the gradient spread back
-    over the dim keeps the input's split: DTensor would reduce-scatter it
-    along the sequence instead, which the input's gradient then leaves
-    split there, and the ops before the norm gather it back."""
+    norm, at twice the bytes). An input split along the normalized dim
+    (Mamba2's gated output, split by heads; MLA's query latent, split by
+    its columns) has its variance summed, and the variance's gradient too
+    (a row each), so that the gradient spread back over the dim keeps the
+    input's split and adds to the output's: DTensor would reduce-scatter
+    it along the sequence instead (torch 2.11) or move it between splits
+    (2.13), which the input's gradient then leaves split there."""
     xf = settle(x).float()
-    xv = pin_grad(xf) if pin else xf
-    var = torch.mean(xv * xv, dim=-1, keepdim=True)
-    if not pin and any(p.is_shard() and p.dim % x.ndim == x.ndim - 1
-                       for p in getattr(x, "placements", ())):
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if any(p.is_shard() and p.dim % x.ndim == x.ndim - 1
+           for p in getattr(x, "placements", ())):
         var = pin_grad(settle(var))
-    out = (pin_grad(xf) if pin else xf) * torch.rsqrt(var + eps) \
-        * p["scale"].float()
+    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
     return pin_grad(out.to(x.dtype))
 
 
@@ -1188,9 +1341,11 @@ def decode_attention(q, k, v, *, valid_len: int,
     if keep_mask is not None:
         mask = mask & keep_mask
     logits = torch.where(mask, logits, -1e30)
-    m = logits.amax(dim=-1, keepdim=True)
+    # a cache split along its sequence leaves the max and the sum partial
+    # (`settle`)
+    m = settle(logits.amax(dim=-1, keepdim=True))
     p = torch.exp(logits - m)
     p = torch.where(mask, p, 0.0)
-    l = p.sum(dim=-1, keepdim=True)
+    l = settle(p.sum(dim=-1, keepdim=True))
     ctx = _dot_f32(p.to(v.dtype), v) / torch.clamp(l, min=1e-30)
     return ctx.reshape(b, hq, 1, dv).to(q.dtype)

@@ -155,8 +155,11 @@ def chunked_xent(h: torch.Tensor, head_w: torch.Tensor, labels,
     """Cross-entropy without holding the (B, S, V) logits: (sum of the
     masked nll, sum of the mask), both float32. The sequence goes in
     chunks of `chunk` positions, halved until it divides S, summed chunk by
-    chunk in order (JAX's `lax.scan`); under autograd each chunk's logits
-    are recomputed in backward, so one chunk's are held at a time."""
+    chunk in order (JAX's `lax.scan`), each chunk's partial sum over the
+    batch's ranks summed before it is added (`common.settle`: one scalar
+    all-reduce a chunk, where torch's versions would each plan the add);
+    under autograd each chunk's logits are recomputed in backward, so one
+    chunk's are held at a time."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     while s % chunk != 0:
@@ -170,7 +173,7 @@ def chunked_xent(h: torch.Tensor, head_w: torch.Tensor, labels,
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         args = (h[:, sl], w, labels[:, sl], mask[:, sl])
-        total = total + common.remat(True, _chunk_nll, *args)
+        total = total + common.settle(common.remat(True, _chunk_nll, *args))
         count = count + torch.sum(mask[:, sl])
     return total, count
 

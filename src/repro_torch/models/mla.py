@@ -42,9 +42,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, hold) -> Dict:
 
 def _queries(p, cfg: ModelConfig, x, positions):
     m = cfg.mla
-    # under FSDP the latent's two uses in its norm get gradients back in
-    # layouts whose sum DTensor cannot redistribute: pinned
-    cq = common.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps, pin=True)
+    cq = common.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
     # the latent made whole before the column-split up-projection (an
     # all-gather of (B, S, q_lora_rank), as GSPMD plans it; DTensor would
     # move the weight and all-reduce the heads' whole queries)

@@ -178,10 +178,10 @@ def layer_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     h = common.layernorm(p["ln1"], x, cfg.norm_eps)
     att, tm_x, wkv = time_mix(p["tm"], cfg, h, state["tm_x"].to(x.dtype),
                               state["wkv"])
-    x = x + att
+    x = common.residual(x, att)
     h2 = common.layernorm(p["ln2"], x, cfg.norm_eps)
     ffn, cm_x = channel_mix(p["cm"], cfg, h2, state["cm_x"].to(x.dtype))
-    return x + ffn, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
+    return common.residual(x, ffn), {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
 
 
 def write_state(cache: Dict, state: Dict) -> None:

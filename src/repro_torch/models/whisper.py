@@ -43,10 +43,12 @@ def _init_dec_block(generator, cfg: ModelConfig, hold) -> Dict:
 
 def _enc_block(p, cfg: ModelConfig, x, positions):
     h = common.layernorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attention.forward(p["attn"], cfg, h, positions, causal=False,
-                              approx=cfg.approx_attention)
+    x = common.residual(x, attention.forward(
+        p["attn"], cfg, h, positions, causal=False,
+        approx=cfg.approx_attention))
     h = common.layernorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp.forward(p["ffn"], cfg, h, "gelu", approx=cfg.approx_ffn)
+    return common.residual(x, mlp.forward(p["ffn"], cfg, h, "gelu",
+                                          approx=cfg.approx_ffn))
 
 
 def _memory_proj(memory, w):
@@ -78,9 +80,10 @@ def _cross_attention(p, cfg: ModelConfig, x, memory):
 def _dec_tail(p, cfg: ModelConfig, x, memory, approx_ffn=None):
     """A decoder block after its self-attention: cross-attention and FFN."""
     h = common.layernorm(p["ln_x"], x, cfg.norm_eps)
-    x = x + _cross_attention(p["cross_attn"], cfg, h, memory)
+    x = common.residual(x, _cross_attention(p["cross_attn"], cfg, h, memory))
     h = common.layernorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp.forward(p["ffn"], cfg, h, "gelu", approx=approx_ffn)
+    return common.residual(x, mlp.forward(p["ffn"], cfg, h, "gelu",
+                                          approx=approx_ffn))
 
 
 class Whisper(lm.Model):
@@ -121,9 +124,9 @@ class Whisper(lm.Model):
 
         def block(lp, h, mem):
             hh = common.layernorm(lp["ln1"], h, cfg.norm_eps)
-            h = h + attention.forward(lp["self_attn"], cfg, hh, positions,
-                                      causal=True,
-                                      approx=cfg.approx_attention)
+            h = common.residual(h, attention.forward(
+                lp["self_attn"], cfg, hh, positions, causal=True,
+                approx=cfg.approx_attention))
             return _dec_tail(lp, cfg, h, mem, approx_ffn=cfg.approx_ffn)
 
         for lp in params["dec_blocks"]:
@@ -150,7 +153,7 @@ class Whisper(lm.Model):
             h = common.layernorm(lp["ln1"], x, cfg.norm_eps)
             out, _ = attention.prefill(lp["self_attn"], cfg, h,
                                        lm.layer_view(cache["self"], l))
-            x = _dec_tail(lp, cfg, x + out, memory)
+            x = _dec_tail(lp, cfg, common.residual(x, out), memory)
         x = common.layernorm(params["dec_norm"], x, cfg.norm_eps)
         return self._logits(params, x[:, -1]), cache
 
@@ -168,6 +171,6 @@ class Whisper(lm.Model):
             out, _ = attention.decode_step(
                 lp["self_attn"], cfg, h, lm.layer_view(cache["self"], l),
                 pos, approx=cfg.approx_decode)
-            x = _dec_tail(lp, cfg, x + out, memory)
+            x = _dec_tail(lp, cfg, common.residual(x, out), memory)
         x = common.layernorm(params["dec_norm"], x, cfg.norm_eps)
         return self._logits(params, x[:, 0]), cache

@@ -7,8 +7,10 @@ smallest depth variant, train 256 x 256, prefill 32 x 512, decode 128 x
 
 A file's cells run in one subprocess (the dry run's fake process group is
 the process's default group), each cell's failure recorded with its
-traceback. Each case asserts: status ok; params and active params equal
-to the JAX config cut the same way; argument bytes equal to the local
+traceback. Each case asserts: status ok; the collectives (`counts`,
+`bytes_by_kind`, `bytes_by_axis`) the card's torch counts on a cuda mesh
+(`CARD_RECORDS`, held by `mesh_differences`); params and active params
+equal to the JAX config cut the same way; argument bytes equal to the local
 shards of the placed leaves, summed here from the sharding rules alone;
 the record's keys those of the dry run's ok records; for a prefill, output
 bytes equal to the local shards of the cache laid out by `cache_specs` and
@@ -20,7 +22,9 @@ wants none in any cell). A cpu mesh counts the collectives a cuda mesh
 does: DTensor's Shard-to-Shard move, an all-gather and a chunk on a cpu
 mesh, counts as the all-to-all a card runs (`launch.dryrun.DeviceCount`);
 `mesh_differences` holds two meshes' records of a cell to each other
-(`chip_smoke.py` (d) traces every cell on both).
+(`chip_smoke.py` (d) traces every cell on both, and holds the cuda mesh's
+to `CARD_RECORDS`). The two-layer `VARIANTS` of three train cells are
+traced beside their arch's cells and held to `CARD_RECORDS` too.
 """
 import dataclasses
 import json
@@ -47,20 +51,38 @@ RECORD_KEYS = {"arch", "shape", "mesh", "chips", "kind", "status",
                "params", "active_params", "ops", "detail"}
 
 _TRACE = r"""
-import json, sys, traceback
+import dataclasses, json, sys, traceback
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun
 out = {}
-for arch, shape, multi in json.loads(sys.argv[1]):
+for arch, shape, multi, *layers in json.loads(sys.argv[1]):
     cfg, short = dryrun.short_cell(get_config(arch), SHAPES[shape])
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers[0])
     try:
         rec = dryrun.lower_cell(arch, shape, multi, cfg, shape=short,
                                 device=sys.argv[2])
     except Exception:
         rec = {"status": "FAILED", "error": traceback.format_exc()[-3000:]}
-    out[f"{arch}|{shape}|{int(multi)}"] = rec
+    out["|".join(map(str, (arch, shape, int(multi), *layers)))] = rec
 print("RESULT " + json.dumps(out))
 """
+
+# cells cut as `short_cell` cuts them but two layers deep (arch, shape,
+# multi_pod, n_layers): DTensor's layouts settle only after a model's first
+# layer of a type (`launch.roofline.depth_variants`), so the collectives
+# of a layer between two others (the backward all-reduce of the residual
+# stream a norm each way) show only from the second layer on
+VARIANTS = (("qwen1.5-4b", "train_4k", False, 2),
+            ("whisper-large-v3", "train_4k", False, 2),
+            ("starcoder2-3b", "train_4k", False, 2))
+
+# each cell's collectives as the card's torch counts them on a cuda mesh
+# (`counts`, `bytes_by_kind`, `bytes_by_axis`, `by_shape`): the 64 cells of
+# `cells` and the `VARIANTS`, written by `python tests/_dryrun_moves.py
+# record` on the card; every mesh, on any torch, must count the same
+CARD_RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "_dryrun_card_collectives.json")
 
 
 def cells(archs):
@@ -69,9 +91,15 @@ def cells(archs):
             if shape_applicable(get_config(a), SHAPES[s])[0]]
 
 
+def variants(archs):
+    """The `VARIANTS` of `archs`."""
+    return [v for v in VARIANTS if v[0] in archs]
+
+
 def cell_id(cell):
-    arch, shape, multi = cell
-    return f"{arch}-{shape}-{'2x16x16' if multi else '16x16'}"
+    arch, shape, multi, *layers = cell
+    return (f"{arch}-{shape}-{'2x16x16' if multi else '16x16'}"
+            + "".join(f"-{n}layers" for n in layers))
 
 
 def trace(cells_, timeout: float = 900.0, device: str = "cpu"):
@@ -86,23 +114,23 @@ def trace(cells_, timeout: float = 900.0, device: str = "cpu"):
     assert r.returncode == 0, r.stderr[-3000:]
     line = [l for l in r.stdout.splitlines() if l.startswith("RESULT ")][-1]
     out = json.loads(line[len("RESULT "):])
-    return {(a, s, bool(int(m))): rec for (a, s, m), rec in
-            ((k.split("|"), v) for k, v in out.items())}
+    return {(a, s, bool(int(m)), *map(int, n)): rec for (a, s, m, *n), rec
+            in ((k.split("|"), v) for k, v in out.items())}
 
 
 def trace_by_arch(archs, devices, jobs: int = 8,
                   cell_timeout: float = 120.0):
     """{device: {cell: dry-run record}} of every applicable cell of
-    `archs` on a mesh of each of `devices`, an arch's cells on one mesh
-    traced in a subprocess of their own (`trace`), `jobs` at a time in
-    one pool. An arch whose subprocess runs past `cell_timeout` seconds a
-    cell gets TIMEOUT records, one that fails outside a cell FAILED
-    ones."""
+    `archs`, and of their `VARIANTS`, on a mesh of each of `devices`, an
+    arch's cells on one mesh traced in a subprocess of their own
+    (`trace`), `jobs` at a time in one pool. An arch whose subprocess runs
+    past `cell_timeout` seconds a cell gets TIMEOUT records, one that
+    fails outside a cell FAILED ones."""
     import concurrent.futures as cf
 
     def one(job):
         arch, device = job
-        cs = cells((arch,))
+        cs = cells((arch,)) + variants((arch,))
         try:
             return trace(cs, cell_timeout * len(cs), device)
         except subprocess.TimeoutExpired:
@@ -133,6 +161,20 @@ def mesh_differences(a, b):
                            [r for r in cb["by_shape"]
                             if r not in ca["by_shape"]])
     return out
+
+
+def card_records():
+    """{cell id: collectives} of `CARD_RECORDS` (the card's torch, a cuda
+    mesh)."""
+    with open(CARD_RECORDS) as f:
+        return json.load(f)["cells"]
+
+
+def card_differences(rec, cell, card=None):
+    """`mesh_differences` of a dry-run record of `cell` and the card's
+    record of it (`card`: `card_records()` by default)."""
+    card = card if card is not None else card_records()
+    return mesh_differences(rec, {"collectives": card[cell_id(cell)]})
 
 
 def _local_bytes(t, spec, mesh):
@@ -205,6 +247,14 @@ def output_bytes(arch, shape_name, multi):
             "model" if v % mesh["model"] == 0 else None)
     return (_placed_bytes(cache, sharding.cache_specs(mesh, cache, b), mesh)
             + _local_bytes(logits, spec, mesh))
+
+
+def check_variant(records, cell):
+    """The assertions of one `VARIANTS` case: status ok, and the
+    collectives the card's torch counts on a cuda mesh."""
+    rec = records[cell]
+    assert rec["status"] == "ok", rec.get("error")
+    assert card_differences(rec, cell) == {}
 
 
 def jax_counts(arch, shape_name):
@@ -291,6 +341,8 @@ def check(records, cell):
     arch, shape, multi = cell
     rec = records[cell]
     assert rec["status"] == "ok", rec.get("error")
+    # the collectives the card's torch counts on a cuda mesh, on any torch
+    assert card_differences(rec, cell) == {}
     assert set(rec) == RECORD_KEYS
     assert rec["mesh"] == ("2x16x16" if multi else "16x16")
     assert rec["chips"] == (512 if multi else 256)

@@ -17,7 +17,9 @@ the result bytes of each collective a device runs.
 bytes to `TOTAL_RATIO` of GSPMD's, and its all-gathers over `model` to
 `GATHER_RATIO` of GSPMD's all-gathers and collective-permutes.
 `python tests/_dryrun_gspmd.py` prints the readings of every cell, and of
-`MORE_CELLS` (the other train cells, read but not asserted).
+`MORE_CELLS` (the other train cells, read but not asserted); `python
+tests/_dryrun_gspmd.py ops <cell>` lists GSPMD's collective ops of one
+cell with the JAX op each lowers.
 """
 from __future__ import annotations
 
@@ -138,6 +140,31 @@ def weighted_collectives(text: str) -> Dict[str, Dict[str, int]]:
     return {"bytes_by_kind": plain, "weighted_by_kind": weighted}
 
 
+_OP = re.compile(r"=\s*(\(.*?\)|\S+)\s+(all-reduce|all-gather|reduce-scatter|"
+                 r"all-to-all|collective-permute)(?:-start)?\(")
+_OP_NAME = re.compile(r'op_name="([^"]*)"')
+
+
+def collective_ops(text: str) -> list:
+    """Each collective op of the compiled program: its kind, result type
+    (a tuple where XLA combined several), the JAX op it lowers (`op_name`:
+    `jvp(...)` forward, `transpose(...)` backward,
+    `.../rematted_computation/...` a recompute) and how many times it runs
+    (`multipliers`)."""
+    _, comps = computations(text)
+    runs = multipliers(text)
+    out = []
+    for name, lines in comps.items():
+        for line in lines:
+            m = _OP.search(line)
+            if m:
+                op = _OP_NAME.search(line)
+                out.append({"kind": m.group(2), "type": m.group(1),
+                            "op_name": op.group(1) if op else "",
+                            "runs": runs[name]})
+    return out
+
+
 _JAX = r"""
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
@@ -157,9 +184,13 @@ cfg = dataclasses.replace(get_config({arch!r}), n_layers={layers},
                           unroll_layers=True)
 rec = dryrun.lower_cell({arch!r}, {shape!r}, False, cfg)
 assert rec["status"] == "ok", rec
-out = weighted_collectives(texts[-1])
+text = texts[-1]
+out = weighted_collectives(text)
 assert out["bytes_by_kind"] == rec["collectives"]["bytes_by_kind"], (
     out, rec["collectives"])
+if {ops}:
+    from _dryrun_gspmd import collective_ops
+    out["ops"] = collective_ops(text)
 print("RESULT " + json.dumps(out))
 """
 
@@ -192,13 +223,13 @@ def _result(proc: subprocess.Popen, timeout: float = 600.0):
     return json.loads(line[len("RESULT "):])
 
 
-def cells(name: str) -> Tuple[Dict, Dict]:
-    """(GSPMD's collective bytes of a cell of `CELLS` per device, the
-    port's dry-run `collectives` record of it), the two run side by
-    side."""
+def cells(name: str, ops: bool = False) -> Tuple[Dict, Dict]:
+    """(GSPMD's collective bytes of a cell of `CELLS` per device, and with
+    `ops` its `collective_ops`; the port's dry-run `collectives` record of
+    it), the two run side by side."""
     arch, shape, layers = {**CELLS, **MORE_CELLS}[name]
     jax = _start(_JAX.format(tests=TESTS, arch=arch, shape=shape,
-                             layers=layers))
+                             layers=layers, ops=ops))
     port = _start(_PORT.format(arch=arch, shape=shape, layers=layers))
     try:
         return _result(jax), _result(port)
@@ -236,5 +267,12 @@ def check(name: str) -> Dict[str, float]:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ops"]:
+        # python tests/_dryrun_gspmd.py ops qwen15_train: GSPMD's
+        # collective ops of one cell, one a line
+        jax, _ = cells(sys.argv[2], ops=True)
+        for op in jax["ops"]:
+            print(op["runs"], op["kind"], op["type"], op["op_name"])
+        sys.exit(0)
     for cell in list(CELLS) + list(MORE_CELLS):
         print(cell, json.dumps(readings(*cells(cell))), flush=True)

@@ -983,6 +983,31 @@ def _dryrun_cells():
             if shape_applicable(get_config(a), SHAPES[s])[0]]
 
 
+# a DTensor's split moved from dim 0 to dim 1 over `model` on a mesh of 2 x 4
+# fake ranks (argv[1]: the mesh's device type), counted by the dry run
+_MOVE = r"""
+import json, sys
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch import dryrun
+with dryrun.fake_world(8):
+    mesh = init_device_mesh(sys.argv[1], (2, 4),
+                            mesh_dim_names=("data", "model"))
+    axes = {i["group"]: n for n, i in dryrun.mesh_axes(mesh).items()}
+    count = dryrun.DeviceCount(axes)
+    t = DTensor.from_local(torch.empty(4, 16, device="meta"), mesh,
+                           [Replicate(), Shard(0)], run_check=False,
+                           shape=(16, 16), stride=(16, 1))
+    with count:
+        t.redistribute(mesh, [Replicate(), Shard(1)])
+print("RESULT " + json.dumps({"counts": count.counts,
+                              "bytes": count.coll_bytes,
+                              "axes": count.axis_bytes,
+                              "moves": count.moves}))
+"""
+
+
 @pytest.mark.cuda
 class TestDryRunOnCard:
     """Every applicable dry-run cell traces with the card's torch: each cut
@@ -991,10 +1016,11 @@ class TestDryRunOnCard:
     arch's cells in a process of their own, 8 at a time
     (`tests/_dryrun_cells.py`, the CPU tests'
     `test_torch_dryrun_cells_*.py` matrix), each laid out as the sharding
-    rules say."""
+    rules say, and each, with the two-layer `VARIANTS`, counting the
+    collectives committed in `tests/_dryrun_card_collectives.json`."""
 
     @pytest.fixture(scope="class")
-    def rows(self):
+    def records(self):
         import os
         import sys
         if not torch.cuda.is_available():
@@ -1003,9 +1029,12 @@ class TestDryRunOnCard:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         import _dryrun_cells as dc
         from repro_torch.configs import list_archs
-        recs = dc.trace_by_arch(list_archs(), ("cuda",))["cuda"]
+        return dc.trace_by_arch(list_archs(), ("cuda",))["cuda"]
+
+    @pytest.fixture(scope="class")
+    def rows(self, records):
         return {(a, s, "2x16x16" if m else "16x16"): r
-                for (a, s, m), r in recs.items()}
+                for (a, s, m, *layers), r in records.items() if not layers}
 
     @pytest.mark.parametrize("cell", _dryrun_cells(),
                              ids=lambda c: "-".join(c))
@@ -1027,22 +1056,60 @@ class TestDryRunOnCard:
             assert row["memory"]["output_bytes"] == dc.output_bytes(
                 arch, shape, multi)
 
-    def test_meshes_count_the_same_moves(self):
-        """deepseek-v3-671b train_4k on 16x16, whose backward moves splits
-        from one dim to another (Shard-to-Shard): a cuda mesh (DTensor's
-        `_dtensor.shard_dim_alltoall`) and a cpu mesh (its all-gather and
-        chunk) count the same collectives, each move one all-to-all."""
+    def test_cells_count_the_committed_card_collectives(self, records):
+        """Every cell and two-layer variant counts, on the card's torch and
+        a cuda mesh, the `counts`, `bytes_by_kind` and `bytes_by_axis`
+        committed in `tests/_dryrun_card_collectives.json`, which the CPU
+        matrix is held to on its own torch (`_dryrun_cells.check`): a
+        change to a collective regenerates that file on the card
+        (`python tests/_dryrun_moves.py record --device cuda --out
+        tests/_dryrun_card_collectives.json`)."""
         import os
+        import sys
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import _dryrun_cells as dc
+        card = dc.card_records()
+        assert sorted(dc.cell_id(c) for c in records) == sorted(card)
+        differ = {dc.cell_id(c): r.get("error") or dc.card_differences(
+            r, c, card) for c, r in records.items()
+            if r["status"] != "ok" or dc.card_differences(r, c, card)}
+        assert not differ, differ
+
+    def test_meshes_count_the_same_moves(self):
+        """A cuda mesh (DTensor's `_dtensor.shard_dim_alltoall`) and a cpu
+        mesh (its all-gather and chunk) count a Shard-to-Shard move alike,
+        as one all-to-all over its axis; and deepseek-v3-671b train_4k on
+        16x16, whose MTP block moved splits before its sublayers got their
+        input whole (`models.common.whole_along`), counts the same
+        collectives on both meshes."""
+        import json
+        import os
+        import subprocess
         import sys
         if not torch.cuda.is_available():
             pytest.skip("needs an NVIDIA GPU (the dry run's mesh device is "
                         "cuda)")
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        here = os.path.dirname(os.path.abspath(__file__))
+        sys.path.insert(0, here)
         import _dryrun_cells as dc
+        moved = {}
+        for device in ("cuda", "cpu"):
+            r = subprocess.run(
+                [sys.executable, "-c", _MOVE, device], capture_output=True,
+                text=True, timeout=300, cwd=os.path.dirname(here),
+                env=dict(os.environ, PYTHONPATH=os.path.join(
+                    os.path.dirname(here), "src")))
+            assert r.returncode == 0, r.stderr[-3000:]
+            moved[device] = json.loads([
+                l for l in r.stdout.splitlines()
+                if l.startswith("RESULT ")][-1][len("RESULT "):])
+        assert moved["cuda"] == moved["cpu"]
+        assert moved["cuda"]["counts"] == {"all-to-all": 1}
+        assert moved["cuda"]["moves"] == 1
         cell = ("deepseek-v3-671b", "train_4k", False)
         cuda = dc.trace([cell], device="cuda")[cell]
         cpu = dc.trace([cell], device="cpu")[cell]
         assert cuda["status"] == cpu["status"] == "ok"
         assert dc.mesh_differences(cuda, cpu) == {}
         assert cuda["collectives"]["shard_moves"] == \
-            cpu["collectives"]["shard_moves"] > 0
+            cpu["collectives"]["shard_moves"]

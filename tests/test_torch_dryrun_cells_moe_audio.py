@@ -11,16 +11,25 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _dryrun_cells as dc  # noqa: E402
 
 CELLS = dc.cells(('olmoe-1b-7b', 'whisper-large-v3'))
+VARIANTS = dc.variants(('olmoe-1b-7b', 'whisper-large-v3'))
 
 
 @pytest.fixture(scope="module")
 def records():
-    return dc.trace(CELLS)
+    return dc.trace(CELLS + VARIANTS)
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
 def test_cell_traces_with_the_rules_local_shards(records, cell):
     dc.check(records, cell)
+
+
+@pytest.mark.parametrize("cell", VARIANTS,
+                         ids=[dc.cell_id(c) for c in VARIANTS])
+def test_variant_counts_the_card_collectives(records, cell):
+    """The cell two layers deep counts what the card's torch counts on a
+    cuda mesh (`_dryrun_cells.CARD_RECORDS`)."""
+    dc.check_variant(records, cell)
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=[dc.cell_id(c) for c in CELLS])
