@@ -17,6 +17,19 @@ failure could still exit 0):
      alone equals its plain version exactly (mask, list of computed blocks,
      src) at both IACT specs, and three K2 and K3 calls on the same inputs
      give identical outputs;
+  3b. the nine CUDA kernels (`__global__` functions of csrc/) under
+     `python -m repro_torch.kernels.sanitize`, one process a tool, with
+     PYTORCH_NO_CUDA_MEMORY_CACHING=1, over its 48 small cases (every
+     branch of each launch rule): memcheck (every buffer between guard
+     zones, two guard patterns), initcheck (outputs and scratch filled
+     with two patterns), synccheck (the checked build: every CTA barrier
+     checks that its threads reached the same barrier) and racecheck (the
+     checked build with random sleeps at barriers and cp.async waits,
+     three seeds); each tool must find nothing, hold every case to its
+     plain version (masks equal, phase 3's tolerances) and launch each of
+     the nine kernels (torch.profiler). compute-sanitizer must be found
+     beside nvcc or on PATH, and whether it attaches to the card (or the
+     card's refusal) is logged;
   4. the 30-spec sweep on the "cuda" substrate at the reference geometry:
      the front must equal the committed benchmarks/baselines/BENCH_ffn.json
      (n_front 4, hypervolume within 1e-4, best-under-10% approx fractions,
@@ -57,7 +70,10 @@ failure could still exit 0):
      its wall time (CUDA events, one warm-up, one timed run), approx
      fraction, error against the app's NONE and host reads; a TAF spec of
      each app must approximate. Then: the ELEMENT / TILE sequences run
-     under `torch.cuda.set_sync_debug_mode("error")`; binomial's launch-
+     under `torch.cuda.set_sync_debug_mode("error")` and, again, under
+     torch.profiler, which must trace no synchronize call or device-to-
+     host copy (binomial's trace: its first three invocations at the
+     default tree of 128 steps); binomial's launch-
      bound share (torch.profiler); `run_batch` equals `run` for a TAF
      group of three thresholds; at the JAX default size every spec on the
      card equals the CPU (masks of the run_sequence apps stepped side by
@@ -208,6 +224,7 @@ chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device, and
 when run outside a checkout (src/repro_torch missing).
 """
 import collections
+import concurrent.futures
 import json
 import os
 import shutil
@@ -272,6 +289,8 @@ APP_TAF = (2, 8, 0.5)
 APP_IACT = (2, 0.3, 0)
 APP_RTOL, APP_ATOL, APP_FRACTION_TOL = 1e-4, 1e-3, 0.005
 SEQUENCE_APPS = ("blackscholes", "binomial_options", "lavamd")
+# the tree of binomial's profiler witness (the app's default)
+BINOMIAL_WITNESS_TREE = 128
 
 
 class SmokeFailure(Exception):
@@ -285,6 +304,21 @@ def check(ok, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+class Parts:
+    """The seconds of a phase's parts, each logged as it ends and kept in
+    the phase's report under "part_s"."""
+
+    def __init__(self, out):
+        self.seconds = out.setdefault("part_s", {})
+        self.t = time.perf_counter()
+
+    def __call__(self, label):
+        now = time.perf_counter()
+        self.seconds[label] = now - self.t
+        log(f"  [{label}: {now - self.t:.1f} s]")
+        self.t = now
 
 
 def card_line():
@@ -305,6 +339,106 @@ def card_errors():
             capture_output=True, text=True, timeout=60).stdout
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi failed: {e}"
+
+
+# phase 3b: the longest a sanitize tool may take (its cases take 30-35 s),
+# and where each tool's output lands
+SANITIZE_TIMEOUT = 300
+SANITIZE_DIR = os.path.join(HERE, "chiprun_out", "sanitize")
+
+
+def compute_sanitizer():
+    """compute-sanitizer beside nvcc (the toolkit's bin/), else on PATH, else
+    None."""
+    from repro_torch.kernels import _build
+    beside = os.path.join(os.path.dirname(_build.nvcc()), "compute-sanitizer")
+    return beside if os.access(beside, os.X_OK) else \
+        shutil.which("compute-sanitizer")
+
+
+def side_by_side(jobs, env, out_dir, timeout):
+    """Run the commands of `jobs` ({name: argv}) at once, each writing to
+    `out_dir`/<name>.out and .err (a pipe could fill and stall it); a
+    command still running after `timeout` s is killed. Returns {name: (rc,
+    stdout, stderr, seconds)}."""
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, cmd in jobs.items():
+        files = [os.path.join(out_dir, f"{name}.{x}") for x in ("out", "err")]
+        with open(files[0], "w") as fo, open(files[1], "w") as fe:
+            procs[name] = (subprocess.Popen(cmd, stdout=fo, stderr=fe,
+                                            env=env, cwd=HERE),
+                           files, time.perf_counter())
+    done = {}
+    for name, (proc, files, t0) in procs.items():
+        killed = ""
+        try:
+            proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            killed = f"\nkilled after {timeout} s: a hung kernel?"
+        seconds = time.perf_counter() - t0
+        with open(files[0]) as fo, open(files[1]) as fe:
+            done[name] = (proc.returncode, fo.read(), fe.read() + killed,
+                          seconds)
+    return done
+
+
+def phase_sanitize(card):
+    """Phase 3b: `repro_torch.kernels.sanitize` once per tool, the four in
+    processes of their own side by side, with PYTORCH_NO_CUDA_MEMORY_CACHING
+    =1, beside a probe of compute-sanitizer whose result (attaches, or the
+    card's refusal) is logged. Every run must find nothing and launch each
+    of the nine kernels; a tool that does not end within SANITIZE_TIMEOUT
+    (a hung kernel) fails."""
+    from repro_torch.kernels import sanitize
+    # two CPU threads a tool: the four share the host's cores
+    env = dict(os.environ, PYTHONPATH=SRC, PYTORCH_NO_CUDA_MEMORY_CACHING="1",
+               OMP_NUM_THREADS="2")
+    cs = compute_sanitizer()
+    check(cs is not None, "compute-sanitizer not found beside nvcc nor on "
+                          "PATH: the CUDA toolkit is incomplete")
+    own = {tool: [sys.executable, "-m", "repro_torch.kernels.sanitize",
+                  "--tool", tool] for tool in sanitize.TOOLS}
+    probe = [cs, "--tool", "memcheck", "--error-exitcode", "1",
+             sys.executable, "-c", "import torch; torch.zeros(1, "
+             "device='cuda'); torch.cuda.synchronize()"]
+    runs = side_by_side(dict(own, probe=probe), env, SANITIZE_DIR,
+                        SANITIZE_TIMEOUT)
+    rc, stdout, stderr, _ = runs.pop("probe")
+    said = [ln.strip("= ").strip() for ln in (stdout + stderr).splitlines()
+            if "Error" in ln]
+    attaches = rc == 0 and not said
+    log(f"  compute-sanitizer {cs}: " + ("attaches" if attaches else
+                                         f"refused ({'; '.join(said[:2])})"))
+    out = dict(card=card, compute_sanitizer=cs, attaches=attaches,
+               refusal=None if attaches else said[:2], tools={})
+    failed = []
+    for name, (rc, stdout, stderr, seconds) in runs.items():
+        lines = stdout.strip().splitlines()
+        summary = json.loads(lines[-1]) if lines and \
+            lines[-1].startswith("{") else {}
+        row = dict(rc=rc, seconds=seconds, errors=summary.get("errors"),
+                   findings=summary.get("findings"),
+                   launches=summary.get("launches"),
+                   wrapper_calls=summary.get("wrapper_calls"),
+                   cases=summary.get("cases"),
+                   sanitizer_summary=[ln for ln in stdout.splitlines()
+                                      if "SUMMARY" in ln])
+        out["tools"][name] = row
+        log(f"  {name}: rc={rc} errors={row['errors']} cases={row['cases']} "
+            f"seconds={seconds:.1f} launches={row['launches']}")
+        ok = (rc == 0 and summary.get("errors") == 0
+              and not summary.get("not_launched")
+              and all(summary["launches"][k] > 0 for k in sanitize.KERNELS))
+        if not ok:
+            log("\n".join(lines[-30:]) + "\n" + stderr[-3000:])
+            failed.append(f"{name}: rc {rc}, findings "
+                          f"{summary.get('findings')}, kernels not launched "
+                          f"{summary.get('not_launched')}")
+    check(not failed, "sanitize: " + "; ".join(failed))
+    return out
 
 
 def loose_iact_threshold(a, rows=16):
@@ -433,6 +567,7 @@ def phase_apps(dev, s, loose):
     out = {"full": {}, "no_sync": {}, "run_batch": {}, "default_size": {}}
     mods = {name: importlib.import_module(f"repro_torch.apps.{name}")
             for name, _ in FULL_APPS}
+    part_done = Parts(out)
 
     # each app at full width through make_app(...).run
     for name, kw in FULL_APPS:
@@ -465,6 +600,7 @@ def phase_apps(dev, s, loose):
                                  seconds=time.perf_counter() - t0)
         del app, exact
         torch.cuda.empty_cache()
+    part_done("full size")
 
     # the ELEMENT / TILE paths make no synchronizing call (kmeans' host
     # convergence loop reads once an iteration by design and is left out):
@@ -508,22 +644,34 @@ def phase_apps(dev, s, loose):
 
     taf_p, iact_p = TAFParams(*APP_TAF), IACTParams(*APP_IACT)
     full_kw = dict(FULL_APPS)
-    for name in SEQUENCE_APPS:
-        xs, fn = sequence_of(name, full_kw[name], dev)
-        # binomial's full sequence is 1.6e5 launches a run: the profiler
-        # witnesses its first three invocations
-        short = xs[:3] if name == "binomial_options" else xs
-        for label, run in (
-                ("taf_element", lambda x: taf.run_sequence(
+
+    def sequence_runs(fn):
+        return (("taf_element", lambda x: taf.run_sequence(
                     taf_p, x, fn, Level.ELEMENT)),
                 ("taf_tile", lambda x: taf.run_sequence(
                     taf_p, x, fn, Level.TILE)),
                 ("iact_element", lambda x: iact.run_sequence(
-                    iact_p, x, fn, Level.ELEMENT))):
+                    iact_p, x, fn, Level.ELEMENT)))
+
+    for name in SEQUENCE_APPS:
+        xs, fn = sequence_of(name, full_kw[name], dev)
+        short, short_fn = xs, fn
+        if name == "binomial_options":
+            # the profiler witnesses binomial's path on its first three
+            # invocations at the app's default tree: at the full tree a
+            # price call is 24,589 launches, whose trace takes about 25 s
+            # to read
+            short, short_fn = sequence_of(name, dict(
+                full_kw[name], tree_steps=BINOMIAL_WITNESS_TREE), dev)
+            short = short[:3]
+        for (label, run), (_, witness) in zip(sequence_runs(fn),
+                                              sequence_runs(short_fn)):
+            t0 = time.perf_counter()
             (_, _, frac), waits = no_sync(lambda: run(xs),
-                                          lambda: run(short))
+                                          lambda: witness(short))
             out["no_sync"][f"{name}/{label}"] = dict(
-                approx_fraction=float(frac), waits=waits)
+                approx_fraction=float(frac), waits=waits,
+                seconds=time.perf_counter() - t0)
     n, iters = full_kw["minife_cg"]["n"], full_kw["minife_cg"]["iters"]
     b = torch.from_numpy(minife_cg._gen_b(n, 0)).to(dev)
     ini = ApproxSpec(Technique.PERFORATION, perforation=PerforationParams(
@@ -533,16 +681,20 @@ def phase_apps(dev, s, loose):
                                        taf=taf_p), {}),
             ("perfo_ini_fraction_tensor", ini,
              dict(fraction=torch.full((), 0.25, device=dev)))):
+        t0 = time.perf_counter()
         (_, _, frac), waits = no_sync(
             lambda: minife_cg.cg_solve(b, spec, iters, **kw))
         out["no_sync"][f"minife_cg/{label}"] = dict(
-            approx_fraction=float(frac), waits=waits)
+            approx_fraction=float(frac), waits=waits,
+            seconds=time.perf_counter() - t0)
     for run, r in out["no_sync"].items():
         log(f"  {run}: no synchronizing call under sync debug mode "
             f"'error'; synchronize calls and DtoH copies traced beyond "
             f"the profiler's own {dict(own_waits)}: {r['waits']} "
-            f"approx_fraction={r['approx_fraction']!r}")
+            f"approx_fraction={r['approx_fraction']!r} "
+            f"({r['seconds']:.1f} s)")
         check(not r["waits"], f"{run} waited for the card: {r['waits']}")
+    part_done("no sync")
 
     # binomial at full width is bound by launches: one price call's kernels
     xs, fn = sequence_of("binomial_options", full_kw["binomial_options"],
@@ -559,6 +711,7 @@ def phase_apps(dev, s, loose):
     log(f"  binomial_price ({x0.shape[0]} options, "
         f"{full_kw['binomial_options']['tree_steps']} tree steps), one "
         f"call: {out['binomial_price_call']}")
+    part_done("binomial profile")
 
     # run_batch equals run, spec by spec, for one TAF group
     for name, kw in FULL_APPS:
@@ -581,6 +734,7 @@ def phase_apps(dev, s, loose):
         torch.cuda.empty_cache()
     log(f"  run_batch == run (TAF 2/8 at 0.1, 0.5, 1.5), approx "
         f"fractions: {out['run_batch']}")
+    part_done("run_batch")
 
     # at the JAX default size every spec on the card equals the CPU
     for name, _ in FULL_APPS:
@@ -619,6 +773,7 @@ def phase_apps(dev, s, loose):
                   f"{name} {label}: the card departs from the CPU at the "
                   "default size")
         out["default_size"][name] = rows
+    part_done("default size")
 
     # ApproxRegion on the "cuda" substrate launches K2 / K3 at phase 5's
     # widths and returns exactly what the substrate call returns
@@ -655,6 +810,7 @@ def phase_apps(dev, s, loose):
             f"equal to the substrate call={same}")
         check(launched > 0 and same, f"ApproxRegion did not run {kern} or "
                                      "departs from the substrate call")
+    part_done("region")
     return out
 
 
@@ -1325,6 +1481,7 @@ def phase_sharded(dev, card, ctx):
     model, params, policy = ctx["model"], ctx["params"], ctx["policy"]
     vocab = model.cfg.vocab_size
     out = {"shards": SHARDS, "slots": SHARD_SLOTS}
+    part_done = Parts(out)
 
     def qos_engine():
         return qos.QosEngine(policy, QOS_TARGETS, sample_fraction=0.25,
@@ -1361,6 +1518,7 @@ def phase_sharded(dev, card, ctx):
         one[label] = dict(equal=same, knobs_equal=knobs,
                           tokens_per_s=row["tokens_per_s"])
     out["one_shard"] = one
+    part_done("(a) one shard")
 
     # (b) four shards, precise and under per-shard QoS
     engines = {}
@@ -1394,6 +1552,7 @@ def phase_sharded(dev, card, ctx):
                   "a per-shard knob move built a step or read the device")
         engines[label] = engine_row(f"{SHARDS} shards {label}", row, stats)
     out["engine"] = engines
+    part_done("(b) four shards")
 
     # with the knob pinned precise, every canary error is exactly 0.0
     pinned = qos.QosEngine(policy, 1e-9, sample_fraction=1.0, window=8)
@@ -1415,6 +1574,7 @@ def phase_sharded(dev, card, ctx):
     out["pinned_precise"] = dict(canary_ticks=stats.canary_ticks,
                                  samples=ms.samples,
                                  mean_error=ms.mean_error)
+    part_done("pinned precise")
 
     # the fault drill on shard 3, twice: localized and repeatable
     runs = [drill_run(ctx, dev) for _ in range(2)]
@@ -1429,6 +1589,7 @@ def phase_sharded(dev, card, ctx):
           f"the drill did not back off shard 3's classes: {d}")
     out["drill"] = {k: v for k, v in d.items()
                     if k not in ("knob_log", "events_after")}
+    part_done("drill x2")
 
     # one sharded decode step's CUDA kernels, in a fresh process
     prof_path = os.path.join(os.path.dirname(REPORT),
@@ -1460,6 +1621,7 @@ def phase_sharded(dev, card, ctx):
                                if kk != "kernel_names"}
                            if isinstance(v, dict) else v
                            for k, v in prof.items()}
+    part_done("step profile")
 
     # (c) the benchmark runner with --devices 1: its geometry and the exact
     # fields against the committed baseline. The close fields are not
@@ -1487,6 +1649,7 @@ def phase_sharded(dev, card, ctx):
         log(f"  --devices 1 artifact: mesh_shape [1, 1], exact fields "
             f"{list(exact)} equal the baseline's")
     out["runner"] = {k: v for k, v in doc.items() if k != "obs"}
+    part_done("(c) runner")
 
     # (d) the collectives through the NCCL group
     mesh = elastic.make_mesh((1,), ("stage",), device=dev)
@@ -1508,6 +1671,7 @@ def phase_sharded(dev, card, ctx):
         f"tensor: {exact}")
     check(err < 1e-5 and exact, "the collectives disagree on NCCL")
     out["collectives"] = dict(pipeline_err=err, allreduce_exact=exact)
+    part_done("(d) collectives")
     if started:
         dist.destroy_process_group()
     return out, fails
@@ -1869,6 +2033,7 @@ def train_full_width(dev, card):
     check(last3 < first, f"the loss did not fall: {losses}")
 
     prof_path = os.path.join(os.path.dirname(REPORT), "train_profile.json")
+    t_prof = time.perf_counter()
     subprocess.run([sys.executable, "-m",
                     "repro_torch.benchmarks.train_profile",
                     "--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
@@ -1882,7 +2047,8 @@ def train_full_width(dev, card):
         f"kernels ({prof['gemm_kernels']} products, "
         f"{prof['foreach_kernels']} foreach), device "
         f"{prof['device_ms']:.1f} ms, wall {prof['wall_ms']:.1f} ms, idle "
-        f"{prof['idle']:.3f}, peak {prof['peak_gb']:.2f} GB [{card}]")
+        f"{prof['idle']:.3f}, peak {prof['peak_gb']:.2f} GB, "
+        f"{time.perf_counter() - t_prof:.1f} s [{card}]")
     for r in prof["top"][:5]:
         log(f"      {r['device_ms']:9.1f} ms  {r['count']:6d}x  {r['name']}")
     check(prof["kernels"] > 0, "the profiler recorded no CUDA kernel")
@@ -2390,11 +2556,16 @@ def main():
     log(card)
     report["card"] = card
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build (and the checked build phase 3b loads) ---------------------
     t0 = time.perf_counter()
-    lib = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        checked = pool.submit(_build.build, checked=True)
+        lib = _build.build()
+        checked_lib = checked.result()
     report["phases"]["build_s"] = time.perf_counter() - t0
-    log(f"build: {lib.name} in {report['phases']['build_s']:.1f} s")
+    log(f"build: {lib.parent.name}/{lib.name} and the checked "
+        f"{checked_lib.parent.name}/{checked_lib.name} in "
+        f"{report['phases']['build_s']:.1f} s")
 
     def ms(fn, *args, repeats=5, **kw):
         return timing.measure(fn, *args, device=dev, warmup=1,
@@ -2558,6 +2729,13 @@ def main():
                  "K blocks accumulated")
     torch.cuda.synchronize()
     report["phases"]["kernels_s"] = time.perf_counter() - t0
+
+    # -- 3b. every kernel under the sanitize checks --------------------------
+    log("phase 3b: the nine CUDA kernels under the sanitize checks "
+        "(memcheck, racecheck, synccheck, initcheck), a process each")
+    t0 = time.perf_counter()
+    report["sanitize"] = phase_sanitize(card)
+    report["phases"]["sanitize_s"] = time.perf_counter() - t0
 
     # -- 4. the 30-spec sweep at the reference geometry ----------------------
     log("phase 4: 30-spec sweep on the cuda substrate (reference geometry)")

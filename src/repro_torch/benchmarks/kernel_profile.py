@@ -85,9 +85,9 @@ def _device_us(evt) -> float:
 def device_kernels(calls: Dict[str, Callable[[], object]],
                    dev: torch.device) -> List[Dict]:
     """Every CUDA kernel the calls ran, one row per kernel name, from one
-    `torch.profiler` session around one call of each."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    `torch.profiler` session around one call of each (the card's activity
+    alone: the host's op events are not read)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for fn in calls.values():
             fn()

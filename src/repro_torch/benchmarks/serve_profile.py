@@ -67,8 +67,9 @@ PROFILES = 3
 
 
 def _profile_step(step, dev) -> Dict:
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    # the card's activity alone: its kernels and their device times (the
+    # host's op events, never read, more than double a profile's cost)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(dev)
     with torch.profiler.profile(activities=acts) as prof:
         step()

@@ -3,8 +3,11 @@
 The sources under `csrc/` compile, at first use, into one shared library
 with a plain C interface, loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -lineinfo \
          -shared -Xcompiler -fPIC
+
+(`-lineinfo` keeps each instruction's source line, so that a fault or a
+sanitizer report names the `.cu` line; it does not change the code.)
 
 Each `.cu` compiles to an object in its own `nvcc` process, all started
 together, and one more `nvcc` links them. No PyTorch header is included, so
@@ -16,6 +19,12 @@ library already built.
 Every C entry point takes tensor pointers and the stream as `c_void_p`,
 ints as `c_int`, and returns `cudaGetLastError()`; `check` raises on a
 non-zero code. Nothing here falls back: no compiler or no card raises.
+
+Two hooks serve `kernels/sanitize.py`, and change nothing unless it sets
+them: `use_checked_build()` loads a second library, compiled with
+`-DREPRO_SANITIZE` (barrier checks and jitter, csrc/common.cuh), and the
+wrappers allocate every output and scratch buffer through `empty`, which
+calls `allocator` where one is set.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -35,11 +44,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-lineinfo", "-Xcompiler",
+                     "-fPIC"]
+# the checked build's extra flag (barrier checks, jitter; csrc/common.cuh)
+CHECKED_FLAGS = ["-DREPRO_SANITIZE"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _functions: Dict[str, object] = {}
+_checked = False  # load the checked build (use_checked_build)
 build_log: str = ""  # compiler output of the last build in this process
 builds: int = 0      # libraries compiled in this process
 
@@ -61,8 +74,12 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def flags(checked: bool = False) -> List[str]:
+    return NVCC_FLAGS + (CHECKED_FLAGS if checked else [])
+
+
+def source_hash(checked: bool = False) -> str:
+    h = hashlib.sha256(" ".join(flags(checked)).encode())
     for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -84,12 +101,13 @@ def _run(cmds: Sequence[Sequence[str]]) -> str:
     return "".join(outs)
 
 
-def build(ptxas_info: bool = False) -> Path:
+def build(ptxas_info: bool = False, checked: bool = False) -> Path:
     """Compile the library unless this source hash is built already; return
     its path. `ptxas_info` adds `-Xptxas -v` (registers, shared memory and
-    spills per kernel, kept in `build_log`) and always rebuilds."""
+    spills per kernel, kept in `build_log`) and always rebuilds; `checked`
+    builds the checked library (`use_checked_build`)."""
     global build_log, builds
-    out_dir = BUILD_DIR / source_hash()
+    out_dir = BUILD_DIR / source_hash(checked)
     lib = out_dir / LIB_NAME
     if lib.exists() and not ptxas_info:
         return lib
@@ -99,7 +117,7 @@ def build(ptxas_info: bool = False) -> Path:
         extra = ["-Xptxas", "-v"] if ptxas_info else []
         tool = nvcc()
         objs = [tmp / (src.stem + ".o") for src in sources()]
-        log = _run([[tool, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c",
+        log = _run([[tool, *flags(checked), *extra, "-I", str(CSRC), "-c",
                      str(src), "-o", str(obj)]
                     for src, obj in zip(sources(), objs)])
         log += _run([[tool, *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
@@ -120,7 +138,7 @@ def function(name: str, argtypes: Sequence) -> object:
         fn = _functions.get(name)
         if fn is None:
             if _lib is None:
-                _lib = ctypes.CDLL(str(build()))
+                _lib = ctypes.CDLL(str(build(checked=_checked)))
             fn = getattr(_lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -132,6 +150,32 @@ def check(kernel: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{kernel}: CUDA kernel launch failed with "
                            f"cudaError {err}")
+
+
+def use_checked_build() -> None:
+    """Load the checked library (`-DREPRO_SANITIZE`) in place of the
+    release one for the rest of the process. Call it before the first
+    kernel launch."""
+    global _checked
+    with _lock:
+        if _lib is not None and not _checked:
+            raise RuntimeError("the release kernel library is loaded "
+                               "already: choose the checked build first")
+        _checked = True
+
+
+# kernels/sanitize.py's allocator for outputs and scratch (`empty`); None
+# keeps torch.empty
+allocator: Optional[Callable[..., torch.Tensor]] = None
+
+
+def empty(shape, dtype, device, label: str = "") -> torch.Tensor:
+    """`torch.empty` for a kernel's output or scratch buffer, or
+    `allocator`'s buffer where kernels/sanitize.py has set one (`label`
+    names the buffer in its reports)."""
+    if allocator is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return allocator(shape, dtype, device, label)
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,16 @@
 // Shared device code of the port's kernels: asynchronous copies into shared
-// memory (all four), the tanh GELU and a fixed-order block sum (K2, K3).
+// memory (all four), the tanh GELU, a fixed-order block sum (K2, K3) and the
+// CTA barrier every kernel takes, REPRO_SYNC().
+//
+// REPRO_SYNC() is __syncthreads(). In the checked build (-DREPRO_SANITIZE,
+// kernels/sanitize.py) it is a barrier that also checks that every thread of
+// the CTA reached the same REPRO_SYNC: a barrier in a divergent branch pairs
+// with another one, and the CTA records a fault and the line. Barriers,
+// cp.async waits and cluster barriers there also sleep each thread for a
+// random moment when the host sets a jitter, so that warps leave them out of
+// their usual order and a missing barrier shows as a wrong result. Each
+// translation unit keeps its own state, read and set through the entry
+// point that REPRO_SANITIZE_ENTRY(unit) defines at its end.
 //
 // K2 and K3 compute in float32 FMA with float32 accumulation (no TF32), as
 // the JAX kernels compute with preferred_element_type=float32; K1 and K4
@@ -9,6 +20,94 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#ifdef REPRO_SANITIZE
+namespace repro {
+namespace sanitize {
+
+// this translation unit's state (internal linkage)
+static __device__ unsigned g_jitter_ns;        // 0: no jitter
+static __device__ unsigned g_seed;
+static __device__ unsigned long long g_faults;  // faulty barrier passes
+static __device__ unsigned g_fault_line;        // the first one's line
+
+__device__ __forceinline__ unsigned mix32(unsigned h) {
+  h ^= h >> 16;
+  h *= 0x7feb352du;
+  h ^= h >> 15;
+  h *= 0x846ca68bu;
+  h ^= h >> 16;
+  return h;
+}
+
+// Sleep this thread for up to g_jitter_ns ns, drawn from the seed, the CTA,
+// the warp, the site and the clock.
+__device__ __forceinline__ void jitter(unsigned site) {
+  const unsigned ns = g_jitter_ns;
+  if (ns == 0) return;
+  const unsigned cta =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const unsigned h = mix32(g_seed ^ mix32(cta * 64u + (threadIdx.x >> 5)) ^
+                           mix32(site) ^ (unsigned)clock64());
+  __nanosleep(h % ns);
+}
+
+// A CTA barrier that checks that every thread passes the same one: 16
+// reductions of the site's bits, each a barrier of its own, so threads at
+// two different sites pair up reduction by reduction and see an OR that
+// differs from the AND.
+__device__ __forceinline__ void checked_sync(unsigned site, unsigned line) {
+  jitter(site);
+  bool bad = false;
+#pragma unroll 1
+  for (int b = 0; b < 16; ++b) {
+    const int bit = (site >> b) & 1;
+    const bool any = __syncthreads_or(bit) != 0;
+    const bool all = __syncthreads_and(bit) != 0;
+    bad |= any != all;
+  }
+  if (bad) {
+    atomicAdd(&g_faults, 1ull);
+    atomicCAS(&g_fault_line, 0u, line);
+  }
+  jitter(site ^ 0x5bd1e995u);
+}
+
+// Read and clear the faults, then set the jitter; after a device sync.
+static inline int exchange(int jitter_ns, unsigned seed,
+                           unsigned long long* faults, unsigned* line) {
+  cudaError_t e = cudaDeviceSynchronize();
+  const unsigned long long zero = 0;
+  const unsigned zero_line = 0, ns = (unsigned)jitter_ns;
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(faults, g_faults, sizeof(*faults));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(line, g_fault_line, sizeof(*line));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_faults, &zero, sizeof(zero));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(g_fault_line, &zero_line, sizeof(zero_line));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_jitter_ns, &ns, sizeof(ns));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_seed, &seed, sizeof(seed));
+  return (int)e;
+}
+
+}  // namespace sanitize
+}  // namespace repro
+
+#define REPRO_SYNC() \
+  ::repro::sanitize::checked_sync(__COUNTER__ + 1u, __LINE__)
+#define REPRO_JITTER() ::repro::sanitize::jitter(__LINE__)
+#define REPRO_SANITIZE_ENTRY(unit)                                        \
+  extern "C" int repro_sanitize_##unit(int jitter_ns, unsigned seed,      \
+                                       unsigned long long* faults,        \
+                                       unsigned* line) {                  \
+    return ::repro::sanitize::exchange(jitter_ns, seed, faults, line);   \
+  }
+#else
+#define REPRO_SYNC() __syncthreads()
+#define REPRO_JITTER() ((void)0)
+#define REPRO_SANITIZE_ENTRY(unit)
+#endif
 
 namespace repro {
 
@@ -33,6 +132,7 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  REPRO_JITTER();
 }
 
 __device__ __forceinline__ float gelu_tanh(float v) {
@@ -50,11 +150,11 @@ __device__ __forceinline__ double block_sum(double v) {
     v += __shfl_down_sync(0xffffffffu, v, off);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_part[warp] = v;
-  __syncthreads();
+  REPRO_SYNC();
   double total = 0.0;
   if (threadIdx.x == 0)
     for (int w = 0; w < Warps; ++w) total += warp_part[w];
-  __syncthreads();  // warp_part is free for the next call
+  REPRO_SYNC();  // warp_part is free for the next call
   return total;
 }
 

@@ -93,7 +93,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ A, int lda,
   }
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage kt has landed; stage kt - 1 is consumed
+    REPRO_SYNC();  // stage kt has landed; stage kt - 1 is consumed
     if (kt + kStages - 1 < nk) load((kt + kStages - 1) % kStages,
                                     kt + kStages - 1);
     cp_async_commit();

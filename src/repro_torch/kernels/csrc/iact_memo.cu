@@ -135,7 +135,7 @@ iact_schedule(const float* __restrict__ x_all,
   int cursor = 0, n_valid = 0, n_c = 0;  // the same in every thread
   const size_t block_floats = (size_t)R * d_in;
   const int lines = (k_n + 31) / 32;  // 128-byte lines of a row's slice
-  __syncthreads();
+  REPRO_SYNC();
   for (int b = 0; b < num_b; ++b) {
     const float* xb = x + (size_t)b * block_floats;
     if (b + 1 < num_b)  // this CTA's slice of the next block's rows
@@ -163,6 +163,7 @@ iact_schedule(const float* __restrict__ x_all,
       }
       if (lane == 0) pb[pr] = s;
     }
+    REPRO_JITTER();
     cluster.sync();  // every CTA's partials of block b are in
     // per row: d2 = the slices' sums in rank order, rounded to float32 (the
     // same in every CTA), then argmin / min_d2 (first index on ties) and the
@@ -197,7 +198,7 @@ iact_schedule(const float* __restrict__ x_all,
       wv[warp] = wm;
       wa[warp] = warg;
     }
-    __syncthreads();  // hits and the warps' writer candidates are in
+    REPRO_SYNC();  // hits and the warps' writer candidates are in
     const size_t row0 = (size_t)b * R;
     if (hits * 2 > R) {  // majority vote: approximate
       if (crank == 0) {
@@ -225,12 +226,13 @@ iact_schedule(const float* __restrict__ x_all,
       n_valid = min(n_valid + 1, T);
       ++n_c;
     }
-    __syncthreads();  // slot rows and hits are settled for block b + 1
+    REPRO_SYNC();  // slot rows and hits are settled for block b + 1
   }
   if (crank == 0 && tid == 0) {
     *n_comp = n_c;
     atomicAdd(work, (unsigned long long)n_c);
   }
+  REPRO_JITTER();
   cluster.sync();  // no CTA leaves while another may read its partials
 }
 
@@ -445,3 +447,5 @@ extern "C" int iact_rowfn_f32(const float* x, const float* w1,
   iact_fill<<<dim3(N, L), kFillThreads, 0, st>>>(src, y, N, d_out);
   return (int)cudaGetLastError();
 }
+
+REPRO_SANITIZE_ENTRY(iact_memo)

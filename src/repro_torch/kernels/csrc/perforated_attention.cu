@@ -269,7 +269,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   QFrag<T, D> qf;
   qf.load(q + qoff, g, t4);
-  __syncthreads();
+  REPRO_SYNC();
   const int n_vis = n_vis_s;
   const int cpb = bkv / kChunk;
   const int total = n_vis * cpb;
@@ -302,7 +302,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   repro::cp_async_commit();
   for (int t = 0; t < total; ++t) {
     repro::cp_async_wait<0>();
-    __syncthreads();  // chunk t landed; chunk t - 1's buffer is free
+    REPRO_SYNC();  // chunk t landed; chunk t - 1's buffer is free
     if (t + 1 < total) load((t + 1) % kStages, t + 1);
     repro::cp_async_commit();
     const int k0 = chunk_key(t);
@@ -459,3 +459,5 @@ extern "C" int attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  Skv, D, bq, bkv, n_enum, scale, causal, ln,
                                  stream);
 }
+
+REPRO_SANITIZE_ENTRY(perforated_attention)

@@ -93,7 +93,7 @@ perf_matmul(const float* __restrict__ x, const float* __restrict__ w,
     const int n = repro::compact_live(kept, live, n_enum, INT_MAX, blocks);
     if (lane == 0) n_live_s = n;
   }
-  __syncthreads();
+  REPRO_SYNC();
   const int n_live = n_live_s;
   const int cpb = bk / kBK;  // chunks a block
   const int total = n_live * cpb;
@@ -146,7 +146,7 @@ perf_matmul(const float* __restrict__ x, const float* __restrict__ w,
   }
   for (int t = 0; t < total; ++t) {
     repro::cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk t landed; chunk t - 1's buffer is free
+    REPRO_SYNC();  // chunk t landed; chunk t - 1's buffer is free
     if (t + kStages - 1 < total)
       load((t + kStages - 1) % kStages, t + kStages - 1);
     repro::cp_async_commit();
@@ -279,3 +279,5 @@ extern "C" int perforated_matmul_f32(const float* x, const float* w,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+REPRO_SANITIZE_ENTRY(perforated_matmul)

@@ -201,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
           }
           for (int kc = 0; kc < nkc; ++kc) {
             cp_async_wait<kStages - 2>();
-            __syncthreads();  // chunk kc has landed; kc - 1 is consumed
+            REPRO_SYNC();  // chunk kc has landed; kc - 1 is consumed
             if (kc + kStages - 1 < nkc)
               stage(kc + kStages - 1, (kc + kStages - 1) % kStages);
             cp_async_commit();
@@ -237,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
             }
           }
           cp_async_wait<0>();
-          __syncthreads();  // every thread is done with the ring
+          REPRO_SYNC();  // every thread is done with the ring
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
             float* dst = red + (kg * kRows + rh + 2 * r) * kCols + 8 * ch;
@@ -246,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
             *reinterpret_cast<float4*>(dst + 4) =
                 make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
           }
-          __syncthreads();
+          REPRO_SYNC();
           if (tid < kRows * kCols) {
             const int r = tid / kCols, c = tid % kCols;
             if (r < rn && c < a.cols) {
@@ -258,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
               my += (double)v;
             }
           }
-          __syncthreads();  // red is free
+          REPRO_SYNC();  // red is free
         }
       }
       return my;
@@ -266,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
     for (int t = tid; t < a.h; t += kThreads) window[t] = 0.0;
     int filled = 0;                // kept by thread 0
     int remaining = 0, steps = 0;  // the same in every thread
-    __syncthreads();
+    REPRO_SYNC();
     for (int i = 0; i < num_i; ++i) {
       if (remaining > 0) {  // approximate: copy the memo, no product
         float* y_i = a.y + (size_t)i * a.bm * a.N + c_base;
@@ -294,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
           __nanosleep(32);
         __threadfence();
       }
-      __syncthreads();
+      REPRO_SYNC();
       // the team's partials in a fixed order, the same in every CTA
       double v = 0.0;
       for (int t = tid; t < a.g; t += kThreads) v += __ldcg(parts + t);
@@ -320,12 +320,12 @@ __global__ void __launch_bounds__(kThreads, 1) taf_persistent(Args a) {
         remaining_s = next;
         if (rank == 0) a.mask[i * num_j + j] = 0;
       }
-      __syncthreads();
+      REPRO_SYNC();
       // thread 0 writes remaining_s again only past later barriers
       remaining = remaining_s;
     }
     if (tid == 0 && rank == 0) atomicAdd(a.work, (unsigned long long)steps);
-    __syncthreads();  // the memo and W slices are free for the next round
+    REPRO_SYNC();  // the memo and W slices are free for the next round
   }
 }
 
@@ -408,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
           }
           for (int kc = 0; kc < nkc; ++kc) {
             cp_async_wait<kStages - 2>();
-            __syncthreads();  // chunk kc has landed; kc - 1 is consumed
+            REPRO_SYNC();  // chunk kc has landed; kc - 1 is consumed
             if (kc + kStages - 1 < nkc)
               stage(kc + kStages - 1, (kc + kStages - 1) % kStages);
             cp_async_commit();
@@ -444,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
             }
           }
           cp_async_wait<0>();
-          __syncthreads();  // every thread is done with the ring
+          REPRO_SYNC();  // every thread is done with the ring
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
             float* dst = red + (kg * kRows + rh + 2 * r) * kCols + 8 * ch;
@@ -453,7 +453,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
             *reinterpret_cast<float4*>(dst + 4) =
                 make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
           }
-          __syncthreads();
+          REPRO_SYNC();
           if (tid < kRows * kCols) {
             const int r = tid / kCols, c = tid % kCols;
             if (r < rn && c < a.cols) {
@@ -468,7 +468,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
               my += (double)v;
             }
           }
-          __syncthreads();  // red is free
+          REPRO_SYNC();  // red is free
         }
         const double tot = repro::block_sum<kWarps>(my);
         if (tid == 0) parts[rank * a.spc + s] = tot;
@@ -482,7 +482,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
       thr_s[tid] = a.thresh[l0 + tid];
     }
     int steps = 0;  // computed steps, the same in every thread
-    __syncthreads();
+    REPRO_SYNC();
     for (int i = 0; i < num_i; ++i) {
       // the lanes that compute step i, the same in every thread; the state
       // changes only on a computed step, past its barriers, so a step that
@@ -523,7 +523,7 @@ __global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
             __nanosleep(32);
           __threadfence();
         }
-        __syncthreads();
+        REPRO_SYNC();
         // the unit's slice sums in slice order, the same in every CTA
         double v = 0.0;
         for (int t = tid; t < n_sub; t += kThreads) v += __ldcg(parts + t);
@@ -555,11 +555,11 @@ __global__ void __launch_bounds__(kThreads, 1) taf_lanes(Args a) {
             if (rank == 0) mask_at(l, i) = 0;
           }
         }
-        __syncthreads();  // the lane state is settled for step i + 1
+        REPRO_SYNC();  // the lane state is settled for step i + 1
       }
     }
     if (tid == 0 && rank == 0) atomicAdd(a.work, (unsigned long long)steps);
-    __syncthreads();  // the memo and W slices are free for the next round
+    REPRO_SYNC();  // the memo and W slices are free for the next round
   }
 }
 
@@ -639,3 +639,5 @@ extern "C" int taf_matmul_f32(const float* x, const float* w, float* y,
       (const void*)kernel, dim3(a.n_teams * a.g), dim3(kThreads), args, smem,
       st);
 }
+
+REPRO_SANITIZE_ENTRY(taf_matmul)

@@ -186,11 +186,11 @@ def schedule(x: torch.Tensor, block_rows: int, table_size: int, threshold
     dev = x.device
     xf = _build.operand(x)
     thr = _build.knob_operand(threshold, 0, dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    mask = torch.empty((n // block_rows,), **i32)
-    lst = torch.empty((n // block_rows,), **i32)
-    n_comp = torch.empty((1,), **i32)
-    src = torch.empty((n,), **i32)
+    i32 = (torch.int32, dev)
+    mask = _build.empty((n // block_rows,), *i32, "iact mask")
+    lst = _build.empty((n // block_rows,), *i32, "iact list")
+    n_comp = _build.empty((1,), *i32, "iact n_comp")
+    src = _build.empty((n,), *i32, "iact src")
     work = torch.zeros((1,), dtype=torch.int64, device=dev)
     fn = _build.function("iact_schedule_f32", _SCHEDULE_ARGTYPES)
     p = _build.ptr
@@ -225,15 +225,15 @@ def iact_rowfn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     n_l = max(lanes, 1)
     xf, w1f, w2f = (_build.operand(t) for t in (x, w1, w2))
     thr = _build.knob_operand(threshold, lanes, dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    y = torch.empty((n_l, n, d_out), dtype=torch.float32, device=dev)
-    mask = torch.empty((n_l, n // block_rows), **i32)
-    lst = torch.empty((n_l, n // block_rows), **i32)
-    n_comp = torch.empty((n_l,), **i32)
-    src = torch.empty((n_l, n), **i32)
-    h = torch.empty((n_l, n, d_h), dtype=torch.float32, device=dev)
-    lst_u = torch.empty((n // block_rows,), **i32)
-    n_u = torch.empty((1,), **i32)
+    i32 = (torch.int32, dev)
+    y = _build.empty((n_l, n, d_out), torch.float32, dev, "iact y")
+    mask = _build.empty((n_l, n // block_rows), *i32, "iact mask")
+    lst = _build.empty((n_l, n // block_rows), *i32, "iact list")
+    n_comp = _build.empty((n_l,), *i32, "iact n_comp")
+    src = _build.empty((n_l, n), *i32, "iact src")
+    h = _build.empty((n_l, n, d_h), torch.float32, dev, "iact h")
+    lst_u = _build.empty((n // block_rows,), *i32, "iact union list")
+    n_u = _build.empty((1,), *i32, "iact union n")
     work = COUNTER.work_buffer(dev)
     fn = _build.function("iact_rowfn_f32", _ROWFN_ARGTYPES)
     p = _build.ptr

@@ -160,7 +160,7 @@ def perforated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else float(1.0 / np.sqrt(d))
     qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
     n_l = max(lanes, 1)
-    o = torch.empty((n_l, b, hq, sq, d), dtype=q.dtype, device=dev)
+    o = _build.empty((n_l, b, hq, sq, d), q.dtype, dev, "attention o")
     work = COUNTER.work_buffer(dev)
     fn = _build.function(_ENTRIES[q.dtype], _ARGTYPES)
     p = _build.ptr

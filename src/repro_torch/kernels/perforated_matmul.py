@@ -127,7 +127,7 @@ def perforated_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
         raise ValueError(f"perforated_matmul kernel: {why}")
     dev = x.device
     xf, wf = _build.operand(x), _build.operand(w)
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    y = _build.empty((m, n), torch.float32, dev, "perforated_matmul y")
     work = COUNTER.work_buffer(dev)
     fn = _build.function("perforated_matmul_f32", _ARGTYPES)
     p = _build.ptr

@@ -140,11 +140,11 @@ def taf_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int,
     xf = _build.operand(x)
     wf = _build.operand(w)
     thr = _build.knob_operand(rsd_threshold, lanes, dev)
-    y = torch.empty((n_l, m, n), dtype=torch.float32, device=dev)
-    mask = torch.empty((n_l, num_i, num_j), dtype=torch.int32, device=dev)
-    partials = torch.empty((2 * n_l * (n // cols),), dtype=torch.float64,
-                           device=dev)
-    arrive = torch.empty((n_l * num_j,), dtype=torch.int32, device=dev)
+    y = _build.empty((n_l, m, n), torch.float32, dev, "taf y")
+    mask = _build.empty((n_l, num_i, num_j), torch.int32, dev, "taf mask")
+    partials = _build.empty((2 * n_l * (n // cols),), torch.float64, dev,
+                            "taf partials")
+    arrive = _build.empty((n_l * num_j,), torch.int32, dev, "taf arrive")
     work = COUNTER.work_buffer(dev)
     fn = _build.function("taf_matmul_f32", _ARGTYPES)
     p = _build.ptr

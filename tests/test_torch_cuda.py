@@ -1113,3 +1113,32 @@ class TestDryRunOnCard:
         assert dc.mesh_differences(cuda, cpu) == {}
         assert cuda["collectives"]["shard_moves"] == \
             cpu["collectives"]["shard_moves"]
+
+
+@pytest.mark.cuda
+class TestSanitizeOnCard:
+    """The nine CUDA kernels under `repro_torch.kernels.sanitize`, each tool
+    in a process of its own (the checked build and the release one cannot
+    share a process), as `chip_smoke.py` phase 3b runs them: no finding,
+    every case equal to its plain version, every kernel launched."""
+
+    @pytest.mark.parametrize("tool", ("memcheck", "racecheck", "synccheck",
+                                      "initcheck"))
+    def test_tool_finds_nothing(self, tool):
+        import json
+        import os
+        import subprocess
+        import sys
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no "
+                        "interpret mode)")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.kernels.sanitize", "--tool",
+             tool], capture_output=True, text=True, timeout=600, cwd=root,
+            env=dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+                     PYTORCH_NO_CUDA_MEMORY_CACHING="1"))
+        assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+        summary = json.loads(r.stdout.strip().splitlines()[-1])
+        assert summary["errors"] == 0 and not summary["not_launched"]
+        assert all(n > 0 for n in summary["launches"].values())
